@@ -43,3 +43,5 @@ def souf_mesh():
 def pytest_configure(config):
     config.addinivalue_line("markers",
                             "slow: long end-to-end golden-validation runs")
+    config.addinivalue_line("markers",
+                            "cuda: needs an NVIDIA GPU (skips without one)")
