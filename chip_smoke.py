@@ -6,19 +6,37 @@
 Run from the root of a checkout.  Phases, each reported on its own line:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build the hand-written CUDA kernels from ``fesom2_tpu_torch/csrc``;
+2. build the hand-written CUDA kernels from ``fesom2_tpu_torch/csrc``
+   (one nvcc per source, all started together);
 3. each kernel against its plain torch version on the card, at the
-   shapes of the soufflet step, in float64 (within 1e-12 of max|plain|)
-   and float32 (1e-5); fct_bounds bitwise; then both timed with CUDA
-   events (median of 30 after warm-up);
-4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers)
-   through ``run.run_soufflet``, with sanity bounds, linfs volume
-   conservation and a launch count above 0 for every kernel;
+   shapes of its path, in float64 (within 1e-12 of max|plain|) and
+   float32 (1e-5): the soufflet step's four at the 2,875-node channel,
+   ring_spmv and block_schwarz with the CG tables of the 46,000-node
+   zstar channel, the probe's window_gather and onehot_gather (float32)
+   at its shapes; fct_bounds and the probe kernels bitwise; then both
+   timed with CUDA events (median of 30 after warm-up);
+4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
+   linfs, dense SSH) through ``run.run_soufflet``, with sanity bounds,
+   linfs volume conservation and a launch count above 0 for every kernel
+   of that path;
 5. 5 float64 steps on the card (kernels) against 5 on the CPU (plain
    versions) from the same state, within 1e-9 of max|CPU|;
 6. setup seconds, then throughput of 30 float32 and 30 float64 steps
    after 2 warm-up steps, alternately and twice each, and a profile of 5
-   float32 steps (information, not a gate).
+   float32 steps (information, not a gate);
+7. the gather probe (``python -m fesom2_tpu_torch.scripts.
+   gather_cost_model``): ``gather_probe()``, whose two kernels must equal
+   its reference bitwise and launch, then ``main()``'s scans
+   (information);
+8. the zstar channel above the dense limit: 46,000 nodes (100 x 460, about
+   5 km), 40 layers, CG free surface; 20 float64 steps through
+   ``run.run_soufflet`` with the sanity bounds, area-mean hbar below 1e-6
+   and every kernel of the path launched; CG iterations per step, setup
+   seconds, then throughput in float32 and float64 (20 steps each,
+   alternately and twice each);
+9. the CG path card against CPU: the 2,875-node channel, zstar, with CG
+   forced (``DENSE_SSH_MAX_NODES = 0``), 5 float64 steps, within 1e-8 of
+   max|CPU|.
 
 Any failure exits non-zero before the last line.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs one card and exits non-zero
@@ -28,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 
 def fail(msg: str):
@@ -82,8 +101,65 @@ def device_us(fn, calls: int = 20) -> str:
     return f"{us:.2f}" if us > 0 else "not measured"
 
 
+def profile_steps(phase: str, model, state, n: int, card: str):
+    """Profile n steps: wall and device kernel time, the busy share, the
+    kernels per step, the 12 costliest kernels and the host time of each
+    ``step.*`` span (information, not a gate)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    from fesom2_tpu_torch.run import run_soufflet
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_soufflet(n, model=model, state=state, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = device_kernels(prof)
+    dev_us = sum(e.self_device_time_total for e in kern)
+    say(f"{phase} profile {str(model.dtype).replace('torch.', '')} {n} steps: "
+        f"wall {wall * 1e3:.1f} ms, device kernel time {dev_us / 1e3:.1f} ms, "
+        f"busy share {dev_us / 1e3 / (wall * 1e3):.3f}, kernels launched "
+        f"{sum(e.count for e in kern) / n:.0f}/step ({card})")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+        say(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+    for e in sorted((e for e in prof.key_averages()
+                     if e.key.startswith("step.")
+                     and e.device_type == DeviceType.CPU), key=lambda e: e.key):
+        say(f"{phase} span {e.key:14s} host {e.cpu_time_total / 1e3 / n:8.3f} "
+            f"ms/step")
+
+
 def max_abs(a, b):
     return float((a - b).abs().max())
+
+
+def check_sane(phase: str, model, state, launches: dict):
+    """The soufflet sanity bounds, the volume (area-mean hbar below 1e-6)
+    and a launch count above 0 for every kernel of the path."""
+    import torch
+    m = model.mesh
+    for name in ("u", "v", "eta", "hbar", "tr", "w"):
+        if not torch.isfinite(getattr(state, name)).all():
+            fail(f"{phase}: {name} is not finite")
+    umax = float(state.u.abs().max())
+    etamax = float(state.eta.abs().max())
+    T = state.tr[0][m.node_layer_mask]
+    a = m.area[0]
+    hbar_int = float((state.hbar * a).sum() / a.sum())
+    say(f"{phase} |u|max={umax:.4f} |eta|max={etamax:.4f} "
+        f"T=[{float(T.min()):.4f}, {float(T.max()):.4f}] "
+        f"mean hbar={hbar_int:.3e}")
+    if not (umax < 3.0 and etamax < 2.0 and float(T.min()) > 0.0
+            and float(T.max()) < 26.0):
+        fail(f"{phase}: fields outside the sanity bounds")
+    if abs(hbar_int) >= 1e-6:
+        fail(f"{phase}: area-mean hbar {hbar_int:.3e} (volume)")
+    idle = [k for k, v in launches.items() if v <= 0]
+    if idle:
+        fail(f"{phase}: kernels never launched on the path: {idle}")
 
 
 def main():
@@ -93,11 +169,14 @@ def main():
              "CUDA GPU")
     # the port, from the checkout this script lies in
     import numpy as np
+    import fesom2_tpu_torch.model as port_model
     from fesom2_tpu_torch import kernels
     from fesom2_tpu_torch.kernels import build
-    from fesom2_tpu_torch.core import ops, tracers
+    from fesom2_tpu_torch.core import ops, ssh, tracers
+    from fesom2_tpu_torch.mesh.channel import channel_raw_mesh, write_mesh
     from fesom2_tpu_torch.model import setup_soufflet_model
     from fesom2_tpu_torch.run import run_soufflet
+    from fesom2_tpu_torch.scripts import gather_cost_model as probe
 
     # phase 1 ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -133,6 +212,55 @@ def main():
 
     def rand(*shape, lo=-1.0, hi=1.0, dtype=torch.float64):
         return torch.as_tensor(rng.uniform(lo, hi, shape), device=dev).to(dtype)
+
+    # the zstar channel above the dense limit: its CG tables feed phase 3,
+    # its models phase 8
+    big_path = write_mesh(channel_raw_mesh(nx=100, ny=460), str(
+        Path(__file__).resolve().parent / "build" / "chip_smoke"
+        / "channel_100x460"))
+    big, big_setup = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big[dtype] = setup_soufflet_model(big_path, device=dev, dtype=dtype,
+                                          which_ale="zstar")
+        torch.cuda.synchronize()
+        big_setup[dtype] = time.perf_counter() - t0
+    bm = big[torch.float64]
+    pc64 = bm.ssh_block_pc
+    say(f"phase 3 CG tables: N={bm.mesh.n_nodes} ring "
+        f"{list(bm.ssh_ring.cols.shape)} ALE terms "
+        f"{list(bm.ssh_ring.e_ids.shape)} blocks "
+        f"{list(pc64.inv_blocks.shape)} slots {list(pc64.node_slots.shape)} "
+        f"coarse {list(pc64.coarse_inv.shape)}")
+    probe_vals, probe_idx = (torch.as_tensor(a, device=dev)
+                             for a in probe.probe_inputs(**probe.PROBE_SHAPE))
+
+    def cg_cases(dtype):
+        """The CG path's kernels with the 46k channel's tables; the ring
+        values rebuilt from a 0.5 m hbar perturbation, as a step does."""
+        m = big[dtype]
+        hbar_e = rand(m.mesh.n_elems, lo=-0.5, hi=0.5, dtype=dtype)
+        op = m.ssh_ring.materialize(hbar_e)
+        pc = m.ssh_block_pc
+        x = rand(m.mesh.n_nodes, dtype=dtype)
+        nb, K = pc.block_ids.shape
+        return [("ring_spmv", f"ring {list(op.cols.shape)}",
+                 lambda: op(x),
+                 lambda: ssh.ring_spmv_plain(op.cols, op.vals, x), False),
+                ("block_schwarz", f"blocks [{nb}, {K}, {K}]",
+                 lambda: pc(x),
+                 lambda: ssh.block_schwarz_plain(pc, x), False)]
+
+    def probe_cases():
+        v, i = probe_vals, probe_idx
+        label = "G,W,T,NL " + ",".join(map(str, probe.PROBE_SHAPE.values()))
+        return [("window_gather", label,
+                 lambda: probe.window_gather(v, i),
+                 lambda: probe.window_gather_plain(v, i), True),
+                ("onehot_gather", label,
+                 lambda: probe.onehot_gather(v, i),
+                 lambda: probe.onehot_gather_plain(v, i), True)]
 
     def cases(dtype, mesh):
         """(kernel, label, wrapper call, plain call, exact) at the slice's
@@ -177,7 +305,9 @@ def main():
     summary = {k: {"max_abs_err": 0.0} for k in kernels.KERNELS}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         tag = str(dtype).replace("torch.", "")
-        for name, label, kern, plain, exact in cases(dtype, meshes[dtype]):
+        for name, label, kern, plain, exact in (
+                cases(dtype, meshes[dtype]) + cg_cases(dtype)
+                + (probe_cases() if dtype == torch.float32 else [])):
             got, want = kern(), plain()
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
@@ -194,15 +324,15 @@ def main():
                      f"{'bitwise' if exact else tol})")
             k_ms = timed(kern)
             p_ms = timed(plain)
-            say(f"phase 3 {name:18s} {tag} {label:34s} max_abs_err={err:.3e} "
+            say(f"phase 3 {name:18s} {tag} {label:36s} max_abs_err={err:.3e} "
                 f"kernel_us={k_ms * 1e3:.1f} plain_us={p_ms * 1e3:.1f} "
                 f"device: kernel_us={device_us(kern)} "
                 f"plain_us={device_us(plain)}")
-            if dtype == torch.float64:
+            if dtype == torch.float64 or name.endswith("_gather"):
                 s = summary[name]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
-                # the largest shape of each kernel on the main path is timed
-                # last among its f64 cases
+                # the largest shape of each kernel on its path is timed
+                # last among its f64 cases (the probe kernels: f32 only)
                 s["ms"], s["plain_ms"] = k_ms, p_ms
 
     # a NaN in ttf must spread through fct_bounds as through torch.maximum
@@ -222,34 +352,36 @@ def main():
         if not same or min(n_nan) == 0:
             fail("phase 3: fct_bounds does not propagate NaN as plain does")
 
+    # the probe kernels equal each other; an index outside [0, W) gives a
+    # NaN row in kernels and plain versions alike
+    v, i = probe_vals, probe_idx.clone()
+    W = v.shape[1]
+    if not torch.equal(probe.window_gather(v, i), probe.onehot_gather(v, i)):
+        fail("phase 3: window_gather and onehot_gather differ")
+    i[0, 0], i[7, 100], i[300, 255] = W, W + 1000, -W - 1
+    outs = [probe.window_gather(v, i), probe.onehot_gather(v, i),
+            probe.window_gather_plain(v, i), probe.onehot_gather_plain(v, i)]
+    n_nan = [int(o.isnan().any(-1).sum()) for o in outs]
+    same = all(torch.equal(o.isnan(), outs[0].isnan())
+               and torch.equal(o.nan_to_num(), outs[0].nan_to_num())
+               for o in outs)
+    say(f"phase 3 probe kernels, 3 indices outside the window: NaN rows "
+        f"{n_nan}, kernels equal plain and each other: {same}")
+    if not same or n_nan != [3] * 4:
+        fail("phase 3: the probe kernels do not fill outside the window as "
+             "the plain versions do")
+
     # phase 4 ------------------------------------------------------------
+    step_kernels = ("node_edge_reduce", "elem_to_node_mean", "tridiag_solve",
+                    "fct_bounds")
     kernels.reset_launches()
     model, state, timers = run_soufflet(20, model=model64, verbose=False)
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = {k: kernels.LAUNCHES[k] for k in step_kernels}
     say(f"phase 4 soufflet 20 steps float64: {timers.step:.3f} s stepping, "
         f"launches {launches}")
-    m = model.mesh
-    nmask = m.node_layer_mask
-    for name in ("u", "v", "eta", "hbar", "tr", "w"):
-        if not torch.isfinite(getattr(state, name)).all():
-            fail(f"phase 4: {name} is not finite")
-    umax = float(state.u.abs().max())
-    etamax = float(state.eta.abs().max())
-    T = state.tr[0][nmask]
-    a = m.area[0]
-    hbar_int = float((state.hbar * a).sum() / a.sum())
-    say(f"phase 4 |u|max={umax:.4f} |eta|max={etamax:.4f} "
-        f"T=[{float(T.min()):.4f}, {float(T.max()):.4f}] "
-        f"mean hbar={hbar_int:.3e}")
-    if not (umax < 3.0 and etamax < 2.0 and float(T.min()) > 0.0
-            and float(T.max()) < 26.0):
-        fail("phase 4: fields outside the sanity bounds")
-    if abs(hbar_int) >= 1e-6:
-        fail(f"phase 4: area-mean hbar {hbar_int:.3e} (linfs volume)")
-    idle = [k for k, v in launches.items() if v <= 0]
-    if idle:
-        fail(f"phase 4: kernels never launched on the main path: {idle}")
+    check_sane("phase 4", model, state, launches)
+    path_launches = dict(launches)
 
     # phase 5 ------------------------------------------------------------
     model_cpu = setup_soufflet_model(device="cpu", dtype=torch.float64)
@@ -295,40 +427,101 @@ def main():
             say(f"phase 6 throughput {str(dtype).replace('torch.', '')}: "
                 f"{n / wall:.3f} steps/s, {wet * n / wall:.6e} wet "
                 f"node-levels/s ({wet} wet node-levels; {card})")
-    from torch.autograd import DeviceType
-    from torch.profiler import profile, ProfilerActivity
     mdl, st = runs[torch.float32]
+    profile_steps("phase 6", mdl, st, 5, card)
+
+    # phase 7 ------------------------------------------------------------
+    kernels.reset_launches()
+    probe_res = probe.gather_probe()
     torch.cuda.synchronize()
-    n = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, st, _ = run_soufflet(n, model=mdl, state=st, verbose=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = device_kernels(prof)
-    dev_us = sum(e.self_device_time_total for e in kern)
-    say(f"phase 6 profile float32 {n} steps: wall {wall * 1e3:.1f} ms, device "
-        f"kernel time {dev_us / 1e3:.1f} ms, busy share "
-        f"{dev_us / 1e3 / (wall * 1e3):.3f}, kernels launched "
-        f"{sum(e.count for e in kern) / n:.0f}/step ({card})")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
-        say(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
-            f"{e.key[:90]}")
-    for e in sorted((e for e in prof.key_averages()
-                     if e.key.startswith("step.")
-                     and e.device_type == DeviceType.CPU), key=lambda e: e.key):
-        say(f"phase 6 span {e.key:14s} host {e.cpu_time_total / 1e3 / n:8.3f} "
-            f"ms/step")
+    for k in ("window_gather", "onehot_gather"):
+        path_launches[k] = kernels.LAUNCHES[k]
+    say(f"phase 7 probe launches {({k: path_launches[k] for k in probe_res})}"
+        f" ({card})")
+    if min(path_launches[k] for k in probe_res) <= 0:
+        fail("phase 7: a probe kernel was never launched")
+    probe.main()
+
+    # phase 8 ------------------------------------------------------------
+    big_wet = int(bm.mesh.node_layer_mask.sum())
+    for dtype, sec in big_setup.items():
+        say(f"phase 8 setup {str(dtype).replace('torch.', '')}: {sec:.3f} s "
+            f"(N={bm.mesh.n_nodes}: mesh tables, tracer statics, block "
+            f"preconditioner, ALE ring)")
+    cg_kernels = step_kernels + ("ring_spmv", "block_schwarz")
+    kernels.reset_launches()
+    st = bm.initial_state()
+    iters = []
+    t0 = time.perf_counter()
+    for _ in range(20):
+        _, st, _ = run_soufflet(1, model=bm, state=st, verbose=False)
+        iters.append(bm.ssh_iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in cg_kernels}
+    say(f"phase 8 zstar CG 20 steps float64: {wall:.3f} s, CG iterations per "
+        f"step {iters}, launches {launches}")
+    check_sane("phase 8", bm, st, launches)
+    for k in ("ring_spmv", "block_schwarz"):
+        path_launches[k] = launches[k]
+    runs = {dtype: [m, m.initial_state()] for dtype, m in big.items()}
+    for dtype, run in runs.items():
+        _, run[1], _ = run_soufflet(2, model=run[0], state=run[1],
+                                    verbose=False)
+    for _ in range(2):
+        for dtype, run in runs.items():
+            mdl, st = run
+            n, its = 20, 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                _, st, _ = run_soufflet(1, model=mdl, state=st, verbose=False)
+                its += mdl.ssh_iters
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run[1] = st
+            if not torch.isfinite(st.eta).all():
+                fail("phase 8: eta is not finite")
+            say(f"phase 8 throughput {str(dtype).replace('torch.', '')}: "
+                f"{n / wall:.3f} steps/s, {big_wet * n / wall:.6e} wet "
+                f"node-levels/s ({big_wet} wet node-levels; "
+                f"{its / n:.1f} CG iterations/step; {card})")
+
+    for dtype, run in runs.items():
+        profile_steps("phase 8", run[0], run[1], 3, card)
+
+    # phase 9 ------------------------------------------------------------
+    dense_max = port_model.DENSE_SSH_MAX_NODES
+    port_model.DENSE_SSH_MAX_NODES = 0
+    try:
+        cg_gpu = setup_soufflet_model(device=dev, which_ale="zstar")
+        cg_cpu = setup_soufflet_model(device="cpu", which_ale="zstar")
+    finally:
+        port_model.DENSE_SSH_MAX_NODES = dense_max
+    _, s_gpu, _ = run_soufflet(5, model=cg_gpu, verbose=False)
+    _, s_cpu, _ = run_soufflet(5, model=cg_cpu, verbose=False)
+    say(f"phase 9 CG iterations of the 5th step: card {cg_gpu.ssh_iters}, "
+        f"cpu {cg_cpu.ssh_iters}")
+    for name in ("u", "v", "eta", "hbar", "d_eta", "tr", "hnode"):
+        ref = getattr(s_cpu, name)
+        rel = max_abs(getattr(s_gpu, name).cpu(), ref) / float(ref.abs().max())
+        say(f"phase 9 CG path card vs cpu {name}: {rel:.3e} of max|cpu|")
+        if not rel <= 1e-8:
+            fail(f"phase 9: {name} card vs CPU {rel:.3e} > 1e-8")
 
     # result -------------------------------------------------------------
     sources = {"node_edge_reduce": "fesom2_tpu/core/ops.py:154",
                "elem_to_node_mean": "fesom2_tpu/core/ops.py:328",
                "tridiag_solve": "fesom2_tpu/core/ops.py:389",
-               "fct_bounds": "fesom2_tpu/core/tracers.py:584"}
+               "fct_bounds": "fesom2_tpu/core/tracers.py:584",
+               "ring_spmv": "fesom2_tpu/core/ssh.py:209",
+               "block_schwarz": "fesom2_tpu/core/ssh.py:429",
+               "window_gather": "scripts/gather_cost_model.py:115",
+               "onehot_gather": "scripts/gather_cost_model.py:148"}
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"fesom2_tpu_torch/csrc/{k}.cu",
-         "replaces": sources[k], "launches": launches[k],
+         "replaces": sources[k], "launches": path_launches[k],
          "max_abs_err": summary[k]["max_abs_err"],
          "ms": summary[k]["ms"], "plain_ms": summary[k]["plain_ms"]}
         for k in kernels.KERNELS]}))

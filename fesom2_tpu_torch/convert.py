@@ -3,6 +3,7 @@ port's dataclasses of tensors.
 
     state = state_from_numpy({f.name: np.asarray(getattr(s, f.name))
                               for f in dataclasses.fields(s)}, device, dtype)
+    ring = tables_from(ssh.RingALE, jax_ring, device, dtype)
 """
 from __future__ import annotations
 
@@ -45,6 +46,15 @@ def forcing_from_numpy(arrays: dict, device, dtype=torch.float64) -> Forcing:
 def mesh_from_numpy(arrays: dict, device, dtype=torch.float64) -> MeshTables:
     """MeshTables from {field name: array or static value}."""
     return _from_numpy(MeshTables, arrays, device, dtype)
+
+
+def tables_from(cls, obj, device, dtype=torch.float64):
+    """An instance of the port's dataclass ``cls`` from any object with
+    array attributes of the same names: the JAX package's
+    ``ssh.RingOperator``, ``ssh.RingALE`` and ``ssh.BlockSchwarz`` map onto
+    the port's classes of those names."""
+    return _from_numpy(cls, {f.name: np.asarray(getattr(obj, f.name))
+                             for f in dataclasses.fields(cls)}, device, dtype)
 
 
 def to_numpy(x):

@@ -6,7 +6,7 @@ The port of the soufflet subset of ``fesom2_tpu/core/dynamics.py`` (ref
 :154-343; ``src/oce_dyn.F90`` update_vel :101-131, compute_vel_nodes
 :133-169, visc_filt_bcksct :563-649; ``src/oce_ale.F90`` impl_vert_visc_ale
 :2348-2517; ``src/oce_ale_pressure_bv.F90`` pressure_force_4_linfs_fullcell
-:432-466).
+:432-466, pressure_force_4_zxxxx_shchepetkin :1878-2104).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from fesom2_tpu.constants import g, density_0
 from ..mesh import MeshTables
 from .state import OceanState, Forcing
 from .ops import (scalar_gradient, tridiag_solve, elem_to_node_mean,
-                  edge_divergence)
+                  edge_divergence, cumsum_bottom_up)
 
 
 def _elem_interface_mask(mesh: MeshTables):
@@ -36,16 +36,124 @@ def pressure_force_linfs(state: OceanState, mesh: MeshTables) -> OceanState:
                    pgf_y=torch.where(m, gy, 0.0))
 
 
+def _pgf_vertex_stencil(mesh: MeshTables):
+    """Per-vertex 3-point vertical stencil of the moving-coordinate PGF
+    (ref oce_ale_pressure_bv.F90:2209-2296): base b = k-1 in the interior,
+    k at the surface, k-2 where the vertex column ends with the element's,
+    clipped into the column.  Returns, per element vertex, (node ids [E],
+    dm2, dm1): [nl-1, E] masks of the base offset d = b - k being -2 or -1
+    (else 0), so the stencil reads are static shifts of the gathered
+    column."""
+    dev = mesh.zbar.device
+    k = torch.arange(mesh.nl - 1, device=dev)[:, None]
+    nle = (mesh.nlevels_elem - 1)[None, :]
+    out = []
+    for v in range(3):
+        env = mesh.elem_nodes[:, v]
+        nln = (mesh.nlevels_node[env] - 1)[None, :]
+        b = torch.where(k == 0, 0, k - 1)
+        b = torch.where((k == nle - 1) & (nln - 1 == k), k - 2, b)
+        b = torch.minimum(torch.clamp_min(b, 0), torch.clamp_min(nln - 3, 0))
+        d = torch.clamp(b - k, -2, 0)
+        out.append((env, d == -2, d == -1))
+    return out
+
+
+def _shift_clamp(arr_e, j: int):
+    """[nl-1, E] shifted vertically by a static j with edge clamping: row
+    k becomes row clip(k+j, 0, nl-2)."""
+    if j == 0:
+        return arr_e
+    if j > 0:
+        return torch.cat([arr_e[j:], arr_e[-1:].expand((j,) + arr_e.shape[1:])])
+    return torch.cat([arr_e[:1].expand((-j,) + arr_e.shape[1:]), arr_e[:j]])
+
+
+def _stencil_reads(arr_e, dm2, dm1):
+    """The 3 stencil values (base+0, base+1, base+2) of a gathered vertex
+    column, from 5 static shifts and 2-level selects."""
+    s = {j: _shift_clamp(arr_e, j) for j in (-2, -1, 0, 1, 2)}
+
+    def pick(a, b, c):
+        return torch.where(dm2, a, torch.where(dm1, b, c))
+    return (pick(s[-2], s[-1], s[0]), pick(s[-1], s[0], s[1]),
+            pick(s[0], s[1], s[2]))
+
+
+def pressure_force_zxxxx_shchepetkin(state: OceanState,
+                                     mesh: MeshTables) -> OceanState:
+    """Density-Jacobian PGF for moving coordinates, after Shchepetkin &
+    McWilliams (2003): drho/dz * dz/dx is subtracted from the along-layer
+    density gradient before the vertical integration (ref
+    pressure_force_4_zxxxx_shchepetkin, oce_ale_pressure_bv.F90:1878-2104).
+    The vertex drho/dz is a 3-point Newton polynomial on the node
+    mid-depths Z_3d, evaluated at the element mid-depth."""
+    lmask = mesh.elem_layer_mask
+    rho = state.density_m_rho0
+    Z3 = state.Z_3d
+
+    # element mid-depths from helem stacked up from the fixed bottom
+    h = torch.where(lmask, state.helem, 0.0)
+    S = cumsum_bottom_up(h)
+    Z_e = mesh.zbar_e_bot[None] + S - 0.5 * h
+
+    def safe(d):
+        return torch.where(torch.abs(d) > 1e-30, d, 1e-30)
+    gx = mesh.gradient_sca[:, 0:3]
+    gy = mesh.gradient_sca[:, 3:6]
+
+    drho_dz = torch.zeros_like(Z_e)
+    drho_dx = torch.zeros_like(Z_e)
+    drho_dy = torch.zeros_like(Z_e)
+    dz_dx = torch.zeros_like(Z_e)
+    dz_dy = torch.zeros_like(Z_e)
+    for v, (env, dm2, dm1) in enumerate(_pgf_vertex_stencil(mesh)):
+        rho_v = rho[:, env]
+        z_v = Z3[:, env]
+        x0, x1, x2 = _stencil_reads(z_v, dm2, dm1)
+        f0, f1, f2 = _stencil_reads(rho_v, dm2, dm1)
+        dx10, dx21, dx20 = x1 - x0, x2 - x1, x2 - x0
+        df10, df21 = f1 - f0, f2 - f1
+        drho_dz = drho_dz + df10 / safe(dx10) \
+            + (dx10 * df21 - dx21 * df10) / safe(dx20 * dx21 * dx10) \
+            * ((Z_e - x1) + (Z_e - x0))
+        drho_dx = drho_dx + rho_v * gx[None, :, v]
+        drho_dy = drho_dy + rho_v * gy[None, :, v]
+        dz_dx = dz_dx + z_v * gx[None, :, v]
+        dz_dy = dz_dy + z_v * gy[None, :, v]
+    drho_dz = torch.where(lmask, drho_dz / 3.0, 0.0)
+
+    aux_x = torch.where(lmask, (drho_dx - drho_dz * dz_dx) * h * g / density_0,
+                        0.0)
+    aux_y = torch.where(lmask, (drho_dy - drho_dz * dz_dy) * h * g / density_0,
+                        0.0)
+    # layer value = integral above + half of its own layer (midpoint rule)
+    pgf_x = torch.cumsum(aux_x, 0) - 0.5 * aux_x
+    pgf_y = torch.cumsum(aux_y, 0) - 0.5 * aux_y
+    return replace(state, pgf_x=torch.where(lmask, pgf_x, 0.0),
+                   pgf_y=torch.where(lmask, pgf_y, 0.0))
+
+
 def pressure_force(state: OceanState, mesh: MeshTables, cfg) -> OceanState:
-    """PGF dispatch; the port has the linfs full-cell form only."""
+    """PGF dispatch (ref pressure_force_4_linfs :371-427,
+    pressure_force_4_zxxxx :1661-1687): on full cells, the hpressure
+    gradient under linfs and Shchepetkin under zstar; the other forms
+    raise."""
     which = getattr(cfg.dyn, "which_pgf", "shchepetkin")
-    if cfg.ale.which_ALE != "linfs" or cfg.ale.use_partial_cell \
+    linfs = cfg.ale.which_ALE == "linfs"
+    if cfg.ale.use_partial_cell \
             or getattr(cfg.run, "use_cavity_partial_cell", False) \
-            or which in ("nemo", "cubicspline"):
+            or cfg.ale.which_ALE not in ("linfs", "zstar") \
+            or which in (("nemo", "cubicspline") if linfs
+                         else ("easypgf", "cubicspline")):
         raise NotImplementedError(
-            "only the linfs full-cell PGF is ported: the other forms are "
-            "ROADMAP queue 1 items 8 and 15")
-    return pressure_force_linfs(state, mesh)
+            "only the full-cell linfs and zstar Shchepetkin PGFs are "
+            "ported: the other forms are ROADMAP queue 1 items 8 and 15")
+    if linfs:
+        return pressure_force_linfs(state, mesh)
+    if which != "shchepetkin":
+        raise ValueError(f"which_pgf='{which}' not supported for zstar")
+    return pressure_force_zxxxx_shchepetkin(state, mesh)
 
 
 def momentum_adv_scalar(state: OceanState, mesh: MeshTables,

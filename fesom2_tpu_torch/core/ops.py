@@ -1,4 +1,5 @@
-"""Core mesh operators: gathers, edge/node assembly, gradients, column solves.
+"""Core mesh operators: gathers, edge/node assembly, gradients, column
+solves, and the preconditioned CG of the SSH solve.
 
 The port of ``fesom2_tpu/core/ops.py``.  Layout is levels-major
 ``[nl(-1), X]`` with X the nodes, elements or edges; index tables are the
@@ -245,3 +246,51 @@ def tridiag_solve(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 def cumsum_bottom_up(x: torch.Tensor) -> torch.Tensor:
     """out[k] = sum_{j>=k} x[j] along axis 0 (ref oce_ale.F90:1789-1799)."""
     return torch.flip(torch.cumsum(torch.flip(x, (0,)), 0), (0,))
+
+
+# --------------------------------------------------------------------------
+# preconditioned conjugate gradient (replaces psolve.c + pARMS)
+# --------------------------------------------------------------------------
+def node_sum(v: torch.Tensor) -> torch.Tensor:
+    """Global sum of a node field (one device: the plain sum)."""
+    return v.sum()
+
+
+def pcg(operator, rhs: torch.Tensor, precond, x0=None, tol: float = 1e-10,
+        maxiter: int = 2000, chunk: int = 4):
+    """Preconditioned CG for the SPD SSH operator (ref psolve.c:152-221;
+    tolerances oce_ale.F90:2295-2301; SPD as noted at oce_ale.F90:2321).
+
+    ``chunk`` iterations run between two convergence checks, and the host
+    reads the residual once per check; once converged, the rest of the
+    chunk is masked to no-ops (guarded against 0/0).  The iterations, the
+    count and the answer are those of the JAX loop (``ops.py:430-499``).
+    Returns (x, iterations, relative residual), all tensors.
+    """
+    x = torch.zeros_like(rhs) if x0 is None else x0
+    r = rhs - operator(x)
+    z = precond(r)
+    p = z
+    rz = node_sum(r * z)
+    rr = node_sum(r * r)
+    rhs_norm = torch.sqrt(node_sum(rhs * rhs)) + 1e-300
+    tol2 = (tol * rhs_norm) ** 2
+    it = torch.zeros((), dtype=torch.int64, device=rhs.device)
+    while bool((rr > tol2) & (it < maxiter)):
+        for _ in range(chunk):
+            live = rr > tol2
+            Ap = operator(p)
+            pAp = node_sum(p * Ap)
+            alpha = torch.where(live, rz / torch.where(pAp != 0, pAp, 1.0),
+                                0.0)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = precond(r)
+            rz_new = node_sum(r * z)
+            rr = node_sum(r * r)
+            beta = torch.where(live, rz_new / torch.where(rz != 0, rz, 1.0),
+                               0.0)
+            p = torch.where(live, z + beta * p, p)
+            rz = torch.where(live, rz_new, rz)
+            it = it + live.long()
+    return x, it, torch.sqrt(rr) / rhs_norm

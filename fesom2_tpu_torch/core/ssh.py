@@ -1,25 +1,32 @@
-"""Semi-implicit free surface: operator, rhs, dense solve, hbar update.
+"""Semi-implicit free surface: operator, rhs, solves, hbar update.
 
-The port of the dense-solve subset of ``fesom2_tpu/core/ssh.py``.  The
-operator (ref init_stiff_mat_ale, ``src/oce_ale.F90:1088-1354``) is
+The port of ``fesom2_tpu/core/ssh.py``.  The operator (ref
+init_stiff_mat_ale, ``src/oce_ale.F90:1088-1354``) is
 
     A(eta) = eta * areasvol(surface)/dt + g*dt*alpha*theta * D(H * G(eta))
 
-with G the elemental scalar gradient, H the element depth and D the
-edge-stencil divergence.  For meshes up to ``model.DENSE_SSH_MAX_NODES``
-nodes the inverse is precomputed on the host and the solve is one product
-with it plus one refinement sweep.
+with G the elemental scalar gradient, H the element depth (less the
+accumulated perturbation hbar_e under zstar) and D the edge-stencil
+divergence.  Meshes up to ``model.DENSE_SSH_MAX_NODES`` nodes solve with a
+precomputed dense inverse plus one refinement sweep; larger ones with CG
+(``ops.pcg``) on the operator in node-ring form (``RingOperator``, kernel
+``ring_spmv``; under zstar rebuilt each step from hbar_e by ``RingALE``)
+and the two-level block-Schwarz preconditioner (``BlockSchwarz``, kernel
+``block_schwarz``).  The host-side builders are numpy and scipy, as in the
+JAX package.
 """
 from __future__ import annotations
 
-from dataclasses import replace
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from fesom2_tpu.constants import g
+from .. import kernels
 from ..mesh import MeshTables
-from .ops import scalar_gradient, edge_divergence, edge_transport
+from .ops import (scalar_gradient, edge_divergence, edge_transport,
+                  elem_mean_node, pcg)
 from .state import OceanState, Forcing
 
 
@@ -50,11 +57,22 @@ def _surface_areasvol(mesh: MeshTables):
                         (mesh.ulevels_node - 1).long()[None, :])[0]
 
 
-def ssh_operator(mesh: MeshTables, cfg):
-    """The matrix-free SPD operator eta -> A(eta) (linfs: static depth)."""
+def ale_hbar_e(state: OceanState, mesh: MeshTables) -> torch.Tensor:
+    """The accumulated depth perturbation per element, hbar_e: the nodal
+    mean of hbar on surface elements, 0 under cavities (ref
+    update_stiff_mat_ale, oce_ale.F90:1371-1470)."""
+    return torch.where(mesh.ulevels_elem == 1,
+                       elem_mean_node(state.hbar, mesh), 0.0)
+
+
+def ssh_operator(mesh: MeshTables, cfg, hbar_e=None):
+    """The matrix-free SPD operator eta -> A(eta); ``hbar_e`` is the zstar
+    depth perturbation (None: static depth)."""
     dt = cfg.dt
     factor = g * dt * cfg.dyn.alpha * cfg.dyn.theta
     H = elem_depth(mesh)
+    if hbar_e is not None:
+        H = H - hbar_e
     diag_mass = _surface_areasvol(mesh) / dt
 
     def op(eta):
@@ -65,23 +83,32 @@ def ssh_operator(mesh: MeshTables, cfg):
     return op
 
 
-def ssh_dense_matrix(mesh: MeshTables, cfg) -> np.ndarray:
-    """The SSH operator as a dense [N, N] numpy matrix (host side)."""
-    N = mesh.n_nodes
-    edges = _np(mesh.edges)
-    etri = _np(mesh.edge_tri)
-    en = _np(mesh.elem_nodes)
-    gsca = _np(mesh.gradient_sca)
-    ecd = _np(mesh.edge_cross_dxdy)
-    zbar = _np(mesh.zbar)
-    H = _np(mesh.zbar_e_bot) - zbar[_np(mesh.ulevels_elem) - 1]
-    dt = cfg.dt
-    factor = g * dt * cfg.dyn.alpha * cfg.dyn.theta
+# --------------------------------------------------------------------------
+# host-side assembly (numpy)
+# --------------------------------------------------------------------------
+def _stencil_arrays(mesh: MeshTables, cfg):
+    return (_np(mesh.edges), _np(mesh.edge_tri), _np(mesh.elem_nodes),
+            _np(mesh.gradient_sca), _np(mesh.edge_cross_dxdy),
+            g * cfg.dt * cfg.dyn.alpha * cfg.dyn.theta)
 
-    A = np.zeros((N, N))
+
+def _mass_diag(mesh: MeshTables, cfg) -> np.ndarray:
     avn = _np(mesh.areasvol)
     uln0 = _np(mesh.ulevels_node) - 1
-    np.fill_diagonal(A, avn[uln0, np.arange(N)] / dt)
+    return avn[uln0, np.arange(avn.shape[1])] / cfg.dt
+
+
+def _elem_depth_np(mesh: MeshTables) -> np.ndarray:
+    return _np(mesh.zbar_e_bot) - _np(mesh.zbar)[_np(mesh.ulevels_elem) - 1]
+
+
+def ssh_sparse_coo(mesh: MeshTables, cfg):
+    """The SSH operator as COO triplets (rows, cols, vals, N): the mass
+    diagonal first, then the edge stencil (ref :1202-1270)."""
+    N = mesh.n_nodes
+    edges, etri, en, gsca, ecd, factor = _stencil_arrays(mesh, cfg)
+    H = _elem_depth_np(mesh)
+    rows, cols, vals = [np.arange(N)], [np.arange(N)], [_mass_diag(mesh, cfg)]
     for i in range(2):
         el = etri[:, i]
         ok = el >= 0
@@ -94,7 +121,18 @@ def ssh_dense_matrix(mesh: MeshTables, cfg) -> np.ndarray:
             fy = np.where(ok, fy * factor, 0.0)
             col = en[els, k]
             for j, rsgn in ((0, 1.0), (1, -1.0)):
-                np.add.at(A, (edges[:, j], col), rsgn * fy)
+                rows.append(edges[:, j])
+                cols.append(col)
+                vals.append(rsgn * fy)
+    return (np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(vals), N)
+
+
+def ssh_dense_matrix(mesh: MeshTables, cfg) -> np.ndarray:
+    """The SSH operator as a dense [N, N] numpy matrix (host side)."""
+    rows, cols, vals, N = ssh_sparse_coo(mesh, cfg)
+    A = np.zeros((N, N))
+    np.add.at(A, (rows, cols), vals)
     return A
 
 
@@ -109,43 +147,99 @@ def ssh_dense_inverse(mesh: MeshTables, cfg, dtype=torch.float64):
     return torch.as_tensor(Ainv, device=mesh.zbar.device).to(dtype)
 
 
-def solve_ssh_dense(state: OceanState, mesh: MeshTables, cfg, dense_inv, rhs,
-                    n_refine: int = 1):
-    """d_eta = A^-1 rhs by a product with the dense inverse plus
-    ``n_refine`` sweeps of iterative refinement against the operator.
-    Returns (d_eta, number of products); the step needs no residual, so
-    ``ssh_relative_residual`` computes it apart for callers that ask."""
-    if cfg.ale.which_ALE != "linfs":
-        raise NotImplementedError("the hbar-corrected zstar/zlevel operator "
-                                  "is not ported yet: ROADMAP queue 1 item 8")
-    op = ssh_operator(mesh, cfg)
-    x = dense_inv @ rhs
-    for _ in range(n_refine):
-        x = x + dense_inv @ (rhs - op(x))
-    return x, 1 + n_refine
-
-
-def ssh_relative_residual(mesh: MeshTables, cfg, d_eta, rhs) -> torch.Tensor:
-    """|rhs - A d_eta| / |rhs| for the SSH operator."""
-    r = rhs - ssh_operator(mesh, cfg)(d_eta)
-    return torch.linalg.norm(r) / (torch.linalg.norm(rhs) + 1e-300)
-
-
 def ssh_matrix_diagonal(mesh: MeshTables, cfg) -> torch.Tensor:
     """Exact diagonal of the assembled operator (host-side numpy, ref
     init_stiff_mat_ale :1202-1270 keeping col == row)."""
-    edges = _np(mesh.edges)
-    etri = _np(mesh.edge_tri)
-    en = _np(mesh.elem_nodes)
-    gsca = _np(mesh.gradient_sca)
-    ecd = _np(mesh.edge_cross_dxdy)
-    zbar = _np(mesh.zbar)
-    H = _np(mesh.zbar_e_bot) - zbar[_np(mesh.ulevels_elem) - 1]
-    dt = cfg.dt
-    factor = g * dt * cfg.dyn.alpha * cfg.dyn.theta
-    avn = _np(mesh.areasvol)
-    uln0 = _np(mesh.ulevels_node) - 1
-    diag = (avn[uln0, np.arange(avn.shape[1])] / dt).copy()
+    rows, cols, vals, N = ssh_sparse_coo(mesh, cfg)
+    diag = np.zeros(N)
+    np.add.at(diag, rows, np.where(rows == cols, vals, 0.0))
+    return torch.as_tensor(diag, device=mesh.zbar.device).to(mesh.zbar.dtype)
+
+
+def _csr_operator(mesh: MeshTables, cfg):
+    """The operator as scipy CSR, duplicates summed, structural zeros
+    dropped, identity on dead (padded) rows."""
+    import scipy.sparse as sp
+    rows, cols, vals, N = ssh_sparse_coo(mesh, cfg)
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(N, N)).tocsr()
+    A.sum_duplicates()
+    A.eliminate_zeros()
+    dead = np.asarray(np.abs(A).sum(1)).ravel() == 0
+    if dead.any():
+        A = (A + sp.diags(dead.astype(float))).tocsr()
+    return A
+
+
+# --------------------------------------------------------------------------
+# ring operator (kernel ring_spmv)
+# --------------------------------------------------------------------------
+def ring_spmv_plain(cols: torch.Tensor, vals: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    y = torch.zeros_like(x)
+    for k in range(cols.shape[0]):                     # fixed slot order
+        y = y + vals[k] * x[cols[k]]
+    return y
+
+
+def ring_spmv(cols: torch.Tensor, vals: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """y[n] = sum_k vals[k, n] * x[cols[k, n]] over the [Kr, N] ring
+    (ref RingOperator.__call__, ssh.py:209-215)."""
+    if x.device.type == "cpu":
+        return ring_spmv_plain(cols, vals, x)
+    kernels.cuda_only(x, "ring_spmv")
+    dev, dt = x.device, x.dtype
+    Kr, N = cols.shape
+    x = x.contiguous()
+    kernels.require(cols, "cols", (Kr, N), torch.int32, dev)
+    kernels.require(vals, "vals", (Kr, N), dt, dev)
+    kernels.require(x, "x", (N,), dt, dev)
+    y = torch.empty_like(x)
+    kernels.launch("ring_spmv", dev, cols, vals, x, Kr, N, y,
+                   kernels.float_code(dt))
+    return y
+
+
+@dataclass
+class RingOperator:
+    """The SSH operator in node-ring form: the CSR stencil of
+    init_stiff_mat_ale padded to the largest node degree, one packed
+    gather per apply."""
+    cols: torch.Tensor        # [Kr, N] int32, padding points at n itself
+    vals: torch.Tensor        # [Kr, N], padding 0
+
+    def __call__(self, eta: torch.Tensor) -> torch.Tensor:
+        return ring_spmv(self.cols, self.vals, eta)
+
+
+def build_ssh_ring(mesh: MeshTables, cfg,
+                   dtype=torch.float64) -> RingOperator:
+    """Assemble the static (linfs) SSH stencil into ring form (host numpy);
+    zstar takes ``build_ssh_ring_ale``."""
+    A = _csr_operator(mesh, cfg)
+    N = A.shape[0]
+    deg = np.diff(A.indptr)
+    Kr = int(deg.max())
+    row = np.repeat(np.arange(N), deg)
+    slot = np.arange(A.nnz) - A.indptr[row]
+    ring_cols = np.tile(np.arange(N), (Kr, 1))
+    ring_vals = np.zeros((Kr, N))
+    ring_cols[slot, row] = A.indices
+    ring_vals[slot, row] = A.data
+    dev = mesh.zbar.device
+    return RingOperator(torch.as_tensor(ring_cols.astype(np.int32), device=dev),
+                        torch.as_tensor(ring_vals, device=dev).to(dtype))
+
+
+def ssh_sparse_coo_elems(mesh: MeshTables, cfg):
+    """COO triplets of the SSH stencil with the element depth factored
+    out: entry value = coef * H[elem] (host numpy).  Returns (rows, cols,
+    elems, coefs, mass_diag, N); A(hbar) = diag(mass) + sum_i coef_i *
+    (H0 - hbar_e)[elem_i] at (row_i, col_i), the reference's per-step
+    value update (update_stiff_mat_ale, oce_ale.F90:1371-1470)."""
+    N = mesh.n_nodes
+    edges, etri, en, gsca, ecd, factor = _stencil_arrays(mesh, cfg)
+    rows, cols, elems, coefs = [], [], [], []
     for i in range(2):
         el = etri[:, i]
         ok = el >= 0
@@ -154,38 +248,309 @@ def ssh_matrix_diagonal(mesh: MeshTables, cfg) -> torch.Tensor:
         dY = ecd[:, 2 * i + 1]
         sgn = 1.0 if i == 0 else -1.0
         for k in range(3):
-            fy = np.where(ok, H[els] * (gsca[els, k] * dY
-                                        - gsca[els, k + 3] * dX) * sgn, 0.0)
-            node_k = en[els, k]
+            cf = (gsca[els, k] * dY - gsca[els, k + 3] * dX) * sgn * factor
+            cf = np.where(ok, cf, 0.0)
+            col = en[els, k]
             for j, rsgn in ((0, 1.0), (1, -1.0)):
-                row = edges[:, j]
-                np.add.at(diag, row, np.where(node_k == row,
-                                              rsgn * fy * factor, 0.0))
-    return torch.as_tensor(diag, device=mesh.zbar.device).to(mesh.zbar.dtype)
+                rows.append(edges[:, j])
+                cols.append(col)
+                elems.append(els)
+                coefs.append(rsgn * cf)
+    return (np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(elems), np.concatenate(coefs),
+            _mass_diag(mesh, cfg), N)
 
 
+@dataclass
+class RingALE:
+    """The zstar SSH operator in ring form: the ring values are affine in
+    hbar_e, vals(hbar_e) = vals0 - sum_c e_coef[c] * hbar_e[e_ids[c]].
+    ``materialize`` rebuilds them once per step (plain torch); the CG
+    iterations then apply the result through ``ring_spmv``."""
+    cols: torch.Tensor        # [Kr, N] int32, padding points at n itself
+    vals0: torch.Tensor       # [Kr, N] the operator at hbar_e = 0
+    e_ids: torch.Tensor       # [C, Kr, N] int32 element ids, padding 0
+    e_coef: torch.Tensor      # [C, Kr, N], padding 0
+
+    def materialize(self, hbar_e: torch.Tensor) -> RingOperator:
+        corr = (hbar_e[self.e_ids] * self.e_coef).sum(0)
+        return RingOperator(self.cols, self.vals0 - corr)
+
+
+def build_ssh_ring_ale(mesh: MeshTables, cfg, dtype=torch.float64) -> RingALE:
+    """Assemble the ALE ring operator (host-side, vectorized numpy)."""
+    rows, cols, elems, coefs, mass_diag, N = ssh_sparse_coo_elems(mesh, cfg)
+    H0 = _elem_depth_np(mesh)
+
+    # the (element-independent) mass diagonal as coef-0 entries
+    diag_rows = np.arange(N)
+    rows = np.concatenate([diag_rows, rows])
+    cols = np.concatenate([diag_rows, cols])
+    elems = np.concatenate([np.zeros(N, np.int64), elems])
+    coefs = np.concatenate([np.zeros(N), coefs])
+    base = np.concatenate([mass_diag, np.zeros(len(coefs) - N)])
+
+    # group by (row, col): sort once, then rank entries within each group
+    key = rows.astype(np.int64) * N + cols.astype(np.int64)
+    order = np.argsort(key, kind="stable")
+    key_s = key[order]
+    uk, inv_first = np.unique(key_s, return_index=True)
+    slot_of_entry = np.searchsorted(uk, key_s)
+    rank = np.arange(len(key_s)) - inv_first[slot_of_entry]
+    C = int(rank.max()) + 1
+
+    urow = (uk // N).astype(np.int64)
+    ucol = (uk % N).astype(np.int64)
+    uslot = np.arange(len(uk)) - np.searchsorted(urow, urow)
+    Kr = int(uslot.max()) + 1
+
+    ring_cols = np.tile(np.arange(N), (Kr, 1))
+    vals0 = np.zeros((Kr, N))
+    e_ids = np.zeros((C, Kr, N), np.int64)
+    e_coef = np.zeros((C, Kr, N))
+
+    ring_cols[uslot, urow] = ucol
+    vals0[uslot, urow] = np.bincount(
+        slot_of_entry, weights=(base + coefs * H0[elems])[order],
+        minlength=len(uk))
+    er, es, ec = urow[slot_of_entry], uslot[slot_of_entry], rank
+    cf = coefs[order]
+    nz = cf != 0.0
+    e_ids[ec[nz], es[nz], er[nz]] = elems[order][nz]
+    e_coef[ec[nz], es[nz], er[nz]] = cf[nz]
+
+    dead = np.abs(vals0).sum(0) + np.abs(e_coef).sum((0, 1)) == 0
+    vals0[0, dead] = 1.0                                # dead rows: identity
+    dev = mesh.zbar.device
+    i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
+    f = lambda a: torch.as_tensor(a, device=dev).to(dtype)
+    return RingALE(i32(ring_cols), f(vals0), i32(e_ids), f(e_coef))
+
+
+# --------------------------------------------------------------------------
+# block-Schwarz preconditioner (kernel block_schwarz)
+# --------------------------------------------------------------------------
+@dataclass
+class BlockSchwarz:
+    """Two-level additive Schwarz preconditioner: overlapping node blocks
+    with dense inverses, plus a coarse solve over the non-overlapping
+    partition (the counterpart of the reference's pARMS RAS, psolve.c:
+    77-100; symmetric, so CG stays valid)."""
+    block_ids: torch.Tensor        # [nb, K] int32 node ids, -1 padding
+    inv_blocks: torch.Tensor       # [nb, K, K]
+    node_slots: torch.Tensor       # [N, S] int32 flat b*K+p, padding 0
+    node_slot_valid: torch.Tensor  # [N, S] bool
+    coarse_ids: torch.Tensor       # [nb, Kc] int32 own nodes, -1 padding
+    coarse_inv: torch.Tensor       # [nb, nb] dense A0^-1
+    coarse_part: torch.Tensor      # [N] int32 block of each node
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return block_schwarz(self, r)
+
+
+def _masked_take(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return torch.where(ids >= 0, x[ids.clamp_min(0)], 0.0)
+
+
+def block_schwarz_plain(pc: BlockSchwarz, r: torch.Tensor) -> torch.Tensor:
+    rb = _masked_take(r, pc.block_ids)                          # [nb, K]
+    yb = torch.bmm(pc.inv_blocks, rb[..., None])[..., 0]
+    contrib = torch.where(pc.node_slot_valid,
+                          yb.reshape(-1)[pc.node_slots], 0.0)  # [N, S]
+    r0 = _masked_take(r, pc.coarse_ids).sum(-1)                 # [nb]
+    y0 = pc.coarse_inv @ r0
+    return contrib.sum(-1) + y0[pc.coarse_part]
+
+
+def block_schwarz(pc: BlockSchwarz, r: torch.Tensor) -> torch.Tensor:
+    """Apply the preconditioner to a node field r [N] (ref
+    BlockSchwarz.__call__, ssh.py:429-454)."""
+    if r.device.type == "cpu":
+        return block_schwarz_plain(pc, r)
+    kernels.cuda_only(r, "block_schwarz")
+    dev, dt = r.device, r.dtype
+    r = r.contiguous()
+    N = r.shape[0]
+    nb, K = pc.block_ids.shape
+    S = pc.node_slots.shape[1]
+    Kc = pc.coarse_ids.shape[1]
+    i32 = torch.int32
+    kernels.require(r, "r", (N,), dt, dev)
+    kernels.require(pc.block_ids, "block_ids", (nb, K), i32, dev)
+    kernels.require(pc.inv_blocks, "inv_blocks", (nb, K, K), dt, dev)
+    kernels.require(pc.node_slots, "node_slots", (N, S), i32, dev)
+    kernels.require(pc.node_slot_valid, "node_slot_valid", (N, S),
+                    torch.bool, dev)
+    kernels.require(pc.coarse_ids, "coarse_ids", (nb, Kc), i32, dev)
+    kernels.require(pc.coarse_inv, "coarse_inv", (nb, nb), dt, dev)
+    kernels.require(pc.coarse_part, "coarse_part", (N,), i32, dev)
+    if K * r.element_size() > 48 * 1024:
+        raise ValueError(f"block_schwarz: blocks of K={K} nodes exceed 48 KB "
+                         "of shared memory")
+    yb = torch.empty(nb * K, dtype=dt, device=dev)
+    r0 = torch.empty(nb, dtype=dt, device=dev)
+    y0 = torch.empty(nb, dtype=dt, device=dev)
+    y = torch.empty_like(r)
+    kernels.launch("block_schwarz", dev, r, N, pc.block_ids, pc.inv_blocks,
+                   nb, K, pc.node_slots, pc.node_slot_valid, S, pc.coarse_ids,
+                   Kc, pc.coarse_inv, pc.coarse_part, yb, r0, y0, y,
+                   kernels.float_code(dt))
+    return y
+
+
+def build_block_schwarz(mesh: MeshTables, cfg, block_size: int = 256,
+                        dtype=torch.float64) -> BlockSchwarz:
+    """Build the preconditioner (host numpy): compact geometric blocks of
+    about ``block_size`` nodes from recursive coordinate bisection, each
+    extended by its 1-ring overlap and inverted densely, scaled for a
+    partition of unity; the coarse level aggregates over the
+    non-overlapping blocks.  The same algorithm as the JAX builder, so the
+    tables come out identical."""
+    import scipy.sparse as sp
+    from ..parallel.partition import _partition_numpy, _sphere_xyz
+
+    A = _csr_operator(mesh, cfg)
+    N = A.shape[0]
+    nparts = max(1, int(round(N / block_size)))
+    part = np.asarray(_partition_numpy(_sphere_xyz(mesh), np.ones(N), nparts))
+    nb = int(part.max()) + 1
+
+    # block node lists + 1-ring overlap from the matrix graph
+    indptr, indices = A.indptr, A.indices
+    blocks = []
+    for b in range(nb):
+        own = np.nonzero(part == b)[0]
+        if own.size == 0:
+            blocks.append(own)
+            continue
+        ring = np.unique(indices[np.concatenate(
+            [np.arange(indptr[i], indptr[i + 1]) for i in own])])
+        blocks.append(np.unique(np.concatenate([own, ring])))
+    K = max(1, max(len(b) for b in blocks))
+
+    block_ids = np.full((nb, K), -1, np.int64)
+    inv_blocks = np.zeros((nb, K, K))
+    for b, ids in enumerate(blocks):
+        n = len(ids)
+        if n == 0:
+            inv_blocks[b] = np.eye(K)
+            continue
+        block_ids[b, :n] = ids
+        inv_blocks[b, :n, :n] = np.linalg.inv(A[np.ix_(ids, ids)].toarray())
+        if n < K:
+            inv_blocks[b, n:, n:] = np.eye(K - n)
+
+    # node -> (block, position) membership for the gather-based combine
+    memb = [[] for _ in range(N)]
+    for b, ids in enumerate(blocks):
+        for p, nid in enumerate(ids):
+            memb[nid].append(b * K + p)
+    S = max(1, max(len(m) for m in memb))
+    node_slots = np.zeros((N, S), np.int64)
+    node_valid = np.zeros((N, S), bool)
+    for nid, m in enumerate(memb):
+        node_slots[nid, :len(m)] = m
+        node_valid[nid, :len(m)] = True
+
+    # partition-of-unity scaling, symmetric: 1/sqrt(overlap count)
+    wsqrt = 1.0 / np.sqrt(np.maximum(node_valid.sum(-1).astype(float), 1.0))
+    for b, ids in enumerate(blocks):
+        n = len(ids)
+        if n:
+            w = wsqrt[ids]
+            inv_blocks[b, :n, :n] = w[:, None] * inv_blocks[b, :n, :n] \
+                * w[None, :]
+
+    # coarse level: piecewise-constant aggregation, A0 = R0 A R0^T
+    Kc = max(1, int(np.bincount(part, minlength=nb).max()))
+    coarse_ids = np.full((nb, Kc), -1, np.int64)
+    for b in range(nb):
+        own = np.nonzero(part == b)[0]
+        coarse_ids[b, :len(own)] = own
+    R0 = sp.coo_matrix((np.ones(N), (part, np.arange(N))),
+                       shape=(nb, N)).tocsr()
+    A0 = (R0 @ A @ R0.T).toarray()
+    empty = np.bincount(part, minlength=nb) == 0
+    if empty.any():
+        A0[empty] = 0.0
+        A0[:, empty] = 0.0
+        A0[empty, empty] = 1.0
+    coarse_inv = np.linalg.inv(A0)
+
+    dev = mesh.zbar.device
+    i32 = lambda a: torch.as_tensor(np.asarray(a).astype(np.int32), device=dev)
+    f = lambda a: torch.as_tensor(a, device=dev).to(dtype)
+    return BlockSchwarz(i32(block_ids), f(inv_blocks), i32(node_slots),
+                        torch.as_tensor(node_valid, device=dev),
+                        i32(coarse_ids), f(coarse_inv), i32(part))
+
+
+# --------------------------------------------------------------------------
+# rhs, solves, hbar
+# --------------------------------------------------------------------------
 def compute_ssh_rhs(state: OceanState, mesh: MeshTables, cfg, forcing: Forcing,
                     u_rhs, v_rhs):
-    """ssh_rhs = -alpha*div(int (u+du) dz) + (1-alpha)*ssh_rhs_old (linfs;
-    ref compute_ssh_rhs_ale :1478)."""
-    if cfg.ale.which_ALE != "linfs":
-        raise NotImplementedError("zstar/zlevel SSH rhs: ROADMAP queue 1 "
-                                  "item 8")
+    """ssh_rhs = -alpha*div(int (u+du) dz) + (1-alpha)*ssh_rhs_old, less
+    alpha*water_flux*area under zstar (ref compute_ssh_rhs_ale :1478)."""
     alpha = cfg.dyn.alpha
     he = torch.where(mesh.elem_layer_mask, state.helem, 0.0)
     c = alpha * edge_transport((state.u + u_rhs) * he,
                                (state.v + v_rhs) * he, mesh).sum(0)
-    return edge_divergence(c, mesh) + (1.0 - alpha) * state.ssh_rhs_old
+    rhs = edge_divergence(c, mesh)
+    if cfg.ale.which_ALE != "linfs":
+        rhs = rhs - alpha * forcing.water_flux * _surface_areasvol(mesh)
+    return rhs + (1.0 - alpha) * state.ssh_rhs_old
+
+
+def _state_operator(state: OceanState, mesh: MeshTables, cfg):
+    if cfg.ale.which_ALE == "linfs":
+        return ssh_operator(mesh, cfg)
+    return ssh_operator(mesh, cfg, hbar_e=ale_hbar_e(state, mesh))
+
+
+def solve_ssh_dense(state: OceanState, mesh: MeshTables, cfg, dense_inv, rhs,
+                    n_refine: int = 1):
+    """d_eta = A^-1 rhs by a product with the dense inverse plus
+    ``n_refine`` sweeps of iterative refinement against the operator (the
+    hbar-corrected one under zstar: the stored inverse is of the
+    unperturbed operator, and |hbar_e|/H ~ 1e-4 lets 1-2 sweeps converge).
+    Returns (d_eta, number of products); ``ssh_relative_residual`` gives
+    the residual apart for callers that ask."""
+    op = _state_operator(state, mesh, cfg)
+    x = dense_inv @ rhs
+    for _ in range(n_refine):
+        x = x + dense_inv @ (rhs - op(x))
+    return x, 1 + n_refine
+
+
+def ssh_relative_residual(mesh: MeshTables, cfg, d_eta, rhs,
+                          hbar_e=None) -> torch.Tensor:
+    """|rhs - A d_eta| / |rhs| for the SSH operator."""
+    r = rhs - ssh_operator(mesh, cfg, hbar_e)(d_eta)
+    return torch.linalg.norm(r) / (torch.linalg.norm(rhs) + 1e-300)
+
+
+def solve_ssh(state: OceanState, mesh: MeshTables, cfg, precond, rhs, ring,
+              x0=None):
+    """CG solve for d_eta (replaces psolve; tolerances oce_ale.F90:2296-
+    2301): ``ring`` is a RingOperator (linfs) or a RingALE (zstar, its
+    values rebuilt here from hbar_e), ``precond`` the BlockSchwarz.  The
+    reference's soltol=1e-10 assumes f64; the tolerance is 2e-5 in f32.
+    Returns (d_eta, iterations, relative residual)."""
+    op = ring.materialize(ale_hbar_e(state, mesh)) \
+        if isinstance(ring, RingALE) else ring
+    tol = 1e-10 if rhs.dtype == torch.float64 else 2e-5
+    return pcg(op, rhs, precond, x0=x0, tol=tol, maxiter=2000)
 
 
 def compute_hbar(state: OceanState, mesh: MeshTables, cfg,
                  forcing: Forcing) -> OceanState:
-    """hbar(n+1/2) update (ref compute_hbar_ale :1585-1676), linfs."""
-    if cfg.ale.which_ALE != "linfs":
-        raise NotImplementedError("zstar/zlevel hbar: ROADMAP queue 1 item 8")
+    """hbar(n+1/2) update (ref compute_hbar_ale :1585-1676)."""
     he = torch.where(mesh.elem_layer_mask, state.helem, 0.0)
     c = edge_transport(state.u * he, state.v * he, mesh).sum(0)
     rhs_old = edge_divergence(c, mesh)
     av_srf = _surface_areasvol(mesh)
+    if cfg.ale.which_ALE != "linfs":
+        rhs_old = rhs_old - forcing.water_flux * av_srf
     hbar = state.hbar + rhs_old * cfg.dt / torch.where(av_srf > 0, av_srf, 1.0)
     return replace(state, hbar=hbar, hbar_old=state.hbar, ssh_rhs_old=rhs_old)

@@ -1,8 +1,9 @@
 """Registry and loader of the hand-written CUDA kernels.
 
 ``LAUNCHES`` counts, per kernel, the launches made by its wrapper (the
-wrappers live beside their plain torch versions, in ``core/ops.py`` and
-``core/tracers.py``).  The library is built and loaded on the first
+wrappers live beside their plain torch versions, in ``core/ops.py``,
+``core/tracers.py``, ``core/ssh.py`` and
+``scripts/gather_cost_model.py``).  The library is built and loaded on the first
 launch, never at import: the CPU path needs neither ``nvcc`` nor a card.
 """
 from __future__ import annotations
@@ -12,7 +13,8 @@ import ctypes
 import torch
 
 KERNELS = ("node_edge_reduce", "elem_to_node_mean", "tridiag_solve",
-           "fct_bounds")
+           "fct_bounds", "ring_spmv", "block_schwarz", "window_gather",
+           "onehot_gather")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -23,6 +25,11 @@ _ARGTYPES = {
     "tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
     "fct_bounds": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
                    _P, _P, _P, _I, _P],
+    "ring_spmv": [_P, _P, _P, _I, _I, _P, _I, _P],
+    "block_schwarz": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _P,
+                      _P, _P, _P, _P, _I, _P],
+    "window_gather": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "onehot_gather": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 _LIB = None
 

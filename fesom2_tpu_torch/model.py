@@ -4,11 +4,13 @@ The port of the soufflet path of ``fesom2_tpu/model.py``: the step mirrors
 the reference orchestrator ``oce_timestep_ale`` (``src/oce_ale.F90:
 2521-2799``) with the per-step pre-phase of ``fvom_main.F90:199-268``.
 ``Model`` is an ``nn.Module`` whose buffers are the static tables (mesh,
-tracer and soufflet statics, reference density, dense SSH inverse); the
-step runs eagerly on the device those buffers live on.
+tracer and soufflet statics, reference density, and the SSH solver's:
+the dense inverse, or the ring operator and block preconditioner of the
+CG solve above ``DENSE_SSH_MAX_NODES`` nodes); the step runs eagerly on
+the device those buffers live on.
 
-Configurations outside the ported slice (linfs, linear EoS, PP mixing,
-visc_option=5, mom_adv=2, MUSCL/QR4C/FCT, dense SSH solve) raise
+Configurations outside the ported slice (linfs or zstar on full cells,
+linear EoS, PP mixing, visc_option=5, mom_adv=2, MUSCL/QR4C/FCT) raise
 NotImplementedError naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
@@ -47,7 +49,7 @@ def check_slice(cfg: ModelConfig) -> None:
         missing.append("ice and shortwave penetration (items 10-11)")
     if cfg.run.use_cavity:
         missing.append("ice-shelf cavities (item 15)")
-    if cfg.ale.which_ALE != "linfs":
+    if cfg.ale.which_ALE not in ("linfs", "zstar"):
         missing.append(f"which_ALE='{cfg.ale.which_ALE}' (item 8)")
     if cfg.ale.use_partial_cell:
         missing.append("partial bottom cells (item 8)")
@@ -91,13 +93,25 @@ class Model(nn.Module):
     def __init__(self, mesh: MeshTables, cfg: ModelConfig,
                  tracer_statics: TracerStatics, density_ref: torch.Tensor,
                  soufflet_statics: soufflet.SouffletStatics,
-                 ssh_dense_inv: torch.Tensor):
+                 ssh_dense_inv: Optional[torch.Tensor] = None,
+                 ssh_ring=None, ssh_block_pc=None):
+        """The SSH solve is dense with ``ssh_dense_inv``, else CG with
+        ``ssh_ring`` (``ssh.RingOperator`` under linfs, ``ssh.RingALE``
+        under zstar) and ``ssh_block_pc`` (``ssh.BlockSchwarz``)."""
         super().__init__()
         check_slice(cfg)
+        if (ssh_dense_inv is None) == (ssh_ring is None
+                                       or ssh_block_pc is None):
+            raise ValueError("give the dense SSH inverse, or the ring "
+                             "operator and the block preconditioner")
         self.cfg = cfg
         self._static = {}
+        self._cls = {}
         for prefix, obj in (("mesh", mesh), ("st", tracer_statics),
-                            ("sst", soufflet_statics)):
+                            ("sst", soufflet_statics), ("ring", ssh_ring),
+                            ("pc", ssh_block_pc)):
+            if obj is None:
+                continue
             statics = {}
             for f in dataclasses.fields(obj):
                 val = getattr(obj, f.name)
@@ -106,10 +120,16 @@ class Model(nn.Module):
                 else:
                     statics[f.name] = val
             self._static[prefix] = statics
+            self._cls[prefix] = type(obj)
         self.register_buffer("density_ref", density_ref)
         self.register_buffer("ssh_dense_inv", ssh_dense_inv)
+        # CG iterations of the last step's SSH solve (0 for the dense solve)
+        self.ssh_iters = 0
 
-    def _group(self, prefix: str, cls):
+    def _group(self, prefix: str):
+        if prefix not in self._cls:
+            return None
+        cls = self._cls[prefix]
         tensors = {f.name: getattr(self, f"{prefix}__{f.name}")
                    for f in dataclasses.fields(cls)
                    if f.name not in self._static[prefix]}
@@ -117,15 +137,24 @@ class Model(nn.Module):
 
     @property
     def mesh(self) -> MeshTables:
-        return self._group("mesh", MeshTables)
+        return self._group("mesh")
 
     @property
     def tracer_statics(self) -> TracerStatics:
-        return self._group("st", TracerStatics)
+        return self._group("st")
 
     @property
     def soufflet_statics(self) -> soufflet.SouffletStatics:
-        return self._group("sst", soufflet.SouffletStatics)
+        return self._group("sst")
+
+    @property
+    def ssh_ring(self):
+        """The CG operator's ring tables, or None (dense solve)."""
+        return self._group("ring")
+
+    @property
+    def ssh_block_pc(self) -> Optional[ssh.BlockSchwarz]:
+        return self._group("pc")
 
     @property
     def dtype(self):
@@ -169,8 +198,15 @@ class Model(nn.Module):
 
         with record_function("step.ssh"):
             rhs = ssh.compute_ssh_rhs(state, mesh, cfg, forcing, u_rhs, v_rhs)
-            d_eta, _ = ssh.solve_ssh_dense(state, mesh, cfg,
-                                           self.ssh_dense_inv, rhs)
+            if self.ssh_dense_inv is not None:
+                d_eta, _ = ssh.solve_ssh_dense(state, mesh, cfg,
+                                               self.ssh_dense_inv, rhs)
+            else:
+                d_eta, iters, _ = ssh.solve_ssh(
+                    state, mesh, cfg, self.ssh_block_pc, rhs, self.ssh_ring,
+                    x0=2.0 * state.d_eta - state.d_eta_prev)
+                self.ssh_iters = int(iters)
+                state = replace(state, d_eta=d_eta, d_eta_prev=state.d_eta)
             zvel, _ = soufflet.zonal_means(state, mesh, sst)
             u_rhs = soufflet.relax_zonal_vel(state, mesh, sst, cfg.dt, u_rhs,
                                              zvel)
@@ -182,7 +218,9 @@ class Model(nn.Module):
         with record_function("step.ale"):
             state = ale.vert_vel_ale(state, mesh, cfg, forcing)
         with record_function("step.tracers"):
-            state = solve_tracers(state, mesh, cfg, st, forcing, 0.0, sst)
+            state = solve_tracers(state, mesh, cfg, st, forcing,
+                                  0.0 if cfg.ale.which_ALE == "linfs" else 1.0,
+                                  sst)
         state = ale.update_thickness(state, mesh, cfg)
         return replace(state, step=state.step + 1)
 
@@ -260,7 +298,8 @@ def solve_tracers(state: OceanState, mesh: MeshTables, cfg,
 # --------------------------------------------------------------------------
 # setup
 # --------------------------------------------------------------------------
-def soufflet_config(step_per_day: int = 72) -> ModelConfig:
+def soufflet_config(step_per_day: int = 72,
+                    which_ale: str = "linfs") -> ModelConfig:
     """The soufflet channel configuration (ref namelist.config.toy_soufflet),
     as ``fesom2_tpu.model.setup_soufflet_model`` sets it."""
     cfg = ModelConfig()
@@ -270,7 +309,7 @@ def soufflet_config(step_per_day: int = 72) -> ModelConfig:
     cfg.run.use_sw_pene = False
     cfg.geometry.cyclic_length = 4.5
     cfg.geometry.force_rotation = False
-    cfg.ale.which_ALE = "linfs"
+    cfg.ale.which_ALE = which_ale
     cfg.dyn.state_equation = 0
     cfg.dyn.visc_option = 5
     cfg.dyn.gamma0 = 0.0
@@ -294,17 +333,21 @@ def soufflet_config(step_per_day: int = 72) -> ModelConfig:
 
 def setup_soufflet_model(mesh_path: Optional[str] = None, *,
                          device, dtype=torch.float64,
-                         step_per_day: int = 72,
+                         step_per_day: int = 72, which_ale: str = "linfs",
                          cfg: Optional[ModelConfig] = None) -> Model:
     """Build the soufflet channel model on ``device``.
 
     ``mesh_path``: a FESOM mesh directory; None builds the default channel
     in code (``mesh/channel.py``: 25 x 115 nodes, 40 layers of 100 m).
+    ``which_ale``: "linfs" or "zstar" (ignored when ``cfg`` is given).
+    Meshes up to ``DENSE_SSH_MAX_NODES`` nodes get the dense SSH inverse,
+    larger ones the CG tables: the block preconditioner and the ring (linfs)
+    or ALE ring (zstar) operator (``fesom2_tpu/model.py:1127-1140``).
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
-    cfg = cfg if cfg is not None else soufflet_config(step_per_day)
+    cfg = cfg if cfg is not None else soufflet_config(step_per_day, which_ale)
     check_slice(cfg)
     kw = dict(cyclic_length_deg=cfg.geometry.cyclic_length,
               force_rotation=False, dtype=dtype, device=device)
@@ -312,13 +355,16 @@ def setup_soufflet_model(mesh_path: Optional[str] = None, *,
         mesh = build_mesh_from_raw(channel_raw_mesh(), **kw)
     else:
         mesh = build_mesh(mesh_path, **kw)
-    if mesh.n_nodes > DENSE_SSH_MAX_NODES:
-        raise NotImplementedError("meshes above DENSE_SSH_MAX_NODES need the "
-                                  "CG SSH solve: ROADMAP queue 1 item 6")
     tst = build_tracer_statics(mesh, K_hor=cfg.tra.K_hor, dtype=dtype)
     Z3 = mesh.Z[:, None].expand(mesh.nl - 1, mesh.n_nodes)
     dref = eos.reference_density(mesh, Z3, cfg.dyn.state_equation,
                                  toy_soufflet=True)
     _, _, sst = soufflet.setup_soufflet(mesh, dtype)
-    dense_inv = ssh.ssh_dense_inverse(mesh, cfg, dtype)
-    return Model(mesh, cfg, tst, dref, sst, dense_inv)
+    if mesh.n_nodes <= DENSE_SSH_MAX_NODES:
+        return Model(mesh, cfg, tst, dref, sst,
+                     ssh_dense_inv=ssh.ssh_dense_inverse(mesh, cfg, dtype))
+    pc = ssh.build_block_schwarz(mesh, cfg, dtype=dtype)
+    ring = ssh.build_ssh_ring(mesh, cfg, dtype) \
+        if cfg.ale.which_ALE == "linfs" \
+        else ssh.build_ssh_ring_ale(mesh, cfg, dtype)
+    return Model(mesh, cfg, tst, dref, sst, ssh_ring=ring, ssh_block_pc=pc)

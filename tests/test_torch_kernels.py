@@ -1,5 +1,6 @@
 """Each hand-written CUDA kernel against its plain torch version, on the
-card, at a small size (the channel of 8 x 24 nodes, 10 layers).
+card, at a small size (the channel of 8 x 24 nodes, 10 layers; the gather
+probe at G=16, W=64, T=32, NL=8).
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run on a machine that has only torch:
@@ -7,7 +8,8 @@ so they run on a machine that has only torch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerance: 1e-12 (float64) and 1e-5 (float32) of max|plain|; fct_bounds
-bitwise.  ``chip_smoke.py`` makes the same comparison at full size.
+and the two probe kernels bitwise.  ``chip_smoke.py`` makes the same
+comparison at full size.
 """
 import dataclasses
 
@@ -15,9 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from fesom2_tpu_torch.core import ops, tracers
+from fesom2_tpu_torch import kernels
+from fesom2_tpu_torch.core import ops, ssh, tracers
 from fesom2_tpu_torch.mesh import build_mesh_from_raw
 from fesom2_tpu_torch.mesh.channel import channel_raw_mesh
+from fesom2_tpu_torch.model import soufflet_config
+from fesom2_tpu_torch.scripts import gather_cost_model as probe
 
 NLAY = 10
 
@@ -33,26 +38,31 @@ def rng():
     return np.random.default_rng(1234)
 
 
-def _cuda_mesh(tm, dtype):
+def _on_card(obj, dtype):
+    """A copy of a dataclass of tensors on the card, floats in dtype."""
     dev = torch.device("cuda")
     kw = {}
-    for f in dataclasses.fields(tm):
-        v = getattr(tm, f.name)
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
         if isinstance(v, torch.Tensor):
             v = v.to(dev)
             if v.is_floating_point():
                 v = v.to(dtype)
         kw[f.name] = v
-    return type(tm)(**kw)
+    return type(obj)(**kw)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 def test_kernels_match_plain_on_card(mesh, rng, dtype, tol):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
-    m = _cuda_mesh(mesh, dtype)
+    _need_card()
+    m = _on_card(mesh, dtype)
     dev = torch.device("cuda")
 
     def r(*shape, lo=-1.0, hi=1.0):
@@ -85,3 +95,42 @@ def test_kernels_match_plain_on_card(mesh, rng, dtype, tol):
     for g, w in zip(got, want):
         assert torch.equal(g.isnan(), w.isnan()) and bool(w.isnan().any())
         assert torch.equal(g[~g.isnan()], w[~w.isnan()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_ssh_kernels_match_plain_on_card(mesh, rng, dtype, tol):
+    """ring_spmv and block_schwarz (six blocks of about 32 nodes)."""
+    _need_card()
+    cfg = soufflet_config()
+    ring = _on_card(ssh.build_ssh_ring(mesh, cfg), dtype)
+    pc = _on_card(ssh.build_block_schwarz(mesh, cfg, block_size=32), dtype)
+    assert pc.block_ids.shape[0] > 1
+    x = torch.as_tensor(rng.uniform(-1, 1, mesh.n_nodes),
+                        device="cuda").to(dtype)
+    kernels.reset_launches()
+    for got, want in ((ring(x), ssh.ring_spmv_plain(ring.cols, ring.vals, x)),
+                      (pc(x), ssh.block_schwarz_plain(pc, x))):
+        assert float((got - want).abs().max()) \
+            <= tol * float(want.abs().max())
+    assert kernels.LAUNCHES["ring_spmv"] == 1
+    assert kernels.LAUNCHES["block_schwarz"] == 1
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_plain_on_card():
+    """window_gather and onehot_gather equal their plain versions and each
+    other bitwise, an index outside [0, W) giving a NaN row in all four."""
+    _need_card()
+    vals, idx = probe.probe_inputs(G=16, W=64, T=32, NL=8)
+    idx[0, 0], idx[3, 7], idx[5, 31] = 64, 1000, -70
+    vals = torch.as_tensor(vals, device="cuda")
+    idx = torch.as_tensor(idx, device="cuda")
+    outs = [probe.window_gather(vals, idx), probe.onehot_gather(vals, idx),
+            probe.window_gather_plain(vals, idx),
+            probe.onehot_gather_plain(vals, idx)]
+    for o in outs:
+        assert int(o.isnan().any(-1).sum()) == 3
+        assert torch.equal(o.isnan(), outs[0].isnan())
+        assert torch.equal(o.nan_to_num(), outs[0].nan_to_num())

@@ -144,7 +144,9 @@ def test_mesh_and_forcing_from_numpy(meshes):
 
 def test_port_imports_no_jax():
     code = ("import sys, fesom2_tpu_torch, fesom2_tpu_torch.model, "
-            "fesom2_tpu_torch.run, fesom2_tpu_torch.convert; "
+            "fesom2_tpu_torch.run, fesom2_tpu_torch.convert, "
+            "fesom2_tpu_torch.scripts.gather_cost_model, "
+            "fesom2_tpu_torch.parallel.partition; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or (m.startswith('fesom2_tpu.') and m "
             "not in ('fesom2_tpu.config', 'fesom2_tpu.constants'))]; "

@@ -110,7 +110,7 @@ def test_cuda_requested_without_card_raises(mesh_dir):
 
 @pytest.mark.parametrize("knob,value", [
     (("dyn", "mix_scheme"), "KPP"), (("dyn", "visc_option"), 1),
-    (("ale", "which_ALE"), "zstar"), (("dyn", "mom_adv"), 3),
+    (("ale", "which_ALE"), "zlevel"), (("dyn", "mom_adv"), 3),
     (("dyn", "Redi"), True), (("tra", "tra_adv_hor"), "MFCT"),
     (("diag", "ldiag_DVD"), True), (("dyn", "w_split"), True)])
 def test_out_of_slice_config_raises(mesh_dir, knob, value):
