@@ -35,7 +35,9 @@ def _from_numpy(cls, arrays: dict, device, dtype):
 
 
 def state_from_numpy(arrays: dict, device, dtype=torch.float64) -> OceanState:
-    """OceanState from {field name: array}; integer arrays become int32."""
+    """OceanState from {field name: array}; integer arrays become int32.
+    Every field is carried at its shape, the GM bolus fields (``fer_*``,
+    [.., 0] unless the state was allocated with ``with_gm``) included."""
     return _from_numpy(OceanState, arrays, device, dtype)
 
 

@@ -2,8 +2,9 @@
 layer-thickness update.
 
 The port of the linfs and zstar paths of ``fesom2_tpu/core/ale.py`` (ref
-``src/oce_ale.F90`` vert_vel_ale :1692-2204, update_thickness_ale
-:800-993).  zlevel and the explicit/implicit w split raise.
+``src/oce_ale.F90`` vert_vel_ale :1692-2204 with the explicit/implicit w
+split, update_thickness_ale :800-993) and of the GM bolus vertical
+velocity ``bolus_wvel``.  zlevel raises.
 """
 from __future__ import annotations
 
@@ -35,18 +36,11 @@ def vert_vel_ale(state: OceanState, mesh: MeshTables, cfg,
     """Vertical velocity from the horizontal divergence, bottom up (ref
     :1724-1815); under zstar the hbar change is spread over the column in
     proportion to the unperturbed thickness (ref :2028-2092); then the
-    vertical CFL number (ref :2141-2154)."""
+    vertical CFL number (ref :2141-2154) and, with ``w_split``, the split
+    of w into an explicit part w_e and an implicit part w_i above the CFL
+    limit w_max_cfl (ref :2189-2203)."""
     _check_ale(cfg)
-    if cfg.dyn.w_split:
-        raise NotImplementedError("the explicit/implicit w split is not "
-                                  "ported yet: ROADMAP queue 1 item 8")
-    he = torch.where(mesh.elem_layer_mask, state.helem, 0.0)
-    flux = edge_transport(state.u * he, state.v * he, mesh)  # [nl-1, Ed]
-    div = torch.cat([edge_divergence(flux, mesh),
-                     flux.new_zeros((1, mesh.n_nodes))], 0)
-    w = cumsum_bottom_up(div)
-    w = torch.where(mesh.node_level_mask,
-                    w / torch.where(mesh.area > 0, mesh.area, 1.0), 0.0)
+    w = _divergence_wvel(state.u, state.v, state, mesh)
 
     hnode_new = state.hnode
     if cfg.ale.which_ALE == "zstar":
@@ -74,8 +68,34 @@ def vert_vel_ale(state: OceanState, mesh: MeshTables, cfg,
     cfl = torch.zeros_like(state.cfl_z)
     cfl[:-1] += torch.where(nmask, c_up, 0.0)
     cfl[1:] = torch.where(nmask, c_dn, 0.0) + cfl[1:]
-    return replace(state, w=w, w_e=w, w_i=torch.zeros_like(w), cfl_z=cfl,
+    if cfg.dyn.w_split:
+        dd = torch.clamp_min(cfl - cfg.dyn.w_max_cfl, 0.0) \
+            / max(cfg.dyn.w_max_cfl, 1e-12)
+        w_e = 1.0 / (1.0 + dd) * w
+        w_i = dd / (1.0 + dd) * w
+    else:
+        w_e, w_i = w, torch.zeros_like(w)
+    return replace(state, w=w, w_e=w_e, w_i=w_i, cfl_z=cfl,
                    hnode_new=hnode_new)
+
+
+def _divergence_wvel(u, v, state: OceanState, mesh: MeshTables):
+    """Vertical velocity [nl, N] of the horizontal flow (u, v) on elements:
+    edge transports, their divergence, summed bottom up, over the area
+    (ref :1720-1815)."""
+    he = torch.where(mesh.elem_layer_mask, state.helem, 0.0)
+    flux = edge_transport(u * he, v * he, mesh)             # [nl-1, Ed]
+    div = torch.cat([edge_divergence(flux, mesh),
+                     flux.new_zeros((1, mesh.n_nodes))], 0)
+    w = cumsum_bottom_up(div)
+    return torch.where(mesh.node_level_mask,
+                       w / torch.where(mesh.area > 0, mesh.area, 1.0), 0.0)
+
+
+def bolus_wvel(fer_u, fer_v, state: OceanState, mesh: MeshTables):
+    """Vertical bolus velocity [nl, N] of the GM bolus velocity (ref
+    :1720-1815 with fer_UV -> fer_Wvel)."""
+    return _divergence_wvel(fer_u, fer_v, state, mesh)
 
 
 def update_thickness(state: OceanState, mesh: MeshTables, cfg) -> OceanState:

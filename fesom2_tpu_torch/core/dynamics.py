@@ -136,23 +136,26 @@ def pressure_force_zxxxx_shchepetkin(state: OceanState,
 
 def pressure_force(state: OceanState, mesh: MeshTables, cfg) -> OceanState:
     """PGF dispatch (ref pressure_force_4_linfs :371-427,
-    pressure_force_4_zxxxx :1661-1687): on full cells, the hpressure
-    gradient under linfs and Shchepetkin under zstar; the other forms
-    raise."""
+    pressure_force_4_zxxxx :1661-1687): the hpressure gradient under linfs
+    on full cells; Shchepetkin under zstar, and under linfs with partial
+    cells (the layer geometry is static there, so the moving-coordinate
+    form is the linfs one, as in ``fesom2_tpu/core/dynamics.py:560-615``).
+    The other forms raise."""
     which = getattr(cfg.dyn, "which_pgf", "shchepetkin")
-    linfs = cfg.ale.which_ALE == "linfs"
-    if cfg.ale.use_partial_cell \
-            or getattr(cfg.run, "use_cavity_partial_cell", False) \
-            or cfg.ale.which_ALE not in ("linfs", "zstar") \
-            or which in (("nemo", "cubicspline") if linfs
-                         else ("easypgf", "cubicspline")):
+    full_linfs = cfg.ale.which_ALE == "linfs" and not cfg.ale.use_partial_cell
+    unported = ("nemo", "cubicspline") if full_linfs \
+        else ("nemo", "cubicspline", "easypgf")
+    if getattr(cfg.run, "use_cavity_partial_cell", False) \
+            or cfg.ale.which_ALE not in ("linfs", "zstar") or which in unported:
         raise NotImplementedError(
-            "only the full-cell linfs and zstar Shchepetkin PGFs are "
-            "ported: the other forms are ROADMAP queue 1 items 8 and 15")
-    if linfs:
+            f"which_pgf='{which}' with which_ALE='{cfg.ale.which_ALE}': only "
+            "the full-cell linfs and the Shchepetkin PGFs are ported: the "
+            "other forms are ROADMAP queue 1 items 8 and 15")
+    if full_linfs:
         return pressure_force_linfs(state, mesh)
     if which != "shchepetkin":
-        raise ValueError(f"which_pgf='{which}' not supported for zstar")
+        raise ValueError(f"which_pgf='{which}' not supported for "
+                         f"which_ALE='{cfg.ale.which_ALE}'")
     return pressure_force_zxxxx_shchepetkin(state, mesh)
 
 

@@ -2,7 +2,12 @@
 
 The port of ``fesom2_tpu/core/eos.py`` (ref ``src/oce_ale_pressure_bv.F90``:
 densityJM_components :2589-2654, density_linear :2989-3019,
-init_ref_density :3024-3069, pressure_bv :106-370).
+init_ref_density :3024-3069, pressure_bv :106-370, sw_alpha_beta
+:2736-2821).
+
+``pressure_bv`` runs the hand-written CUDA kernel ``csrc/pressure_bv.cu``
+(one thread per node column) on a CUDA tensor; ``pressure_bv_plain``
+beside it serves CPU tensors only.
 """
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ from dataclasses import replace
 import torch
 
 from fesom2_tpu.constants import g, density_0
+from .. import kernels
 from ..mesh import MeshTables
 from .state import OceanState
 
@@ -78,13 +84,49 @@ def reference_density(mesh: MeshTables, Z_3d, state_equation: int,
     return rho * rhopot / (rho + 0.1 * z)
 
 
+def _eos_kind(cfg) -> int:
+    """0: linear EoS, 1: Jackett-McDougall, 2: the soufflet linear EoS."""
+    if cfg.dyn.state_equation == 1:
+        return 1
+    return 2 if cfg.run.toy_ocean and cfg.run.which_toy == "soufflet" else 0
+
+
 def pressure_bv(state: OceanState, mesh: MeshTables, cfg,
                 density_ref) -> OceanState:
     """EoS + hydrostatic pressure + N^2 + MLD (ref pressure_bv :106-370);
-    column-local.  ``density_ref`` is [nl-1, N]."""
+    column-local.  ``density_ref`` is [nl-1, N].  Writes density_m_rho0,
+    hpressure, bvfreq (with its surface and bottom copies), dbsfc (the
+    buoyancy difference to the surface, for KPP) and mld2."""
     if cfg.run.use_cavity:
         raise NotImplementedError("ice-shelf cavities are not ported yet: "
                                   "ROADMAP queue 1 item 15")
+    if state.tr.device.type == "cpu":
+        return pressure_bv_plain(state, mesh, cfg, density_ref)
+    kernels.cuda_only(state.tr, "pressure_bv")
+    dev, dt = state.tr.device, state.tr.dtype
+    L, N = mesh.nl - 1, mesh.n_nodes
+    t, s = state.tr[0].contiguous(), state.tr[1].contiguous()
+    ins = dict(t=t, s=s, Z_3d=state.Z_3d, hnode=state.hnode,
+               density_ref=density_ref)
+    for name, x in ins.items():
+        kernels.require(x, name, (L, N), dt, dev)
+    kernels.require(state.zbar_3d, "zbar_3d", (L + 1, N), dt, dev)
+    kernels.require(mesh.nlevels_node, "nlevels_node", (N,), torch.int32, dev)
+    rho = torch.empty((L, N), dtype=dt, device=dev)
+    hp = torch.empty_like(rho)
+    bv = torch.empty((L + 1, N), dtype=dt, device=dev)
+    dbsfc = torch.empty_like(bv)
+    mld2 = torch.empty((N,), dtype=dt, device=dev)
+    kernels.launch("pressure_bv", dev, t, s, state.Z_3d, state.zbar_3d,
+                   state.hnode, density_ref, mesh.nlevels_node, L + 1, N,
+                   _eos_kind(cfg), g, density_0, rho, hp, bv, dbsfc, mld2,
+                   kernels.float_code(dt))
+    return replace(state, density_m_rho0=rho, hpressure=hp, bvfreq=bv,
+                   dbsfc=dbsfc, mld2=mld2)
+
+
+def pressure_bv_plain(state: OceanState, mesh: MeshTables, cfg,
+                      density_ref) -> OceanState:
     t = state.tr[0]
     s = state.tr[1]
     Z3 = state.Z_3d
@@ -154,3 +196,33 @@ def pressure_bv(state: OceanState, mesh: MeshTables, cfg,
 
     return replace(state, density_m_rho0=rho, hpressure=hp, bvfreq=bvfreq,
                    dbsfc=dbsfc, mld2=mld2)
+
+
+def sw_alpha_beta(t, s, Z_3d):
+    """Thermal expansion and haline contraction coefficients (alpha, beta)
+    of the McDougall (1987) polynomial (ref :2736-2821), elementwise."""
+    t1 = t * 1.00024
+    s1 = s
+    p1 = torch.abs(Z_3d)
+    t1_2, p1_2 = t1 * t1, p1 * p1
+    t1_3, p1_3 = t1_2 * t1, p1_2 * p1
+    t1_4 = t1_3 * t1
+    s35 = s1 - 35.0
+    s35_2 = s35 * s35
+    beta = (0.785567e-3 - 0.301985e-5 * t1 + 0.555579e-7 * t1_2
+            - 0.415613e-9 * t1_3
+            + s35 * (-0.356603e-6 + 0.788212e-8 * t1
+                     + 0.408195e-10 * p1 - 0.602281e-15 * p1_2)
+            + s35_2 * 0.515032e-8
+            + p1 * (-0.121555e-7 + 0.192867e-9 * t1 - 0.213127e-11 * t1_2)
+            + p1_2 * (0.176621e-12 - 0.175379e-14 * t1)
+            + p1_3 * 0.121551e-17)
+    a_over_b = (0.665157e-1 + 0.170907e-1 * t1 - 0.203814e-3 * t1_2
+                + 0.298357e-5 * t1_3 - 0.255019e-7 * t1_4
+                + s35 * (0.378110e-2 - 0.846960e-4 * t1
+                         - 0.164759e-6 * p1 - 0.251520e-11 * p1_2)
+                + s35_2 * (-0.678662e-5)
+                + p1 * (0.380374e-4 - 0.933746e-6 * t1 + 0.791325e-8 * t1_2)
+                + p1_2 * t1_2 * 0.512857e-12
+                - p1_3 * 0.302285e-13)
+    return a_over_b * beta, beta

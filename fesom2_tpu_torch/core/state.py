@@ -102,10 +102,8 @@ def allocate_state(mesh: MeshTables, n_tracers: int = 2,
     if n_dvd:
         raise NotImplementedError("the DVD diagnostic is not ported yet: "
                                   "ROADMAP queue 1 item 20")
-    if with_gm:
-        raise NotImplementedError("GM bolus fields are not ported yet: "
-                                  "ROADMAP queue 1 item 10")
     nl, N, E = mesh.nl, mesh.n_nodes, mesh.n_elems
+    Eg, Ng = (E, N) if with_gm else (0, 0)
     dev = mesh.zbar.device
     z = lambda *s: torch.zeros(s, dtype=dtype, device=dev)
     return OceanState(
@@ -125,8 +123,8 @@ def allocate_state(mesh: MeshTables, n_tracers: int = 2,
         pgf_x=z(nl - 1, E), pgf_y=z(nl - 1, E),
         unode=z(nl - 1, N), vnode=z(nl - 1, N),
         uke=z(nl - 1, E), uke_rhs=z(nl - 1, E),
-        fer_u=z(nl - 1, 0), fer_v=z(nl - 1, 0), fer_w=z(nl, 0),
-        fer_K3=z(nl, 0), fer_c=z(0),
+        fer_u=z(nl - 1, Eg), fer_v=z(nl - 1, Eg), fer_w=z(nl, Ng),
+        fer_K3=z(nl, Ng), fer_c=z(Ng),
         dvd_h=z(0, nl - 1, N), dvd_v=z(0, nl - 1, N),
         step=torch.zeros((), dtype=torch.int32, device=dev),
     )
@@ -141,8 +139,10 @@ def zero_forcing(mesh: MeshTables, dtype=torch.float64) -> Forcing:
 
 
 def initial_z3d(mesh: MeshTables, dtype):
-    """Unperturbed interface/mid depths per node (zbar_3d, Z_3d)
-    (ref init_ale, oce_ale.F90:160-194)."""
+    """Unperturbed interface/mid depths per node (zbar_3d, Z_3d) (ref
+    init_ale, oce_ale.F90:160-194): standard levels above the bottom,
+    ``zbar_n_bot`` at the bottom interface (partial cells), the bottom
+    layer's mid depth halfway between its top and the partial bottom."""
     nl = mesh.nl
     dev = mesh.zbar.device
     zbar = mesh.zbar.to(dtype)
@@ -161,7 +161,9 @@ def initial_z3d(mesh: MeshTables, dtype):
 
 def init_thickness_linfs(state: OceanState, mesh: MeshTables) -> OceanState:
     """hnode/helem/zbar_3d/Z_3d of the unperturbed column (eta = 0)
-    (ref init_ale + init_thickness_ale, oce_ale.F90:82-194, :583-628)."""
+    (ref init_ale + init_thickness_ale, oce_ale.F90:82-194, :583-628); the
+    bottom layer is ``bottom_{node,elem}_thickness``, which partial cells
+    make thinner or thicker than the full cell."""
     nl = mesh.nl
     dtype = state.eta.dtype
     zbar = mesh.zbar.to(dtype)

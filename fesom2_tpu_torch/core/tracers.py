@@ -1,11 +1,15 @@
-"""Tracer transport: MUSCL/QR4C advection, FCT limiter, diffusion.
+"""Tracer transport: MUSCL/MFCT and QR4C advection, FCT limiter,
+implicit vertical advection of the w split, horizontal and Redi diffusion,
+implicit vertical diffusion, shortwave penetration.
 
-The port of the soufflet subset of ``fesom2_tpu/core/tracers.py`` (ref
-driver ``src/oce_adv_tra_driver.F90:41-269``; adv_tra_hor_muscl
-``oce_adv_tra_hor.F90:215``; adv_tra_ver_{upw1:231,qr4c:286}
-``oce_adv_tra_ver.F90``; oce_tra_adv_fct ``oce_adv_tra_fct.F90:58-349``;
-fill_up_dn_grad ``oce_muscl_adv.F90:286-447``; diff_part_hor_redi,
-diff_ver_part_impl_ale, bc_surface ``oce_ale_tracer.F90``).
+The port of the soufflet and CI subsets of ``fesom2_tpu/core/tracers.py``
+(ref driver ``src/oce_adv_tra_driver.F90:41-269``; adv_tra_hor_{muscl:215,
+mfct:485} ``oce_adv_tra_hor.F90``; adv_tra_ver_{upw1:231,qr4c:286},
+adv_tra_vert_impl :83 ``oce_adv_tra_ver.F90``; oce_tra_adv_fct
+``oce_adv_tra_fct.F90:58-349``; fill_up_dn_grad
+``oce_muscl_adv.F90:286-447``; diff_part_hor_redi, diff_ver_part_redi_expl,
+diff_ver_part_impl_ale, bc_surface ``oce_ale_tracer.F90``;
+cal_shortwave_rad ``oce_shortwave_pene.F90``).
 
 Tracers are stacked on a leading axis, [T, nl-1, N].  Sign convention:
 ``flux_h[.., Ed]`` is positive INTO edge node 0.
@@ -15,6 +19,8 @@ kernel on a CUDA tensor; ``fct_bounds_plain`` beside it serves CPU
 tensors only.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -40,6 +46,15 @@ def tracer_gradient_elements(t, mesh: MeshTables):
         gy = gyj if gy is None else gy + gyj
     m = mesh.elem_layer_mask
     return torch.where(m, gx, 0.0), torch.where(m, gy, 0.0)
+
+
+def tracer_gradient_z(t, Z_3d, mesh: MeshTables):
+    """d t / dz on interfaces [..., nl, N], zero at the surface and bottom."""
+    dz = Z_3d[:-1] - Z_3d[1:]
+    g = (t[..., :-1, :] - t[..., 1:, :]) / torch.where(dz == 0, 1.0, dz)
+    interior = mesh.node_level_mask[1:-1] & mesh.node_layer_mask[1:]
+    zrow = torch.zeros_like(t[..., :1, :])
+    return torch.cat([zrow, torch.where(interior, g, 0.0), zrow], -2)
 
 
 def _muscl_dxdy(mesh: MeshTables):
@@ -95,32 +110,36 @@ def _edge_vflux(u, v, helem, mesh: MeshTables):
 
 
 def _muscl_reconstruct(t1, t2, R1, R2, mesh: MeshTables, st: TracerStatics,
-                       dtype):
-    """Interface values (tm1, tm2) from the endpoint values and R1/R2,
-    with the MUSCL boundary fallback (ref oce_adv_tra_hor.F90:262-309)."""
+                       dtype, boundary_fallback: bool = True):
+    """Interface values (tm1, tm2) from the endpoint values and R1/R2
+    (ref oce_adv_tra_hor.F90:262-309).  MUSCL drops the high-order
+    correction at nodes within ``nboundary_lay`` of the lateral boundary
+    (``boundary_fallback``); MFCT keeps it everywhere (ref :485-734)."""
+    common = 2.0 * (t2 - t1)
+    if not boundary_fallback:
+        return t1 + (common + R1) / 6.0, t2 - (common + R2) / 6.0
     n0, n1 = mesh.edges[:, 0], mesh.edges[:, 1]
     nz1 = torch.arange(mesh.nl - 1, device=t1.device)[:, None] + 1
     c1 = (st.nboundary_lay[n0][None, :] >= nz1).to(dtype)
     c2 = (st.nboundary_lay[n1][None, :] >= nz1).to(dtype)
-    common = 2.0 * (t2 - t1)
     return (t1 + (common + R1) / 6.0 * c1,
             t2 - (common + R2) / 6.0 * c2)
 
 
 def adv_hor_lo_ho(t, tAB, vflux, mesh: MeshTables, st: TracerStatics,
                   rec, num_ord, scheme: str = "MUSCL"):
-    """Low-order upwind flux of t and the MUSCL antidiffusive flux of tAB
-    (already minus the low-order flux): returns (flux_lo, flux_adf)
+    """Low-order upwind flux of t and the MUSCL or MFCT antidiffusive flux
+    of tAB (already minus the low-order flux): returns (flux_lo, flux_adf)
     (ref oce_adv_tra_driver.F90:83-135)."""
-    if scheme != "MUSCL":
+    if scheme not in ("MUSCL", "MFCT"):
         raise NotImplementedError(f"tra_adv_hor='{scheme}' is not ported "
-                                  "yet: MFCT is ROADMAP queue 1 item 10, "
-                                  "UPW1 item 15")
+                                  "yet: ROADMAP queue 1 item 15")
     n0, n1 = mesh.edges[:, 0], mesh.edges[:, 1]
     av = torch.abs(vflux)
     flux_lo = -0.5 * (t[..., n0] * (vflux + av) + t[..., n1] * (vflux - av))
     tm1, tm2 = _muscl_reconstruct(tAB[..., n0], tAB[..., n1], rec[0], rec[1],
-                                  mesh, st, t.dtype)
+                                  mesh, st, t.dtype,
+                                  boundary_fallback=(scheme == "MUSCL"))
     cHO = (vflux + av) * tm1 + (vflux - av) * tm2
     expr = 0.5 * (1.0 - num_ord) * cHO + vflux * num_ord * (0.5 * (tm1 + tm2))
     return flux_lo, -expr - flux_lo
@@ -199,6 +218,37 @@ def adv_ver_qr4c(t, w, Z3, zb3, mesh: MeshTables, num_ord, flux_prev=None):
     if flux_prev is not None:
         flux = flux - flux_prev
     return flux
+
+
+def adv_vert_impl(t, w, hnode_new, mesh: MeshTables, dt):
+    """Implicit upwind vertical advection by the w split's implicit part
+    w [nl, N] of tracers t [.., nl-1, N] (ref adv_tra_vert_impl :83-230):
+    one tridiagonal system per column, shared by the tracers."""
+    lay = torch.arange(mesh.nl - 1, device=t.device)[:, None]
+    lmask = mesh.node_layer_mask
+    is_surf = lay == 0
+    is_bot = lay == (mesh.nlevels_node - 2)[None, :]
+    av = torch.where(mesh.areasvol[:-1] > 0, mesh.areasvol[:-1], 1.0)
+    ratio_up = dt * mesh.area[:-1] / av
+    ratio_dn = dt * mesh.area[1:] / av
+    wu, wd = w[:-1], w[1:]
+    a = torch.where(is_surf, 0.0, torch.clamp_max(wu, 0.0) * ratio_up)
+    b_up = torch.where(is_surf, wu * ratio_up,
+                       torch.clamp_min(wu, 0.0) * ratio_up)
+    b_dn = torch.where(is_bot, 0.0, -torch.clamp_max(wd, 0.0) * ratio_dn)
+    c = torch.where(is_bot, 0.0, -torch.clamp_min(wd, 0.0) * ratio_dn)
+    h = torch.where(lmask, hnode_new, 1.0)
+    b = h + b_up + b_dn
+
+    zrow = torch.zeros_like(t[..., :1, :])
+    t_up = torch.cat([zrow, t[..., :-1, :]], -2)
+    t_dn = torch.cat([t[..., 1:, :], zrow], -2)
+    rhs = -a * t_up - (b - h) * t - c * torch.where(is_bot, 0.0, t_dn)
+    a = torch.where(lmask, a, 0.0)
+    c = torch.where(lmask, c, 0.0)
+    b = torch.where(lmask, b, 1.0)
+    rhs = torch.where(lmask, rhs, 0.0)
+    return t + torch.where(lmask, tridiag_solve(a, b, c, rhs), 0.0)
 
 
 # --------------------------------------------------------------------------
@@ -339,9 +389,13 @@ def flux2dtracer(flux_h, flux_v, mesh: MeshTables, dt, ttf, lo, hnode,
 # --------------------------------------------------------------------------
 # diffusion
 # --------------------------------------------------------------------------
-def diff_hor(gx, gy, helem, Ki_node, mesh: MeshTables, dt):
-    """Explicit horizontal diffusion, no Redi terms (ref :934-1077).
-    gx/gy are the current-step tracer gradients on elements, Ki_node [N]."""
+def diff_hor(gx, gy, helem, Ki_node, mesh: MeshTables, dt, tr_z=None,
+             slope_tapered=None):
+    """Explicit horizontal diffusion (ref :934-1077).  gx/gy are the
+    current-step tracer gradients on elements; Ki_node is [N] or layered
+    [nl-1, N].  With ``tr_z`` [.., nl, N] and ``slope_tapered``
+    [3, nl-1, N] the Redi cross terms Kh (Sx Tz, Sy Tz) are added to the
+    gradients (isredi=1, ref :984-991)."""
     et1, et2 = mesh.edge_tri[:, 0], mesh.edge_tri[:, 1]
     has2 = et2 >= 0
     et2s = torch.where(has2, et2, 0)
@@ -356,7 +410,19 @@ def diff_hor(gx, gy, helem, Ki_node, mesh: MeshTables, dt):
     he = torch.where(lmask, helem, 0.0)
     gx1, gy1, h1 = gx[..., et1], gy[..., et1], he[:, et1]
     gx2, gy2, h2 = gx[..., et2s], gy[..., et2s], he[:, et2s]
-    Kh = (0.5 * (Ki_node[n0] + Ki_node[n1]))[None, :]
+    Kh = 0.5 * (Ki_node[..., n0] + Ki_node[..., n1])
+    if Ki_node.dim() == 1:
+        Kh = Kh[None, :]
+    if tr_z is not None and slope_tapered is not None:
+        # Tz at the layer mid from its two interfaces, averaged over the
+        # edge's two nodes
+        Tz_lay = 0.5 * (tr_z[..., :-1, :] + tr_z[..., 1:, :])
+        SxTz_n = Tz_lay * slope_tapered[0]
+        SyTz_n = Tz_lay * slope_tapered[1]
+        SxTz = 0.5 * (SxTz_n[..., n0] + SxTz_n[..., n1])
+        SyTz = 0.5 * (SyTz_n[..., n0] + SyTz_n[..., n1])
+        gx1, gy1 = gx1 + SxTz, gy1 + SyTz
+        gx2, gy2 = gx2 + SxTz, gy2 + SyTz
 
     # shared layers: mean gradient and h; single-sided: one element
     c_both = ((dX2 - dX1)[None] * Kh * 0.5 * (gy1 + gy2)
@@ -368,6 +434,90 @@ def diff_hor(gx, gy, helem, Ki_node, mesh: MeshTables, dt):
     av = torch.where(mesh.areasvol[:-1] > 0, mesh.areasvol[:-1], 1.0)
     return torch.where(mesh.node_layer_mask,
                        edge_divergence(c, mesh) * dt / av, 0.0)
+
+
+def depths_from_thickness(hnode, mesh: MeshTables, zbot=None):
+    """Interface and mid depths (zbar_n [nl, N], Z_n [nl-1, N]) of the
+    layer thicknesses ``hnode``, stacked up from the bottom ``zbot``
+    (default: the node bottom, partial cells included) (ref :536-548)."""
+    zbot = mesh.zbar_n_bot if zbot is None else zbot
+    hm = torch.where(mesh.node_layer_mask, hnode, 0.0)
+    hsum = torch.cumsum(torch.flip(hm, (0,)), 0)
+    zbar_n = torch.cat([zbot[None, :] + torch.flip(hsum, (0,)), zbot[None, :]],
+                       0)
+    return zbar_n, 0.5 * (zbar_n[:-1] + zbar_n[1:])
+
+
+def diff_ver_redi_expl(gx, gy, slope_tapered, Ki_layered, hnode_new,
+                       mesh: MeshTables, dt):
+    """Explicit vertical Redi flux from the horizontal gradients (ref
+    :860-934): a tracer increment [.., nl-1, N].  gx/gy are the element
+    gradients of the current step."""
+    nie = mesh.nod_in_elem
+    valid = nie >= 0
+    safe = torch.where(valid, nie, 0)
+    w = torch.where(valid, mesh.elem_area[safe], 0.0)
+    wl = torch.where(mesh.elem_layer_mask[:, safe], w[None], 0.0)
+    av = torch.where(mesh.areasvol[:-1] > 0, mesh.areasvol[:-1], 1.0)
+    gxy = torch.stack([gx, gy])
+    acc = None
+    for kk in range(nie.shape[-1]):
+        v = gxy[..., safe[:, kk]] * wl[..., kk]
+        acc = v if acc is None else acc + v
+    txy = acc / 3.0 / av
+    tx, ty = txy[0], txy[1]
+
+    zbar_n, Z_n = depths_from_thickness(hnode_new, mesh)
+    dZ = Z_n[:-1] - Z_n[1:]
+    dZ = torch.where(dZ == 0, 1.0, dZ)
+    ks = Ki_layered * (slope_tapered[0] * tx + slope_tapered[1] * ty)
+    fa = (Z_n[:-1] - zbar_n[1:-1]) * ks[..., :-1, :]
+    fb = (zbar_n[1:-1] - Z_n[1:]) * ks[..., 1:, :]
+    vd = (fa + fb) / dZ * mesh.area[1:-1]
+    lev = torch.arange(mesh.nl, device=gx.device)[:, None]
+    interior = (lev >= 1) & (lev <= (mesh.nlevels_node - 2)[None, :])
+    zrow = torch.zeros_like(vd[..., :1, :])
+    vd_full = torch.where(interior, torch.cat([zrow, vd, zrow], -2), 0.0)
+    out = (vd_full[..., :-1, :] - vd_full[..., 1:, :]) * dt / av
+    return torch.where(mesh.node_layer_mask, out, 0.0)
+
+
+def shortwave_penetration(shortwave, a_ice, zbar_3d, mesh: MeshTables,
+                          albw: float, chl_const: float = 0.1):
+    """Visible shortwave through the interfaces, Morel & Antoine (1994)
+    with the Sweeney et al. (2005) coefficients at constant chlorophyll
+    (ref cal_shortwave_rad oce_shortwave_pene.F90:1-95).  Returns (sw_3d
+    [nl, N], the temperature flux through each interface in K m/s; dheat
+    [N], to add to heat_flux: the visible part leaves the surface flux and
+    is deposited at depth).  No penetration under ice."""
+    c = math.log10(max(chl_const, 0.02))
+    c2, c3, c4, c5 = c * c, c ** 3, c ** 4, c ** 5
+    v1 = 0.008 * c + 0.132 * c2 + 0.038 * c3 - 0.017 * c4 - 0.007 * c5
+    v2 = 0.679 - v1
+    v1 = 0.321 + v1
+    sc1 = 1.54 - 0.197 * c + 0.166 * c2 - 0.252 * c3 - 0.055 * c4 + 0.042 * c5
+    sc2 = 7.925 - 6.644 * c + 3.662 * c2 - 1.815 * c3 - 0.218 * c4 \
+        + 0.502 * c5
+
+    swsurf = torch.where(a_ice <= 0.0, (1.0 - albw) * shortwave * 0.54, 0.0)
+    swflux = swsurf / vcpw
+    aux = v1 * torch.exp(zbar_3d / sc1) + v2 * torch.exp(zbar_3d / sc2)
+    lev = torch.arange(mesh.nl, device=aux.device)[:, None]
+    # zero from the first interface where aux < 1e-5 (the reference exits
+    # its loop there) and at and below the bottom interface
+    dead = torch.cumsum((aux < 1e-5).to(aux.dtype), 0) > 0
+    sw = torch.where(dead | (lev >= (mesh.nlevels_node - 1)[None, :]), 0.0,
+                     swflux[None, :] * aux)
+    return torch.cat([swflux[None, :], sw[1:]], 0), swsurf
+
+
+def sw_3d_source(sw_3d, mesh: MeshTables, dt):
+    """Layer temperature source [nl-1, N] of the interface flux divergence
+    (ref oce_ale_tracer.F90:784-790)."""
+    ratio = mesh.area[1:] / torch.where(mesh.areasvol[:-1] > 0,
+                                        mesh.areasvol[:-1], 1.0)
+    src = (sw_3d[:-1] - sw_3d[1:] * ratio) * dt
+    return torch.where(mesh.node_layer_mask, src, 0.0)
 
 
 def bc_surface(tracer_id: int, t_surf, forcing, dt, is_nonlinfs: float):
@@ -383,42 +533,63 @@ def bc_surface(tracer_id: int, t_surf, forcing, dt, is_nonlinfs: float):
 
 
 def diff_ver_impl(t, Kv, hnode_new, zbar_n_bot, mesh: MeshTables, dt,
-                  surf_bc):
+                  surf_bc, w_i=None, sw_source=None, Ki_layered=None,
+                  slope3=None):
     """Implicit vertical diffusion of tracers t [.., nl-1, N] sharing one
-    diffusivity Kv [nl, N] (ref diff_ver_part_impl_ale :398-860);
-    ``surf_bc`` [.., N] is the bc_surface source of the top row."""
+    diffusivity Kv [nl, N] (ref diff_ver_part_impl_ale :398-860).
+    ``surf_bc`` [.., N] is the bc_surface source of the top row;
+    ``sw_source`` [.., nl-1, N] a source added to every row; ``w_i`` adds
+    the implicit vertical advection of the w split; with ``Ki_layered``
+    and the tapered slope magnitude ``slope3`` [nl-1, N] the Redi K33 =
+    Ki S^2 is added to Kv on the interior interfaces (ref :548-590)."""
     nl = mesh.nl
     lay = torch.arange(nl - 1, device=t.device)[:, None]
     lmask = mesh.node_layer_mask
     is_surf = lay == (mesh.ulevels_node - 1)[None, :]
     is_bot = lay == (mesh.nlevels_node - 2)[None, :]
 
-    # actual interface/mid depths from hnode_new (ref :536-548)
-    hm = torch.where(lmask, hnode_new, 0.0)
-    hsum = torch.cumsum(torch.flip(hm, (0,)), 0)
-    zbar_n = torch.cat([zbar_n_bot[None, :] + torch.flip(hsum, (0,)),
-                        zbar_n_bot[None, :]], 0)
-    Z_n = 0.5 * (zbar_n[:-1] + zbar_n[1:])
+    zbar_n, Z_n = depths_from_thickness(hnode_new, mesh, zbar_n_bot)
     dZ = Z_n[:-1] - Z_n[1:]
     dZ = torch.where(dZ == 0, 1.0, dZ)
     av = torch.where(mesh.areasvol[:-1] > 0, mesh.areasvol[:-1], 1.0)
     ratio_up = mesh.area[:-1] / av
     ratio_dn = mesh.area[1:] / av
 
+    Kv_in = Kv[1:-1]
+    if Ki_layered is not None and slope3 is not None:
+        # K33 at each interior interface: the thickness-weighted mean of
+        # Ki S^2 of the two layers around it (ref :548-556)
+        ks2 = Ki_layered * slope3 ** 2
+        wa = (Z_n[:-1] - zbar_n[1:-1]) / dZ
+        wb = (zbar_n[1:-1] - Z_n[1:]) / dZ
+        Ty = wa * ks2[:-1] + wb * ks2[1:]
+        Kv_in = Kv_in + torch.where(torch.isfinite(Ty), Ty, 0.0)
     a = torch.zeros_like(hnode_new)
-    a[1:] = -Kv[1:-1] / dZ * dt
+    a[1:] = -Kv_in / dZ * dt
     a = torch.where(is_surf, 0.0, a * ratio_up)
     c = torch.zeros_like(hnode_new)
-    c[:-1] = -Kv[1:-1] / dZ * dt
+    c[:-1] = -Kv_in / dZ * dt
     c = torch.where(is_bot, 0.0, c * ratio_dn)
     h = torch.where(lmask, hnode_new, 1.0)
     b = -a - c + h
+    if w_i is not None:
+        wu, wd = w_i[:-1], w_i[1:]
+        a = a + torch.where(is_surf, 0.0, torch.clamp_max(wu, 0.0)) * dt \
+            * ratio_up
+        b = b + torch.where(is_surf, wu, torch.clamp_min(wu, 0.0)) * dt \
+            * ratio_up
+        b = b - torch.where(is_bot, 0.0, torch.clamp_max(wd, 0.0)) * dt \
+            * ratio_dn
+        c = c - torch.where(is_bot, 0.0, torch.clamp_min(wd, 0.0)) * dt \
+            * ratio_dn
 
     zrow = torch.zeros_like(t[..., :1, :])
     t_up = torch.cat([zrow, t[..., :-1, :]], -2)
     t_dn = torch.cat([t[..., 1:, :], zrow], -2)
     rhs = -a * t_up - (b - h) * t - torch.where(is_bot, 0.0, c * t_dn)
     rhs = rhs + torch.where(is_surf, surf_bc[..., None, :], 0.0)
+    if sw_source is not None:
+        rhs = rhs + sw_source
 
     a = torch.where(lmask, a, 0.0)
     c = torch.where(lmask, c, 0.0)

@@ -2,8 +2,8 @@
 
 ``LAUNCHES`` counts, per kernel, the launches made by its wrapper (the
 wrappers live beside their plain torch versions, in ``core/ops.py``,
-``core/tracers.py``, ``core/ssh.py`` and
-``scripts/gather_cost_model.py``).  The library is built and loaded on the first
+``core/tracers.py``, ``core/ssh.py``, ``core/eos.py``,
+``core/mixing/kpp.py`` and ``scripts/gather_cost_model.py``).  The library is built and loaded on the first
 launch, never at import: the CPU path needs neither ``nvcc`` nor a card.
 """
 from __future__ import annotations
@@ -14,10 +14,10 @@ import torch
 
 KERNELS = ("node_edge_reduce", "elem_to_node_mean", "tridiag_solve",
            "fct_bounds", "ring_spmv", "block_schwarz", "window_gather",
-           "onehot_gather")
+           "onehot_gather", "pressure_bv", "kpp_column")
 LAUNCHES = {name: 0 for name in KERNELS}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signatures, in argument order (see csrc/*.cu); the last is the stream
 _ARGTYPES = {
     "node_edge_reduce": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P],
@@ -30,6 +30,8 @@ _ARGTYPES = {
                       _P, _P, _P, _P, _I, _P],
     "window_gather": [_P, _P, _I, _I, _I, _I, _P, _P],
     "onehot_gather": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "pressure_bv": [_P] * 7 + [_I, _I, _I, _D, _D] + [_P] * 5 + [_I, _P],
+    "kpp_column": [_P] * 15 + [_I] * 3 + [_D] * 8 + [_P] * 4 + [_I, _P],
 }
 _LIB = None
 
@@ -80,7 +82,8 @@ def float_code(dtype) -> int:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call kernel ``name`` on the current stream of ``device``: tensors
-    are passed as pointers, ints as ints.  Raises on a refused launch."""
+    are passed as pointers (None as a null pointer), ints and floats as
+    the C signature's int and double.  Raises on a refused launch."""
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -63,15 +63,44 @@ def build_edges(elem_nodes: np.ndarray, coords: np.ndarray, cyclic_len: float):
     return edges[order], etri[order], int(internal.sum())
 
 
-def derive_levels(raw: RawMesh, elem_neighbors: np.ndarray):
-    """Per-element/per-node level counts (flat bottom: all columns full)."""
-    if raw.depth is not None:
-        raise NotImplementedError(
-            "levels from node depths (bathymetry) are not ported yet: "
-            "ROADMAP queue 1 item 8")
-    nle = np.full(raw.n_elems, raw.nl, np.int64)
-    nln = np.full(raw.n_nodes, raw.nl, np.int64)
-    return nle, nln
+def derive_levels(raw: RawMesh, elem_neighbors: np.ndarray,
+                  thers_lev: int = 5):
+    """Per-element/per-node level counts from node depths (ref
+    ``fvom_init.F90:657-871``): the element depth is the mean of its
+    vertices', the first mid-depth Z below it gives the level count, at
+    least ``thers_lev``, then the iterative elimination of isolated cells;
+    node levels are the maximum over the node's elements.  Without depths
+    (a flat-bottomed toy mesh) every column is full."""
+    nl = raw.nl
+    zbar = raw.zbar
+    Z = 0.5 * (zbar[:-1] + zbar[1:])
+    depth = raw.depth
+    if depth is None:
+        nle = np.full(raw.n_elems, nl, np.int64)
+    else:
+        depth = np.minimum(depth, zbar[thers_lev - 1])
+        dmean = depth[raw.elem_nodes].mean(axis=1)
+        # first nz (1-based) with Z[nz-1] < dmean
+        below = Z[None, :] < dmean[:, None]
+        has = below.any(axis=1)
+        first = np.argmax(below, axis=1) + 1
+        nle = np.where(has, first, np.where(dmean < 0, nl, thers_lev))
+        nle = np.maximum(nle, thers_lev)
+        # isolated-cell elimination: a cell open to fewer than two
+        # neighbours at level nz closes there
+        nb = elem_neighbors
+        for nz in range(thers_lev + 1, nl + 1):
+            for _ in range(1000):
+                open_mask = nle >= nz
+                nb_open = (nb >= 0) & open_mask[np.clip(nb, 0, None)]
+                bad = open_mask & (nb_open.sum(axis=1) < 2)
+                if not bad.any():
+                    break
+                nle[bad] = nz - 1
+    nln = np.zeros(raw.n_nodes, np.int64)
+    for j in range(3):
+        np.maximum.at(nln, raw.elem_nodes[:, j], nle)
+    return nle.astype(np.int64), nln
 
 
 def partial_bottom_depths(depth: Optional[np.ndarray], elem_nodes: np.ndarray,
@@ -171,18 +200,24 @@ class MeshTables:
 
 
 def build_mesh(path: str, *, cyclic_length_deg: float = 360.0,
-               force_rotation: bool = False, dtype=torch.float64,
+               force_rotation: bool = False, use_partial_cell: bool = False,
+               partial_cell_thresh: float = 0.0, dtype=torch.float64,
                device) -> MeshTables:
-    """Read a FESOM-format mesh directory and derive all static geometry."""
+    """Read a FESOM-format mesh directory and derive all static geometry;
+    with ``use_partial_cell`` the bottom cells follow the node depths."""
     raw = read_raw_mesh(path, force_rotation=force_rotation)
     return build_mesh_from_raw(raw, cyclic_length_deg=cyclic_length_deg,
-                               force_rotation=force_rotation, dtype=dtype,
-                               device=device)
+                               force_rotation=force_rotation,
+                               use_partial_cell=use_partial_cell,
+                               partial_cell_thresh=partial_cell_thresh,
+                               dtype=dtype, device=device)
 
 
 def build_mesh_from_raw(raw: RawMesh, *, cyclic_length_deg: float = 360.0,
                         force_rotation: bool = False, alpha: float = 50.0,
                         beta: float = 15.0, gamma: float = -90.0,
+                        use_partial_cell: bool = False,
+                        partial_cell_thresh: float = 0.0,
                         dtype=torch.float64, device) -> MeshTables:
     if raw.cavity_depth is not None:
         raise NotImplementedError("ice-shelf cavities are not ported yet: "
@@ -268,7 +303,8 @@ def build_mesh_from_raw(raw: RawMesh, *, cyclic_length_deg: float = 360.0,
     Z = 0.5 * (zbar[:-1] + zbar[1:])
     (zbar_e_bot, zbar_n_bot, bottom_elem_thickness,
      bottom_node_thickness) = partial_bottom_depths(
-        raw.depth, elem_nodes, nod_in_elem, nle, nln, zbar, False)
+        raw.depth, elem_nodes, nod_in_elem, nle, nln, zbar,
+        use_partial_cell, partial_cell_thresh)
 
     lay = np.arange(nl - 1)
     elem_layer_mask = (lay[:, None] < (nle[None, :] - 1)) \

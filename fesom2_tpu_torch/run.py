@@ -8,18 +8,27 @@ cuda and raises where CUDA is missing; the CPU runs only when asked for
 with ``--device cpu``.  Without ``--mesh`` the default code-built channel
 is used (``mesh/channel.py``).  Output streams are not ported yet
 (ROADMAP queue 1 item 20).
+
+``run_pi_ocean`` drives the ocean of the global configuration
+(``model.setup_pi_model``) with shortwave penetration and no ice, as the
+coupled step of ``fesom2_tpu/model.py:396-407`` does below open water;
+``globe_ocean_inputs`` gives its initial state and forcing on a mesh of
+``mesh/globe.py``.  The coupled ``pi`` run is not a subcommand yet: it
+needs the ice (ROADMAP queue 1 items 11-13).
 """
 from __future__ import annotations
 
 import argparse
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional
 
 import torch
 
-from .core.state import OceanState, zero_forcing
+from .core import tracers
+from .core.state import OceanState, Forcing, zero_forcing
 from .mesh import MeshTables
+from .mesh.globe import globe_fixtures
 from .model import Model, setup_soufflet_model
 
 
@@ -101,6 +110,50 @@ def run_soufflet(n_steps: int = 72, *, device="cuda", dtype=torch.float64,
     if verbose:
         print(timers.report(dev), flush=True)
     return model, state, timers
+
+
+def globe_ocean_inputs(model: Model, seed: int = 0):
+    """(initial state, forcing, shortwave [N]) of ``mesh/globe.py``'s
+    fixtures on ``model``'s mesh, at its dtype and device: T/S profiles
+    with seeded noise, zonal wind stress, heat and zero-mean water fluxes,
+    the atmospheric stress for the Monin-Obukhov mixing."""
+    mesh = model.mesh
+    host = lambda x: x.detach().cpu().numpy()
+    fx = globe_fixtures(host(mesh.geo_coords[:, 1]), host(mesh.elem_nodes),
+                        host(mesh.Z), host(mesh.nlevels_node),
+                        host(mesh.area[0]), seed=seed)
+    dev, dt = mesh.zbar.device, model.dtype
+    put = lambda a: torch.as_tensor(a, device=dev).to(dt)
+    state = model.initial_state()
+    tr = state.tr.clone()
+    tr[0], tr[1] = put(fx["T"]), put(fx["S"])
+    state = replace(state, tr=tr, tr_old=tr)
+    forcing = replace(zero_forcing(mesh, dt), **{
+        k: put(fx[k]) for k in ("stress_x", "stress_y", "stress_atm_x",
+                                "stress_atm_y", "heat_flux", "water_flux")})
+    return state, forcing, put(fx["shortwave"])
+
+
+def run_pi_ocean(model: Model, state: OceanState, forcing: Forcing,
+                 shortwave: torch.Tensor, n_steps: int) -> OceanState:
+    """``n_steps`` ocean steps of the global configuration.  Each step
+    takes the penetrating part of ``shortwave`` [N] from the state's
+    interfaces (no ice: ``a_ice = 0``) and adds the surface flux it moves
+    to depth to ``heat_flux``, as ``fesom2_tpu/model.py:396-407`` does;
+    without ``use_sw_pene`` the forcing goes in unchanged."""
+    cfg = model.cfg
+    step = model.step_fn()
+    a_ice = torch.zeros_like(shortwave)
+    with torch.no_grad():
+        for _ in range(n_steps):
+            f, sw_3d = forcing, None
+            if cfg.run.use_sw_pene:
+                sw_3d, dheat = tracers.shortwave_penetration(
+                    shortwave, a_ice, state.zbar_3d, model.mesh,
+                    cfg.ice.albw)
+                f = replace(forcing, heat_flux=forcing.heat_flux + dheat)
+            state = step(state, f, sw_3d)
+    return state
 
 
 def main(argv=None):

@@ -1,6 +1,7 @@
 """Each hand-written CUDA kernel against its plain torch version, on the
 card, at a small size (the channel of 8 x 24 nodes, 10 layers; the gather
-probe at G=16, W=64, T=32, NL=8).
+probe at G=16, W=64, T=32, NL=8; the column kernels pressure_bv and
+kpp_column on the level-3 globe with 20 layers, partial cells).
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run on a machine that has only torch:
@@ -18,10 +19,13 @@ import pytest
 import torch
 
 from fesom2_tpu_torch import kernels
-from fesom2_tpu_torch.core import ops, ssh, tracers
-from fesom2_tpu_torch.mesh import build_mesh_from_raw
+from fesom2_tpu_torch.core import eos, ops, ssh, tracers
+from fesom2_tpu_torch.core.mixing import kpp
+from fesom2_tpu_torch.core.state import (allocate_state, initial_z3d,
+                                         init_thickness_linfs)
+from fesom2_tpu_torch.mesh import build_mesh, build_mesh_from_raw, globe
 from fesom2_tpu_torch.mesh.channel import channel_raw_mesh
-from fesom2_tpu_torch.model import soufflet_config
+from fesom2_tpu_torch.model import pi_config, soufflet_config
 from fesom2_tpu_torch.scripts import gather_cost_model as probe
 
 NLAY = 10
@@ -134,3 +138,51 @@ def test_probe_kernels_match_plain_on_card():
         assert int(o.isnan().any(-1).sum()) == 3
         assert torch.equal(o.isnan(), outs[0].isnan())
         assert torch.equal(o.nan_to_num(), outs[0].nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_column_kernels_match_plain_on_card(tmp_path, rng, dtype, tol):
+    """pressure_bv (JM, linear, soufflet EoS) and kpp_column (double
+    diffusion off and on) on columns of varying depth."""
+    _need_card()
+    path = globe.write_globe(str(tmp_path), level=3, n_layers=20,
+                             dz_bottom=600.0)
+    m = build_mesh(path, force_rotation=True, use_partial_cell=True,
+                   device="cuda", dtype=dtype)
+    fx = globe.globe_fixtures(*(x.cpu().numpy() for x in (
+        m.geo_coords[:, 1], m.elem_nodes, m.Z, m.nlevels_node, m.area[0])))
+    put = lambda a: torch.as_tensor(a, device="cuda").to(dtype)
+    wet = m.node_layer_mask
+    st = init_thickness_linfs(allocate_state(m, 2, dtype), m)
+    st = dataclasses.replace(
+        st, tr=put(np.stack([fx["T"], fx["S"]])),
+        unode=put(rng.uniform(-0.3, 0.3, wet.shape)) * wet,
+        vnode=put(rng.uniform(-0.3, 0.3, wet.shape)) * wet)
+    dref = eos.reference_density(m, initial_z3d(m, dtype)[1], 1)
+    kernels.reset_launches()
+    for se, toy in ((1, False), (0, False), (0, True)):
+        cfg = soufflet_config() if toy else pi_config()
+        cfg.dyn.state_equation = se
+        got = eos.pressure_bv(st, m, cfg, dref)
+        want = eos.pressure_bv_plain(st, m, cfg, dref)
+        for name in ("density_m_rho0", "hpressure", "bvfreq", "dbsfc",
+                     "mld2"):
+            g, w = getattr(got, name), getattr(want, name)
+            assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+    st = eos.pressure_bv_plain(st, m, pi_config(), dref)
+    a, b = eos.sw_alpha_beta(st.tr[0], st.tr[1], st.Z_3d)
+    Bo = -9.81 * (a[0] * put(fx["heat_flux"]) / 4.2e6
+                  + b[0] * put(fx["water_flux"]) * st.tr[1, 0])
+    ustar = put(rng.uniform(0.0, 0.02, m.n_nodes))
+    for dd in (False, True):
+        args = (st.unode, st.vnode, st.bvfreq, st.dbsfc, st.zbar_3d, st.Z_3d,
+                st.hnode, ustar, Bo, m.coriolis_node, m.nlevels_node,
+                pi_config(), dd, a, b, st.tr[0], st.tr[1])
+        for g, w in zip(kpp.kpp_column(*args), kpp.kpp_column_plain(*args)):
+            if w is not None:
+                assert float((g - w).abs().max()) \
+                    <= tol * float(w.abs().max())
+    assert kernels.LAUNCHES["pressure_bv"] == 3
+    assert kernels.LAUNCHES["kpp_column"] == 2

@@ -109,10 +109,10 @@ def test_cuda_requested_without_card_raises(mesh_dir):
 
 
 @pytest.mark.parametrize("knob,value", [
-    (("dyn", "mix_scheme"), "KPP"), (("dyn", "visc_option"), 1),
+    (("dyn", "mix_scheme"), "CVMIX_TKE"), (("dyn", "visc_option"), 1),
     (("ale", "which_ALE"), "zlevel"), (("dyn", "mom_adv"), 3),
-    (("dyn", "Redi"), True), (("tra", "tra_adv_hor"), "MFCT"),
-    (("diag", "ldiag_DVD"), True), (("dyn", "w_split"), True)])
+    (("tra", "tra_adv_ver"), "PPM"), (("run", "use_ice"), True),
+    (("diag", "ldiag_DVD"), True), (("dyn", "SPP"), True)])
 def test_out_of_slice_config_raises(mesh_dir, knob, value):
     cfg = soufflet_config()
     setattr(getattr(cfg, knob[0]), knob[1], value)
