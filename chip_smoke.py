@@ -21,7 +21,14 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    float32 kpp_column column beyond the tolerance passes only where
    rounding moved the boundary layer's last level, in at most 10 columns
    (or one in 10,000), and is reported; all timed with CUDA events
-   (median of 30 after warm-up);
+   (median of 30 after warm-up).  Beside each time stand the card's least
+   time for the call (the larger of its bytes over 3.35 TB/s and its
+   operations over the float32 or float64 peak, from the ``*_work``
+   counter beside the wrapper, with which of the two binds) and, where
+   one PyTorch call computes the same function on the same inputs (a CSR
+   product, ``torch.bmm``, ``torch.gather``), that call's time; the port
+   never makes such a call.  The cluster kernels' tile tables are
+   reported with the sectors a tile's staging touches;
 4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
    linfs, dense SSH) through ``run.run_soufflet``, with sanity bounds,
    linfs volume conservation and a launch count above 0 for every kernel
@@ -51,14 +58,17 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     float64 steps gated on finite fields, |u| < 3 m/s, T in [-3, 35] C,
     area-mean hbar below 1e-6 m and every kernel of the path launched;
     CG iterations per step, setup seconds, throughput in float32 and
-    float64 (20 steps each, alternately and twice each) and a 3-step
+    float64 (20 steps each, alternately and twice each), the launches of
+    each kernel per step (the CG kernels also per iteration) and a 3-step
     profile per dtype (information);
 11. the CI ocean card against CPU on the level-3 globe, 5 float64 steps:
     the dense solve within 1e-9 of max|CPU|, CG forced within 1e-8, and
     the dense solve with ``w_max_cfl=1e-5`` (the w split active: implicit
     vertical advection and the split FCT branch) within 1e-9.
 
-Any failure exits non-zero before the last line.  The last line is
+Any failure exits non-zero before the last line.  Before it come one
+JSON line with every kernel's launches, error, times, bound and library
+time, the seconds the run took and the card; the last line is
 ``{"ok": true, "device": {...}}``.  It needs one card and exits non-zero
 where CUDA is not available.
 """
@@ -105,9 +115,10 @@ def device_kernels(prof):
             if e.device_type == DeviceType.CUDA and not e.key.startswith("step.")]
 
 
-def device_us(fn, calls: int = 20) -> str:
-    """Device time per call of fn(): the summed self time of the CUDA
-    kernels it launches, from torch.profiler, over ``calls`` calls."""
+def device_us(fn, calls: int = 20):
+    """Device microseconds per call of fn(): the summed self time of the
+    CUDA kernels it launches, from torch.profiler, over ``calls`` calls;
+    None where the profiler dropped every kernel event of the run (seen)."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     fn()
@@ -117,15 +128,28 @@ def device_us(fn, calls: int = 20) -> str:
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in device_kernels(prof)) / calls
-    # the profiler has been seen to drop every kernel event of a run
-    return f"{us:.2f}" if us > 0 else "not measured"
+    return us if us > 0 else None
 
 
-def profile_steps(phase: str, model, state, n: int, card: str, run=None):
-    """Profile n steps (``run(model, state, n)``, by default the soufflet
-    driver): wall and device kernel time, the busy share, the kernels per
-    step, the 12 costliest kernels and the host time of each ``step.*``
-    span (information, not a gate)."""
+def us_text(us) -> str:
+    return "not measured" if us is None else f"{us:.2f}"
+
+
+def csr(rows, cols, vals, shape):
+    """A CSR matrix on the card from (row, col, value) triples (duplicates
+    summed): the operand of the sparse products timed as library calls."""
+    import torch
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                   shape).coalesce().to_sparse_csr()
+
+
+def profile_steps(phase: str, model, state, n: int, card: str, run=None,
+                  also=()):
+    """Profile n steps (``run(model, state, n)``, by default
+    ``run_soufflet``): wall and device kernel time, the busy share, the
+    kernels per step, the 12 costliest kernels, every kernel whose name
+    holds one of ``also``, and the host time of each ``step.*`` span
+    (information, not a gate)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
@@ -146,7 +170,9 @@ def profile_steps(phase: str, model, state, n: int, card: str, run=None):
         f"wall {wall * 1e3:.1f} ms, device kernel time {dev_us / 1e3:.1f} ms, "
         f"busy share {dev_us / 1e3 / (wall * 1e3):.3f}, kernels launched "
         f"{sum(e.count for e in kern) / n:.0f}/step ({card})")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+    ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:12] + [e for e in ranked[12:]
+                            if any(a in e.key for a in also)]:
         say(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
     for e in sorted((e for e in prof.key_averages()
@@ -240,7 +266,7 @@ def main():
     import copy
     from fesom2_tpu_torch.core import eos, ops, ssh, tracers
     from fesom2_tpu_torch.core.mixing import kpp
-    from fesom2_tpu_torch.mesh import globe
+    from fesom2_tpu_torch.mesh import cluster, globe
     from fesom2_tpu_torch.mesh.channel import channel_raw_mesh, write_mesh
     from fesom2_tpu_torch.model import setup_pi_model, setup_soufflet_model
     from fesom2_tpu_torch.run import (globe_ocean_inputs, run_pi_ocean,
@@ -248,6 +274,7 @@ def main():
     from fesom2_tpu_torch.scripts import gather_cost_model as probe
 
     # phase 1 ------------------------------------------------------------
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -334,71 +361,132 @@ def main():
 
     pbv_fields = ("density_m_rho0", "hpressure", "bvfreq", "dbsfc", "mld2")
 
+    # A case: (kernel, label, wrapper call, plain call, exact, work,
+    # library call or None).  ``work`` is the kernel's (bytes, flops) from
+    # its counter beside the wrapper; the library call is one PyTorch call
+    # that computes the same function on the same inputs (timed here,
+    # never called by the port).
+
     def pbv_case(label, m, st):
         """pressure_bv's outputs on model m's state st, with m's EoS."""
-        return ("pressure_bv", f"{label} [{m.mesh.nl - 1}, {m.mesh.n_nodes}]",
+        L, N = m.mesh.nl - 1, m.mesh.n_nodes
+        wet = int(m.mesh.node_layer_mask.sum())
+        return ("pressure_bv", f"{label} [{L}, {N}]",
                 lambda: tuple(getattr(eos.pressure_bv(
                     st, m.mesh, m.cfg, m.density_ref), k) for k in pbv_fields),
                 lambda: tuple(getattr(eos.pressure_bv_plain(
                     st, m.mesh, m.cfg, m.density_ref), k) for k in pbv_fields),
-                False)
+                False, eos.pressure_bv_work(L, N, wet, eos._eos_kind(m.cfg),
+                                            st.tr.element_size()), None)
 
     def cg_cases(dtype):
         """The CG path's kernels with the 46k channel's tables; the ring
         values rebuilt from a 0.5 m hbar perturbation, as a step does;
-        pressure_bv on its zstar state after one step."""
+        pressure_bv on its zstar state after one step.  Library calls: a
+        CSR product for the ring, one bmm for the blocks' local solves."""
         m = big[dtype]
+        size = torch.empty((), dtype=dtype).element_size()
         hbar_e = rand(m.mesh.n_elems, lo=-0.5, hi=0.5, dtype=dtype)
         op = m.ssh_ring.materialize(hbar_e)
         pc = m.ssh_block_pc
-        x = rand(m.mesh.n_nodes, dtype=dtype)
+        N = m.mesh.n_nodes
+        x = rand(N, dtype=dtype)
         nb, K = pc.block_ids.shape
+        Kr = op.cols.shape[0]
+        ring = csr(torch.arange(N, device=dev).repeat(Kr),
+                   op.cols.long().reshape(-1), op.vals.reshape(-1), (N, N))
+        xcol = x[:, None].contiguous()
+        rb = x[pc.block_ids.long().clamp_min(0)][..., None].contiguous()
         return [("ring_spmv", f"ring {list(op.cols.shape)}",
                  lambda: op(x),
-                 lambda: ssh.ring_spmv_plain(op.cols, op.vals, x), False),
+                 lambda: ssh.ring_spmv_plain(op.cols, op.vals, x), False,
+                 ssh.ring_spmv_work(Kr, N, size), lambda: ring @ xcol),
                 ("block_schwarz", f"blocks [{nb}, {K}, {K}]",
                  lambda: pc(x),
-                 lambda: ssh.block_schwarz_plain(pc, x), False),
+                 lambda: ssh.block_schwarz_plain(pc, x), False,
+                 ssh.block_schwarz_work(N, nb, K, pc.node_slots.shape[1],
+                                        pc.coarse_ids.shape[1], size),
+                 lambda: torch.bmm(pc.inv_blocks, rb)),
                 pbv_case("zstar channel", m, big1[dtype])]
 
     def probe_cases():
+        """Library calls: torch.gather on a prebuilt index, torch.bmm on a
+        prebuilt one-hot.  Both kernels compute one function, a gather, and
+        are held to its bound; what the one-hot product costs as a method
+        is reported beside it (method_bound_ms)."""
         v, i = probe_vals, probe_idx
+        G, W, NL = v.shape
+        T = i.shape[1]
         label = "G,W,T,NL " + ",".join(map(str, probe.PROBE_SHAPE.values()))
+        rows_read = int(torch.unique(
+            i.long() + W * torch.arange(G, device=dev)[:, None]).numel())
+        index = i.long()[..., None].expand(G, T, NL).contiguous()
+        onehot = (i.long()[..., None] == torch.arange(W, device=dev)).to(
+            v.dtype)
         return [("window_gather", label,
                  lambda: probe.window_gather(v, i),
-                 lambda: probe.window_gather_plain(v, i), True),
+                 lambda: probe.window_gather_plain(v, i), True,
+                 probe.window_gather_work(G, T, NL, rows_read),
+                 lambda: torch.gather(v, 1, index)),
                 ("onehot_gather", label,
                  lambda: probe.onehot_gather(v, i),
-                 lambda: probe.onehot_gather_plain(v, i), True)]
+                 lambda: probe.onehot_gather_plain(v, i), True,
+                 probe.window_gather_work(G, T, NL, rows_read),
+                 lambda: torch.bmm(onehot, v))]
 
     def cases(dtype, label, model, state, full=True):
-        """(kernel, label, wrapper call, plain call, exact) at the shapes of
-        model's path, pressure_bv on its state ``state``; ``full=False``
-        runs one case of each kernel."""
+        """The step kernels at the shapes of model's path, pressure_bv on
+        its state ``state``; ``full=False`` runs fewer shapes of each.  The
+        last case of a kernel is the one its row of the result reports.
+        Library calls: a CSR product with the signed incidence matrix for
+        the divergence, with the area weights for the unmasked mean."""
         mesh = model.mesh
         N, E, Ed, L = mesh.n_nodes, mesh.n_elems, mesh.n_edges, mesh.nl - 1
+        K, KE = mesh.nod_in_elem.shape[1], mesh.node_edges.shape[1]
+        size = torch.empty((), dtype=dtype).element_size()
+        ct = mesh.cluster
         out = []
-        for R in ((), (L,), (2, L)) if full else ((L,),):
-            f = rand(*R, Ed, dtype=dtype)
-            out.append(("node_edge_reduce", f"div {list(f.shape)}",
-                        lambda f=f: ops.edge_divergence(f, mesh),
-                        lambda f=f: ops.edge_divergence_plain(f, mesh), False))
         f = rand(2, L, Ed, dtype=dtype)
         out.append(("node_edge_reduce", f"pair {list(f.shape)}",
-                    lambda: ops.edge_signed_reduce2(f, mesh),
-                    lambda: ops.edge_signed_reduce2_plain(f, mesh), False))
+                    lambda f=f: ops.edge_signed_reduce2(f, mesh),
+                    lambda f=f: ops.edge_signed_reduce2_plain(f, mesh), False,
+                    ops.node_edge_reduce_work(2 * L, Ed, N, KE, True, size),
+                    None))
+        ne = mesh.node_edges.long()
+        inc = csr(torch.arange(N, device=dev)[:, None].expand_as(ne)[ne >= 0],
+                  ne[ne >= 0], mesh.node_edge_sign[ne >= 0], (N, Ed))
+        for R in ((), (L,), (2, L)) if full else ((2, L),):
+            f = rand(*R, Ed, dtype=dtype)
+            ft = f.reshape(-1, Ed).T.contiguous()
+            out.append(("node_edge_reduce", f"div {list(f.shape)}",
+                        lambda f=f: ops.edge_divergence(f, mesh),
+                        lambda f=f: ops.edge_divergence_plain(f, mesh), False,
+                        ops.node_edge_reduce_work(ft.shape[1], Ed, N, KE,
+                                                  False, size),
+                        lambda ft=ft: inc @ ft))
         xs = rand(2, E, dtype=dtype)
         out.append(("elem_to_node_mean", f"flat {list(xs.shape)}",
                     lambda: ops.elem_to_node_mean_flat(xs, mesh),
-                    lambda: ops.elem_to_node_mean_flat_plain(xs, mesh), False))
-        for shape, lev in (((2, L, E), True), ((2, L, E), False),
-                           ((2, 2, L, E), True)) if full \
-                else (((2, L, E), True),):
+                    lambda: ops.elem_to_node_mean_flat_plain(xs, mesh), False,
+                    ops.elem_to_node_mean_work(2, 1, E, N, K, size), None))
+        nie = mesh.nod_in_elem.long()
+        w = mesh.elem_area[nie.clamp_min(0)] * (nie >= 0)
+        mean = csr(torch.arange(N, device=dev)[:, None].expand_as(nie)[
+            nie >= 0], nie[nie >= 0], (w / w.sum(1, keepdim=True))[nie >= 0],
+            (N, E))
+        # every row count the path gives it (gm_redi: 4 rows), on both meshes
+        for shape, lev in (((2, L, E), False), ((2, 2, L, E), True),
+                           ((2, L, E), True)):
             x = rand(*shape, dtype=dtype)
+            xt = x.reshape(-1, E).T.contiguous()
             out.append(("elem_to_node_mean", f"levels={lev} {list(shape)}",
                         lambda x=x, lev=lev: ops.elem_to_node_mean(x, mesh, lev),
                         lambda x=x, lev=lev: ops.elem_to_node_mean_plain(
-                            x, mesh, lev), False))
+                            x, mesh, lev), False,
+                        ops.elem_to_node_mean_work(
+                            xt.shape[1] // L, L, E, N, K, size,
+                            ct.mean_tile_elems.numel(), ct.tile_nodes),
+                        None if lev else (lambda xt=xt: mean @ xt)))
         for X in (N, E) if full else (N,):
             a = rand(L, X, lo=-0.4, hi=0.0, dtype=dtype)
             c = rand(L, X, lo=-0.4, hi=0.0, dtype=dtype)
@@ -407,12 +495,16 @@ def main():
             out.append(("tridiag_solve", f"a,b,c {[L, X]} d {[2, L, X]}",
                         lambda a=a, b=b, c=c, d=d: ops.tridiag_solve(a, b, c, d),
                         lambda a=a, b=b, c=c, d=d: ops.tridiag_solve_plain(
-                            a, b, c, d), False))
+                            a, b, c, d), False,
+                        ops.tridiag_solve_work(2, L, X, size), None))
         ttf = rand(2, L, N, lo=0.0, hi=30.0, dtype=dtype)
         lo_ = rand(2, L, N, lo=0.0, hi=30.0, dtype=dtype)
         out.append(("fct_bounds", f"ttf,lo {[2, L, N]}",
                     lambda: tracers.fct_bounds(ttf, lo_, mesh),
-                    lambda: tracers.fct_bounds_plain(ttf, lo_, mesh), True))
+                    lambda: tracers.fct_bounds_plain(ttf, lo_, mesh), True,
+                    tracers.fct_bounds_work(
+                        2, L, N, ct.fct_slot.shape[0], size,
+                        ct.fct_tile_nodes.numel(), ct.tile_nodes), None))
         out.append(pbv_case(label, model, state))
         return out
 
@@ -421,6 +513,7 @@ def main():
         pressure_bv and kpp_column on its state after one step."""
         m, st, f = gm[dtype], g1[dtype], gin[dtype][1]
         mesh = m.mesh
+        wet = int(mesh.node_layer_mask.sum())
         out = cases(dtype, "globe", m, st, full=False)
         for dd in (False, True):
             cfg = copy.deepcopy(m.cfg)
@@ -430,13 +523,28 @@ def main():
                         lambda a=args: tuple(x for x in kpp.kpp_column(*a)
                                              if x is not None),
                         lambda a=args: tuple(x for x in kpp.kpp_column_plain(
-                            *a) if x is not None), False))
+                            *a) if x is not None), False,
+                        kpp.kpp_column_work(mesh.nl, mesh.n_nodes, wet, dd,
+                                            st.tr.element_size()), None))
         return out
+
+    for label, mesh in (("channel", mesh64), ("globe", gmesh)):
+        ct = mesh.cluster
+        for what, ptr, ids in (
+                ("elements", ct.mean_tile_ptr, ct.mean_tile_elems),
+                ("neighbour nodes", ct.fct_tile_ptr, ct.fct_tile_nodes)):
+            st8, st4 = (cluster.tile_stats(ptr, ids, b) for b in (8, 4))
+            say(f"phase 3 cluster tables {label}: {st8['tiles']} tiles of "
+                f"{ct.tile_nodes} nodes, per tile "
+                f"{st8['entries_per_tile']:.1f} distinct {what} in "
+                f"{st8['sectors_per_tile']:.1f} (float64) and "
+                f"{st4['sectors_per_tile']:.1f} (float32) 32-byte sectors "
+                f"of a field row")
 
     summary = {k: {"max_abs_err": 0.0} for k in kernels.KERNELS}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         tag = str(dtype).replace("torch.", "")
-        for name, label, kern, plain, exact in (
+        for name, label, kern, plain, exact, work, library in (
                 cases(dtype, "channel", chan[dtype], chan1[dtype])
                 + cg_cases(dtype)
                 + (probe_cases() if dtype == torch.float32 else [])
@@ -467,19 +575,45 @@ def main():
                 fail(f"{name} {label} {tag}: kernel vs plain max abs err "
                      f"{err:.3e}, worst output {rel:.3e} of its max|plain| "
                      f"(tol {'bitwise' if exact else tol})")
+            if library is not None and name in ("node_edge_reduce",
+                                                "elem_to_node_mean",
+                                                "ring_spmv"):
+                # the sparse products give the kernel's output transposed
+                lib = library().T.reshape(got[0].shape)
+                lib_rel = max_abs(lib, want[0]) / float(want[0].abs().max())
+                if not lib_rel <= 10 * tol:
+                    fail(f"{name} {label} {tag}: the library call computes "
+                         f"another function ({lib_rel:.3e} of max|plain|)")
             k_ms = timed(kern)
             p_ms = timed(plain)
+            l_ms = timed(library) if library is not None else None
+            b_ms, bound_by = kernels.bound_ms(work, dtype)
+            k_dev, l_dev = device_us(kern), None
+            if library is not None:
+                l_dev = device_us(library)
             say(f"phase 3 {name:18s} {tag} {label:36s} max_abs_err={err:.3e} "
                 f"rel={rel:.3e} "
                 f"kernel_us={k_ms * 1e3:.1f} plain_us={p_ms * 1e3:.1f} "
-                f"device: kernel_us={device_us(kern)} "
-                f"plain_us={device_us(plain)}")
+                f"library_us={'none' if l_ms is None else f'{l_ms * 1e3:.1f}'} "
+                f"bound_us={b_ms * 1e3:.1f} ({bound_by}) "
+                f"device: kernel_us={us_text(k_dev)} "
+                f"plain_us={us_text(device_us(plain))} library_us="
+                f"{'none' if library is None else us_text(l_dev)}")
             if dtype == torch.float64 or name.endswith("_gather"):
                 s = summary[name]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
                 # the largest shape of each kernel on its path is timed
                 # last among its f64 cases (the probe kernels: f32 only)
-                s["ms"], s["plain_ms"] = k_ms, p_ms
+                s.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                         bound_ms=b_ms, bound_by=bound_by,
+                         device_ms=k_dev and k_dev / 1e3,
+                         library_device_ms=l_dev and l_dev / 1e3)
+            if name == "onehot_gather":
+                m_ms, m_by = kernels.bound_ms(probe.onehot_gather_work(
+                    *probe.PROBE_SHAPE.values()), dtype)
+                summary[name]["method_bound_ms"] = m_ms
+                say(f"phase 3 onehot_gather: the one-hot product as a method "
+                    f"is bound at {m_ms * 1e3:.1f} us ({m_by})")
 
     # a NaN in ttf must spread through fct_bounds as through torch.maximum
     for dtype in (torch.float64, torch.float32):
@@ -678,6 +812,12 @@ def main():
         f"per step {iters}, launches {launches}")
     check_globe("phase 10", m64, st, launches)
     path_launches.update(launches)
+    # launches per step of the CI ocean; the CG kernels also per iteration
+    per_step = {k: v / 20 for k, v in launches.items()}
+    per_cg_iteration = {k: launches[k] / sum(iters)
+                        for k in ("ring_spmv", "block_schwarz")}
+    say(f"phase 10 launches per step {per_step}, per CG iteration "
+        f"{per_cg_iteration}")
     runs = {dtype: [m, run_pi_ocean(m, *gin[dtype], 2)]
             for dtype, m in gm.items()}
     for _ in range(2):
@@ -703,7 +843,8 @@ def main():
         _, frc, sw = gin[dtype]
         profile_steps("phase 10", mdl, st, 3, card,
                       run=lambda m, s_, k, frc=frc, sw=sw: run_pi_ocean(
-                          m, s_, frc, sw, k))
+                          m, s_, frc, sw, k),
+                      also=("elem_to_node_mean", "fct_bounds"))
 
     # phase 11 -----------------------------------------------------------
     small = globe.write_globe(str(Path(__file__).resolve().parent / "build"
@@ -755,8 +896,17 @@ def main():
          "source": f"fesom2_tpu_torch/csrc/{k}.cu",
          "replaces": sources[k], "launches": path_launches[k],
          "max_abs_err": summary[k]["max_abs_err"],
-         "ms": summary[k]["ms"], "plain_ms": summary[k]["plain_ms"]}
+         "ms": summary[k]["ms"], "plain_ms": summary[k]["plain_ms"],
+         "bound_ms": summary[k]["bound_ms"],
+         "bound_by": summary[k]["bound_by"],
+         "method_bound_ms": summary[k].get("method_bound_ms"),
+         "library_ms": summary[k]["library_ms"],
+         "device_ms": summary[k]["device_ms"],
+         "library_device_ms": summary[k]["library_device_ms"],
+         "launches_per_step": per_step.get(k),
+         "launches_per_cg_iteration": per_cg_iteration.get(k)}
         for k in kernels.KERNELS]}))
+    say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

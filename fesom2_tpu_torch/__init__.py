@@ -1,10 +1,9 @@
 """fesom2_tpu_torch: the PyTorch/CUDA port of fesom2_tpu for one NVIDIA
 H100.
 
-It shares the JAX package's jax-free ``fesom2_tpu.config`` and
-``fesom2_tpu.constants`` (its only imports from that package) and keeps
-its module layout, function names and array layouts; it imports torch and
-never jax.
+It keeps the JAX package's module layout, function names and array
+layouts, and its own copies of that package's ``config`` and ``constants``
+modules; it imports torch, never jax and nothing of ``fesom2_tpu``.
 The hot mesh operators run hand-written CUDA kernels (``csrc/``,
 ``kernels/``) on CUDA tensors and plain torch on CPU tensors.
 """

@@ -14,6 +14,7 @@ import torch
 
 from .core.state import OceanState, Forcing
 from .mesh import MeshTables
+from .mesh.cluster import build_cluster_tables
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
@@ -46,8 +47,10 @@ def forcing_from_numpy(arrays: dict, device, dtype=torch.float64) -> Forcing:
 
 
 def mesh_from_numpy(arrays: dict, device, dtype=torch.float64) -> MeshTables:
-    """MeshTables from {field name: array or static value}."""
-    return _from_numpy(MeshTables, arrays, device, dtype)
+    """MeshTables from {field name: array or static value}; the cluster
+    kernels' tables are derived anew."""
+    mesh = _from_numpy(MeshTables, {**arrays, "cluster": None}, device, dtype)
+    return dataclasses.replace(mesh, cluster=build_cluster_tables(mesh))
 
 
 def tables_from(cls, obj, device, dtype=torch.float64):

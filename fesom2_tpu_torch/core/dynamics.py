@@ -14,7 +14,7 @@ from dataclasses import replace
 
 import torch
 
-from fesom2_tpu.constants import g, density_0
+from ..constants import g, density_0
 from ..mesh import MeshTables
 from .state import OceanState, Forcing
 from .ops import (scalar_gradient, tridiag_solve, elem_to_node_mean,

@@ -15,7 +15,7 @@ from dataclasses import replace
 
 import torch
 
-from fesom2_tpu.constants import g, density_0
+from ..constants import g, density_0
 from .. import kernels
 from ..mesh import MeshTables
 from .state import OceanState
@@ -89,6 +89,25 @@ def _eos_kind(cfg) -> int:
     if cfg.dyn.state_equation == 1:
         return 1
     return 2 if cfg.run.toy_ocean and cfg.run.which_toy == "soufflet" else 0
+
+
+# flops per wet cell by ``_eos_kind``, counted from pressure_bv_plain:
+# the JM components cost about 110 (a linear form 4) and are applied at
+# the cell's own depth and, for N^2, at the interfaces above and below
+# (3 x about 10); pressure, N^2, dbsfc and the MLD test add about 25
+_EOS_CELL_FLOPS = {0: 4 + 55, 1: 110 + 55, 2: 4 + 55}
+
+
+def pressure_bv_work(levels: int, n_nodes: int, wet_cells: int, eos_kind: int,
+                     itemsize: int) -> tuple:
+    """(bytes, flops) of one call on [levels, N] layers of which
+    ``wet_cells`` are wet (a column ends at its bottom, so these inputs
+    need no more): T, S, Z_3d, hnode, density_ref and zbar_3d read on the
+    wet cells, ``nlevels_node`` [N], the outputs written whole (rho and
+    hpressure [L, N], bvfreq and dbsfc [L + 1, N], mld2 [N])."""
+    nbytes = (6 * wet_cells + n_nodes) * itemsize + 4 * n_nodes \
+        + (2 * levels + 2 * (levels + 1) + 1) * n_nodes * itemsize
+    return nbytes, _EOS_CELL_FLOPS[eos_kind] * wet_cells
 
 
 def pressure_bv(state: OceanState, mesh: MeshTables, cfg,

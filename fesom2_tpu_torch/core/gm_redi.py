@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from fesom2_tpu.constants import g, density_0, pi
+from ..constants import g, density_0, pi
 from ..mesh import MeshTables
 from .ale import _nlevels_node_min
 from .ops import tridiag_solve, elem_to_node_mean

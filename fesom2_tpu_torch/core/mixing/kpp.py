@@ -19,7 +19,7 @@ from dataclasses import replace
 
 import torch
 
-from fesom2_tpu.constants import g, density_0, vcpw
+from ...constants import g, density_0, vcpw
 from ... import kernels
 from ...mesh import MeshTables
 from ..ops import elem_to_node_mean_flat, take_row
@@ -321,6 +321,24 @@ def kpp_column_plain(unode, vnode, bvfreq, dbsfc, zbar_3d, Z_3d, hnode,
     nonloc = torch.clamp_max(ghats * blmc_t, 1.0)
     nonloc = torch.where((lev >= 1) & (lev < (nln - 1)[None, :]), nonloc, 0.0)
     return viscA, Kv, Kv_s, nonloc
+
+
+def kpp_column_work(nl: int, n_nodes: int, wet_cells: int,
+                    double_diffusion: bool, itemsize: int) -> tuple:
+    """(bytes, flops) of one call on columns of ``nl`` levels of which
+    ``wet_cells`` layers are wet (a column ends at its bottom, so these
+    inputs need no more): the 4 layer fields (8 with double diffusion)
+    and the 3 interface fields read on the wet cells, ustar, Bo, the
+    Coriolis parameter and ``nlevels_node`` [N], and the 3 outputs (4
+    with double diffusion) [nl, N] written whole.  About 200 flops per
+    wet cell (bulk Richardson number, both velocity scales with their
+    roots, interior mixing, the matching polynomials), 60 more with
+    double diffusion."""
+    fields = (8 if double_diffusion else 4) + 3
+    outs = 4 if double_diffusion else 3
+    nbytes = (fields * wet_cells + 3 * n_nodes + outs * nl * n_nodes) \
+        * itemsize + 4 * n_nodes
+    return nbytes, (260 if double_diffusion else 200) * wet_cells
 
 
 def kpp_column(unode, vnode, bvfreq, dbsfc, zbar_3d, Z_3d, hnode, ustar, Bo,

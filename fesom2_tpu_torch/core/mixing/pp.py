@@ -10,7 +10,7 @@ from dataclasses import replace
 
 import torch
 
-from fesom2_tpu.constants import rad
+from ...constants import rad
 from ...mesh import MeshTables
 from ..state import OceanState
 

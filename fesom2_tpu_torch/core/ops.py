@@ -19,6 +19,7 @@ import torch
 
 from .. import kernels
 from ..mesh import MeshTables
+from ..mesh.cluster import level_chunk
 
 
 def _flat_rows(x: torch.Tensor) -> torch.Tensor:
@@ -105,6 +106,17 @@ def _node_edge_reduce(flux: torch.Tensor, mesh: MeshTables, pair: bool):
     return out0.reshape(shape)
 
 
+def node_edge_reduce_work(rows: int, n_edges: int, n_nodes: int, ke: int,
+                          pair: bool, itemsize: int) -> tuple:
+    """(bytes, flops) of one call on flux [rows, Ed]: the flux, the
+    [N, KE] edge and sign tables, one or two outputs [rows, N]; a product
+    and an add per slot, the pair form clamps and adds twice."""
+    outs = 2 if pair else 1
+    nbytes = (rows * n_edges * itemsize + n_nodes * ke * (4 + itemsize)
+              + outs * rows * n_nodes * itemsize)
+    return nbytes, (2 + 2 * outs) * ke * rows * n_nodes
+
+
 def edge_divergence(flux: torch.Tensor, mesh: MeshTables) -> torch.Tensor:
     """Per-node divergence of signed edge fluxes: flux[.., Ed] counted
     positive INTO edges[:,0]; returns [.., N] (+flux at node0, -flux at
@@ -152,24 +164,70 @@ def elem_to_node_mean_flat_plain(xs: torch.Tensor,
     return (xs[..., safe] * w).sum(-1) / w.sum(-1)
 
 
-def _elem_to_node_mean_kernel(x: torch.Tensor, mesh: MeshTables,
-                              levels: int, mask) -> torch.Tensor:
+def _elem_to_node_mean_tiled(x: torch.Tensor, mesh: MeshTables,
+                             respect_levels: bool) -> torch.Tensor:
+    """The tiled kernel on the mesh's cluster tables: [.., L, E]."""
     kernels.cuda_only(x, "elem_to_node_mean")
     dev, dt = x.device, x.dtype
     E = mesh.n_elems
     N, K = mesh.nod_in_elem.shape
+    levels = x.shape[-2]
+    if levels != mesh.nl - 1:
+        raise ValueError(f"x_elem: {levels} layers, the mesh has "
+                         f"{mesh.nl - 1}")
     xf = x.reshape(-1, levels, E).contiguous()
     R = xf.shape[0]
+    ct = mesh.cluster
+    tiles = ct.mean_tile_ptr.shape[0] - 1
     kernels.require(xf, "x_elem", (R, levels, E), dt, dev)
-    kernels.require(mesh.nod_in_elem, "nod_in_elem", (N, K), torch.int32, dev)
-    kernels.require(mesh.elem_area, "elem_area", (E,), dt, dev)
-    if mask is not None:
-        kernels.require(mask, "elem_layer_mask", (levels, E), torch.bool, dev)
+    kernels.require(ct.mean_slot, "mean_slot", (K, N), torch.int32, dev)
+    kernels.require(ct.mean_weight, "mean_weight", (K, N), dt, dev)
+    kernels.require(ct.mean_tile_ptr, "mean_tile_ptr", (tiles + 1,),
+                    torch.int32, dev)
+    kernels.require(ct.mean_tile_elems, "mean_tile_elems",
+                    ct.mean_tile_elems.shape, torch.int32, dev)
     out = torch.empty((R, levels, N), dtype=dt, device=dev)
-    kernels.launch("elem_to_node_mean", dev, xf, R, levels, E,
-                   mesh.nod_in_elem, N, K, mesh.elem_area, mask, out,
+    kernels.launch("elem_to_node_mean", dev, xf, R, levels, E, N, K,
+                   ct.mean_slot, ct.mean_weight, ct.mean_tile_ptr,
+                   ct.mean_tile_elems, ct.tile_nodes, ct.mean_u_max,
+                   level_chunk(levels, R, tiles), int(respect_levels), out,
                    kernels.float_code(dt))
     return out.reshape(x.shape[:-1] + (N,))
+
+
+def _elem_to_node_mean_flat(xs: torch.Tensor,
+                            mesh: MeshTables) -> torch.Tensor:
+    """The one-thread-per-output kernel on ``nod_in_elem``: [.., E]."""
+    kernels.cuda_only(xs, "elem_to_node_mean")
+    dev, dt = xs.device, xs.dtype
+    E = mesh.n_elems
+    N, K = mesh.nod_in_elem.shape
+    xf = _flat_rows(xs)
+    R = xf.shape[0]
+    kernels.require(xf, "x_elem", (R, E), dt, dev)
+    kernels.require(mesh.nod_in_elem, "nod_in_elem", (N, K), torch.int32, dev)
+    kernels.require(mesh.elem_area, "elem_area", (E,), dt, dev)
+    out = torch.empty((R, N), dtype=dt, device=dev)
+    kernels.launch("elem_to_node_mean", dev, xf, R, E, mesh.nod_in_elem, N, K,
+                   mesh.elem_area, out, kernels.float_code(dt), entry="_flat")
+    return out.reshape(xs.shape[:-1] + (N,))
+
+
+def elem_to_node_mean_work(rows: int, levels: int, n_elems: int, n_nodes: int,
+                           k_max: int, itemsize: int, list_len: int = 0,
+                           tile_nodes: int = 0) -> tuple:
+    """(bytes, flops) of one call on x [rows, levels, E].  Layered
+    (``list_len`` = length of the tiles' element lists): x, the [K, N]
+    slot words and weights, the tile lists and pointers, the output.
+    Flat (``list_len`` 0): x, ``nod_in_elem`` [N, K], ``elem_area`` [E],
+    the output.  Per output K products, 2 K adds and a division."""
+    field = rows * levels * (n_elems + n_nodes) * itemsize
+    if list_len:
+        tiles = -(-n_nodes // tile_nodes)
+        tables = k_max * n_nodes * (4 + itemsize) + 4 * (list_len + tiles + 1)
+    else:
+        tables = n_nodes * k_max * 4 + n_elems * itemsize
+    return field + tables, (3 * k_max + 1) * rows * levels * n_nodes
 
 
 def elem_to_node_mean(x_elem: torch.Tensor, mesh: MeshTables,
@@ -180,9 +238,7 @@ def elem_to_node_mean(x_elem: torch.Tensor, mesh: MeshTables,
     without, all adjacent elements do (visc_filt_bcksct, :619-635)."""
     if x_elem.device.type == "cpu":
         return elem_to_node_mean_plain(x_elem, mesh, respect_levels)
-    L = x_elem.shape[-2]
-    return _elem_to_node_mean_kernel(
-        x_elem, mesh, L, mesh.elem_layer_mask if respect_levels else None)
+    return _elem_to_node_mean_tiled(x_elem, mesh, respect_levels)
 
 
 def elem_to_node_mean_flat(xs: torch.Tensor, mesh: MeshTables) -> torch.Tensor:
@@ -190,7 +246,7 @@ def elem_to_node_mean_flat(xs: torch.Tensor, mesh: MeshTables) -> torch.Tensor:
     all adjacent elements (no level masks)."""
     if xs.device.type == "cpu":
         return elem_to_node_mean_flat_plain(xs, mesh)
-    return _elem_to_node_mean_kernel(xs, mesh, 1, None)
+    return _elem_to_node_mean_flat(xs, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -214,6 +270,15 @@ def tridiag_solve_plain(a, b, c, d):
         x[..., k, :] = dp[..., k, :] - cp[..., k, :] * x_next
         x_next = x[..., k, :]
     return x
+
+
+def tridiag_solve_work(batch: int, levels: int, n_cols: int,
+                       itemsize: int) -> tuple:
+    """(bytes, flops) of one call: a, b, c [L, X], d and x [B, L, X]; per
+    row the pivot (2 flops) and c / m once, and per right-hand side 3
+    flops down and 2 up."""
+    nbytes = (3 + 2 * batch) * levels * n_cols * itemsize
+    return nbytes, (3 + 5 * batch) * levels * n_cols
 
 
 def tridiag_solve(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

@@ -22,7 +22,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from fesom2_tpu.constants import g
+from ..constants import g
 from .. import kernels
 from ..mesh import MeshTables
 from .ops import (scalar_gradient, edge_divergence, edge_transport,
@@ -179,6 +179,13 @@ def ring_spmv_plain(cols: torch.Tensor, vals: torch.Tensor,
     for k in range(cols.shape[0]):                     # fixed slot order
         y = y + vals[k] * x[cols[k]]
     return y
+
+
+def ring_spmv_work(kr: int, n_nodes: int, itemsize: int) -> tuple:
+    """(bytes, flops) of one product: cols and vals [Kr, N], x and y [N];
+    a product and an add per entry."""
+    return (kr * n_nodes * (4 + itemsize) + 2 * n_nodes * itemsize,
+            2 * kr * n_nodes)
 
 
 def ring_spmv(cols: torch.Tensor, vals: torch.Tensor,
@@ -360,6 +367,18 @@ def block_schwarz_plain(pc: BlockSchwarz, r: torch.Tensor) -> torch.Tensor:
     r0 = _masked_take(r, pc.coarse_ids).sum(-1)                 # [nb]
     y0 = pc.coarse_inv @ r0
     return contrib.sum(-1) + y0[pc.coarse_part]
+
+
+def block_schwarz_work(n_nodes: int, nb: int, k: int, slots: int, kc: int,
+                       itemsize: int) -> tuple:
+    """(bytes, flops) of one apply: r and y [N], the [nb, K, K] inverses
+    and [nb, nb] coarse inverse, the index tables (block_ids [nb, K],
+    node_slots [N, S] with its bool mask, coarse_ids [nb, Kc], coarse_part
+    [N]); the dense products and the two gather sums."""
+    nbytes = ((2 * n_nodes + nb * k * k + nb * nb) * itemsize
+              + 4 * (nb * k + n_nodes * slots + nb * kc + n_nodes)
+              + n_nodes * slots)
+    return nbytes, 2 * nb * k * k + 2 * nb * nb + n_nodes * slots + nb * kc
 
 
 def block_schwarz(pc: BlockSchwarz, r: torch.Tensor) -> torch.Tensor:

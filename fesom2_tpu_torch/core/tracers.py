@@ -24,9 +24,10 @@ import math
 
 import torch
 
-from fesom2_tpu.constants import r_earth, vcpw
+from ..constants import r_earth, vcpw
 from .. import kernels
 from ..mesh import MeshTables
+from ..mesh.cluster import level_chunk
 from .ops import (tridiag_solve, elem_to_node_mean, edge_divergence,
                   edge_signed_reduce2, take_row)
 from .tracer_setup import TracerStatics
@@ -297,6 +298,20 @@ def fct_bounds_plain(ttf, lo, mesh: MeshTables):
             torch.where(nmask, vmin - lo, 0.0))
 
 
+def fct_bounds_work(ntr: int, levels: int, n_nodes: int, m_max: int,
+                    itemsize: int, list_len: int, tile_nodes: int) -> tuple:
+    """(bytes, flops) of one call on ttf, lo [ntr, levels, N]: both read,
+    inc_max and inc_min written, the [M, N] neighbour words, the node
+    words and ``nlevels_node`` [N], the tiles' neighbour lists
+    (``list_len`` entries) and pointers.  Per output level and neighbour
+    a max, a min and their two accumulations; 4 compares of the +-1 layer
+    rule and 2 subtractions."""
+    tiles = -(-n_nodes // tile_nodes)
+    nbytes = (4 * ntr * levels * n_nodes * itemsize
+              + n_nodes * 4 * (m_max + 2) + 4 * (list_len + tiles + 1))
+    return nbytes, (4 * m_max + 6) * ntr * levels * n_nodes
+
+
 def fct_bounds(ttf, lo, mesh: MeshTables):
     """Admissible FCT increments (inc_max, inc_min) [.., nl-1, N]: node,
     element and cluster bounds of (lo, ttf), widened by +-1 layer inside
@@ -306,28 +321,28 @@ def fct_bounds(ttf, lo, mesh: MeshTables):
     kernels.cuda_only(lo, "fct_bounds")
     dev, dt = lo.device, lo.dtype
     L, N = lo.shape[-2:]
-    E = mesh.n_elems
-    K = mesh.nod_in_elem.shape[1]
     lof = lo.reshape(-1, L, N).contiguous()
     T = lof.shape[0]
     ttff = ttf.reshape(T, L, N).contiguous()
-    kernels.require(lof, "lo", (T, mesh.nl - 1, N), dt, dev)
+    ct = mesh.cluster
+    M = ct.fct_slot.shape[0]
+    tiles = ct.fct_tile_ptr.shape[0] - 1
+    kernels.require(lof, "lo", (T, mesh.nl - 1, mesh.n_nodes), dt, dev)
     kernels.require(ttff, "ttf", (T, L, N), dt, dev)
-    kernels.require(mesh.node_layer_mask, "node_layer_mask", (L, N),
-                    torch.bool, dev)
-    kernels.require(mesh.elem_layer_mask, "elem_layer_mask", (L, E),
-                    torch.bool, dev)
-    kernels.require(mesh.elem_nodes, "elem_nodes", (E, 3), torch.int32, dev)
-    kernels.require(mesh.nod_in_elem, "nod_in_elem", (N, K), torch.int32, dev)
+    kernels.require(ct.fct_slot, "fct_slot", (M, N), torch.int32, dev)
+    kernels.require(ct.fct_node, "fct_node", (N,), torch.int32, dev)
     kernels.require(mesh.nlevels_node, "nlevels_node", (N,), torch.int32, dev)
-    tep_max = torch.empty((T, L, E), dtype=dt, device=dev)
-    tep_min = torch.empty_like(tep_max)
+    kernels.require(ct.fct_tile_ptr, "fct_tile_ptr", (tiles + 1,),
+                    torch.int32, dev)
+    kernels.require(ct.fct_tile_nodes, "fct_tile_nodes",
+                    ct.fct_tile_nodes.shape, torch.int32, dev)
     inc_max = torch.empty_like(lof)
     inc_min = torch.empty_like(lof)
-    kernels.launch("fct_bounds", dev, ttff, lof, T, L, N, E,
-                   mesh.node_layer_mask, mesh.elem_layer_mask,
-                   mesh.elem_nodes, mesh.nod_in_elem, K, mesh.nlevels_node,
-                   tep_max, tep_min, inc_max, inc_min, kernels.float_code(dt))
+    kernels.launch("fct_bounds", dev, ttff, lof, T, L, N, M, ct.fct_slot,
+                   ct.fct_node, mesh.nlevels_node, ct.fct_tile_ptr,
+                   ct.fct_tile_nodes, ct.tile_nodes, ct.fct_u_max,
+                   level_chunk(L, 1, tiles * T), inc_max, inc_min,
+                   kernels.float_code(dt))
     return inc_max.reshape(lo.shape), inc_min.reshape(lo.shape)
 
 

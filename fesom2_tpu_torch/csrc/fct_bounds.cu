@@ -13,16 +13,32 @@
 // the min side negated and stacked onto the max side.  Here max and min
 // are carried side by side; the results are the same values exactly.
 //
-// Bound on the card: bytes and latency (gathers and compares only; no
-// rounding happens apart from the final subtraction).  A NaN input
-// propagates to the same outputs as in the plain version.  Design: two
-// launches.  The element pass has one thread per (tracer, level, element)
-// and writes the element bounds into wrapper-allocated scratch.  The node
-// pass has one thread per (tracer, node) column and walks the levels top
-// down with a rolling window of three cluster bounds, so the +-1 layer
-// rule needs no third pass.  Threads of a warp sit on consecutive
-// entities, so table reads and output writes are contiguous.  Padded
-// slots (-1) are never read.
+// Bound on the card: bytes (compares only; the one rounding is the final
+// subtraction), and in practice the 32-byte sectors its gathers pull
+// through L2: on a mesh whose numbering is not local every gathered
+// value costs a whole sector.  The first design ran two launches, an
+// element pass that wrote two [T, L, E] scratch arrays (as many bytes as
+// the function's own inputs and outputs) and a node pass of T x N threads
+// that walked the levels with 2 K scratch gathers each: thin, and 24
+// times over the byte bound.
+//
+// Design: one fused launch, no scratch.  The cluster bound of node n on
+// level l is the max/min of max(lo, ttf) / min(lo, ttf) over the
+// neighbour nodes of n (itself and the other vertices of its elements)
+// that are wet on l and share an element wet on l with n; where a slot
+// is padded, an element dry or a vertex dry, the filler -1e3 / +1e3
+// joins in, as in a1-a3.  Which neighbours count on which levels is a
+// level range per (node, neighbour), built once on the host
+// (mesh/cluster.py): about 7 entries per node in place of 2 K scratch
+// gathers over 3-vertex elements.  A block owns a tile of consecutive
+// nodes, one tracer and a run of levels plus one level of halo on each
+// side.  It stages lo and ttf of the tile's distinct neighbour nodes,
+// level by level, into a ring of kStages shared-memory buffers with
+// cp.async, two levels ahead of the one being reduced; each thread owns
+// one node, reduces its entries from shared memory and carries a rolling
+// window of three cluster bounds down the column, so the +-1 layer rule
+// needs no second pass.  max and min carry a NaN through, so the result
+// equals the plain version bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -38,150 +54,173 @@ __device__ __forceinline__ T vmin(T a, T b) {
   return (a != a || a < b) ? a : b;
 }
 
+// Shared memory, in this order: the rings of lo and of ttf
+// [kStages][u_max] T each, the packed neighbour words [M][tile], the
+// tile's neighbour node list [u_max].
 template <typename T>
-__global__ void fct_elem_bounds_kernel(
-    const T* __restrict__ ttf, const T* __restrict__ lo, int ntr, int levels,
-    int n_nodes, int n_elems, const bool* __restrict__ node_layer_mask,
-    const bool* __restrict__ elem_layer_mask,
-    const int* __restrict__ elem_nodes, T* __restrict__ tep_max,
-    T* __restrict__ tep_min) {
+size_t shared_bytes(int tile, int m_max, int u_max) {
+  return 2 * static_cast<size_t>(fesom::kStages) * u_max * sizeof(T) +
+         static_cast<size_t>(m_max) * tile * sizeof(unsigned) +
+         static_cast<size_t>(u_max) * sizeof(int);
+}
+
+template <typename T>
+__global__ void fct_bounds_kernel(
+    const T* __restrict__ ttf, const T* __restrict__ lo, int levels,
+    int n_nodes, int m_max, const unsigned* __restrict__ slot,
+    const unsigned* __restrict__ node_info,
+    const int* __restrict__ nlevels_node, const int* __restrict__ tile_ptr,
+    const int* __restrict__ tile_nodes, int u_max, int level_chunk, int chunks,
+    T* __restrict__ inc_max, T* __restrict__ inc_min) {
+  extern __shared__ __align__(16) unsigned char shared_raw[];
   const T big = T(1e3);
-  long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  long long total = static_cast<long long>(ntr) * levels * n_elems;
-  if (idx >= total) return;
-  long long tl = idx / n_elems;
-  int e = static_cast<int>(idx - tl * n_elems);
-  int l = static_cast<int>(tl % levels);
-  T emax = -big;
-  T emin = big;
-  if (elem_layer_mask[static_cast<long long>(l) * n_elems + e]) {
-    const T* lo_r = lo + tl * n_nodes;
-    const T* tt_r = ttf + tl * n_nodes;
-    const bool* nm = node_layer_mask + static_cast<long long>(l) * n_nodes;
-    for (int v = 0; v < 3; ++v) {
-      int n = elem_nodes[e * 3 + v];
-      T mx = -big;
-      T mn = big;
-      if (nm[n]) {
-        mx = vmax(lo_r[n], tt_r[n]);
-        mn = vmin(lo_r[n], tt_r[n]);
+  const int tile = blockDim.x;
+  const int tid = threadIdx.x;
+  T* lo_ring = reinterpret_cast<T*>(shared_raw);
+  T* tt_ring = lo_ring + static_cast<size_t>(fesom::kStages) * u_max;
+  unsigned* slot_s = reinterpret_cast<unsigned*>(
+      tt_ring + static_cast<size_t>(fesom::kStages) * u_max);
+  int* nodes_s = reinterpret_cast<int*>(slot_s + m_max * tile);
+
+  const int n = blockIdx.x * tile + tid;
+  const bool live = n < n_nodes;
+  const int t = blockIdx.y / chunks;
+  const int l0 = (blockIdx.y - t * chunks) * level_chunk;
+  const int l1 = min(levels, l0 + level_chunk);
+  // the levels read: the block's own and one above and below
+  const int la = max(l0 - 1, 0);
+  const int lb = min(l1 + 1, levels);
+  const int first = tile_ptr[blockIdx.x];
+  const int u = tile_ptr[blockIdx.x + 1] - first;
+  const long long plane0 = static_cast<long long>(t) * levels * n_nodes;
+
+  for (int j = 0; j < m_max; ++j)
+    slot_s[j * tile + tid] =
+        live ? slot[static_cast<long long>(j) * n_nodes + n] : 0u;
+  for (int i = tid; i < u; i += tile) nodes_s[i] = tile_nodes[first + i];
+  __syncthreads();
+
+  auto stage = [&](int l) {
+    if (l < lb) {
+      long long o = plane0 + static_cast<long long>(l) * n_nodes;
+      size_t b = static_cast<size_t>(l % fesom::kStages) * u_max;
+      for (int i = tid; i < u; i += tile) {
+        fesom::cp_async(lo_ring + b + i, lo + o + nodes_s[i]);
+        fesom::cp_async(tt_ring + b + i, ttf + o + nodes_s[i]);
       }
-      emax = v == 0 ? mx : vmax(emax, mx);
-      emin = v == 0 ? mn : vmin(emin, mn);
     }
-  }
-  tep_max[idx] = emax;
-  tep_min[idx] = emin;
-}
+    fesom::cp_async_commit();
+  };
 
-template <typename T>
-__device__ __forceinline__ void cluster(const T* __restrict__ tep_max,
-                                        const T* __restrict__ tep_min,
-                                        const int* __restrict__ nie, int k_max,
-                                        T* cmax, T* cmin) {
-  const T big = T(1e3);
-  T mx = -big;
-  T mn = big;
-  for (int k = 0; k < k_max; ++k) {
-    int e = nie[k];
-    T vx = e >= 0 ? tep_max[e] : -big;
-    T vn = e >= 0 ? tep_min[e] : big;
-    mx = k == 0 ? vx : vmax(mx, vx);
-    mn = k == 0 ? vn : vmin(mn, vn);
-  }
-  *cmax = mx;
-  *cmin = mn;
-}
+  unsigned info = live ? node_info[n] : 0u;
+  const int full_lo = info & 0xFFu, full_hi = (info >> 8) & 0xFFu;
+  const int wet_lo = (info >> 16) & 0xFFu, wet_hi = info >> 24;
+  const int last_interior = live ? nlevels_node[n] - 3 : -1;
+  const int self = fesom::word_index(slot_s[tid]);  // entry 0 is the node
 
-template <typename T>
-__global__ void fct_node_bounds_kernel(
-    const T* __restrict__ lo, int ntr, int levels, int n_nodes, int n_elems,
-    const bool* __restrict__ node_layer_mask,
-    const int* __restrict__ nod_in_elem, int k_max,
-    const int* __restrict__ nlevels_node, const T* __restrict__ tep_max,
-    const T* __restrict__ tep_min, T* __restrict__ inc_max,
-    T* __restrict__ inc_min) {
-  long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (idx >= static_cast<long long>(ntr) * n_nodes) return;
-  long long t = idx / n_nodes;
-  int n = static_cast<int>(idx - t * n_nodes);
-  const int* nie = nod_in_elem + static_cast<long long>(n) * k_max;
-  int last_interior = nlevels_node[n] - 3;
-  long long tplane_e = t * levels * static_cast<long long>(n_elems);
-  long long tplane_n = t * levels * static_cast<long long>(n_nodes);
-
-  T cur_max, cur_min;
-  cluster(tep_max + tplane_e, tep_min + tplane_e, nie, k_max, &cur_max,
-          &cur_min);
-  T up_max = cur_max;
-  T up_min = cur_min;
-  for (int l = 0; l < levels; ++l) {
-    T dn_max = cur_max;
-    T dn_min = cur_min;
-    if (l + 1 < levels) {
-      long long o = tplane_e + static_cast<long long>(l + 1) * n_elems;
-      cluster(tep_max + o, tep_min + o, nie, k_max, &dn_max, &dn_min);
-    }
+  // write level l from the cluster bounds above, on and below it
+  auto emit = [&](int l, T up_max, T up_min, T cur_max, T cur_min, T dn_max,
+                  T dn_min, T lo_self) {
     bool interior = l >= 1 && l <= last_interior;
     T bmax = interior ? vmax(cur_max, vmax(up_max, dn_max)) : cur_max;
     T bmin = interior ? vmin(cur_min, vmin(up_min, dn_min)) : cur_min;
-    long long o = tplane_n + static_cast<long long>(l) * n_nodes + n;
-    bool wet = node_layer_mask[static_cast<long long>(l) * n_nodes + n];
-    inc_max[o] = wet ? bmax - lo[o] : T(0);
-    inc_min[o] = wet ? bmin - lo[o] : T(0);
+    bool wet = l >= wet_lo && l < wet_hi;
+    long long o = plane0 + static_cast<long long>(l) * n_nodes + n;
+    inc_max[o] = wet ? bmax - lo_self : T(0);
+    inc_min[o] = wet ? bmin - lo_self : T(0);
+  };
+
+  T up_max = -big, up_min = big, cur_max = -big, cur_min = big;
+  T lo_cur = T(0);
+  stage(la);
+  stage(la + 1);
+  for (int l = la; l < lb; ++l) {
+    // every group but the newest has landed: level l is in its buffers
+    fesom::cp_async_wait<fesom::kStages - 2>();
+    __syncthreads();
+    // all threads have left level l - 1, whose buffers level l + 2 takes
+    stage(l + 2);
+    if (!live) continue;
+    size_t b = static_cast<size_t>(l % fesom::kStages) * u_max;
+    const T* lo_s = lo_ring + b;
+    const T* tt_s = tt_ring + b;
+    // on the full levels no filler joins in: start from the node itself
+    const bool full = l >= full_lo && l < full_hi;
+    T dn_max = -big;
+    T dn_min = big;
+    for (int j = 0; j < m_max; ++j) {
+      unsigned s = slot_s[j * tile + tid];
+      int i = fesom::word_index(s);
+      T a = lo_s[i];
+      T c = tt_s[i];
+      if (fesom::word_covers(s, l)) {
+        T vx = vmax(a, c);
+        T vn = vmin(a, c);
+        bool start = full && j == 0;
+        dn_max = start ? vx : vmax(dn_max, vx);
+        dn_min = start ? vn : vmin(dn_min, vn);
+      }
+    }
+    T lo_dn = lo_s[self];
+    // level l - 1 has its three bounds now
+    if (l - 1 >= l0)
+      emit(l - 1, up_max, up_min, cur_max, cur_min, dn_max, dn_min, lo_cur);
     up_max = cur_max;
     up_min = cur_min;
     cur_max = dn_max;
     cur_min = dn_min;
+    lo_cur = lo_dn;
   }
+  // the bottom level of the column has nothing below it (never interior)
+  if (live && lb == l1)
+    emit(l1 - 1, up_max, up_min, cur_max, cur_min, cur_max, cur_min, lo_cur);
 }
 
 template <typename T>
-void launch(const void* ttf, const void* lo, int ntr, int levels, int n_nodes,
-            int n_elems, const void* node_layer_mask,
-            const void* elem_layer_mask, const void* elem_nodes,
-            const void* nod_in_elem, int k_max, const void* nlevels_node,
-            void* tep_max, void* tep_min, void* inc_max, void* inc_min,
-            cudaStream_t stream) {
-  long long ne = static_cast<long long>(ntr) * levels * n_elems;
-  long long nn = static_cast<long long>(ntr) * n_nodes;
-  if (ne == 0 || nn == 0) return;
-  fct_elem_bounds_kernel<T><<<fesom::blocks_for(ne), fesom::kThreads, 0,
-                              stream>>>(
-      static_cast<const T*>(ttf), static_cast<const T*>(lo), ntr, levels,
-      n_nodes, n_elems, static_cast<const bool*>(node_layer_mask),
-      static_cast<const bool*>(elem_layer_mask),
-      static_cast<const int*>(elem_nodes), static_cast<T*>(tep_max),
-      static_cast<T*>(tep_min));
-  fct_node_bounds_kernel<T><<<fesom::blocks_for(nn), fesom::kThreads, 0,
-                              stream>>>(
-      static_cast<const T*>(lo), ntr, levels, n_nodes, n_elems,
-      static_cast<const bool*>(node_layer_mask),
-      static_cast<const int*>(nod_in_elem), k_max,
-      static_cast<const int*>(nlevels_node), static_cast<const T*>(tep_max),
-      static_cast<const T*>(tep_min), static_cast<T*>(inc_max),
-      static_cast<T*>(inc_min));
+cudaError_t launch(const void* ttf, const void* lo, int ntr, int levels,
+                   int n_nodes, int m_max, const void* slot,
+                   const void* node_info, const void* nlevels_node,
+                   const void* tile_ptr, const void* tile_nodes, int tile,
+                   int u_max, int level_chunk, void* inc_max, void* inc_min,
+                   cudaStream_t stream) {
+  if (static_cast<long long>(ntr) * levels * n_nodes == 0) return cudaSuccess;
+  if (tile < 32 || tile > 1024 || level_chunk < 1 || u_max < 1 || m_max < 1)
+    return cudaErrorInvalidValue;
+  size_t bytes = shared_bytes<T>(tile, m_max, u_max);
+  cudaError_t err = fesom::allow_shared(fct_bounds_kernel<T>, bytes);
+  if (err != cudaSuccess) return err;
+  int chunks = (levels + level_chunk - 1) / level_chunk;
+  dim3 grid((n_nodes + tile - 1) / tile, ntr * chunks);
+  fct_bounds_kernel<T><<<grid, tile, bytes, stream>>>(
+      static_cast<const T*>(ttf), static_cast<const T*>(lo), levels, n_nodes,
+      m_max, static_cast<const unsigned*>(slot),
+      static_cast<const unsigned*>(node_info),
+      static_cast<const int*>(nlevels_node), static_cast<const int*>(tile_ptr),
+      static_cast<const int*>(tile_nodes), u_max, level_chunk, chunks,
+      static_cast<T*>(inc_max), static_cast<T*>(inc_min));
+  return cudaSuccess;
 }
 
 }  // namespace
 
+// ttf, lo, inc_max, inc_min [ntr, levels, N]; slot [M, N], node_info [N],
+// tile_ptr and tile_nodes as mesh/cluster.py packs them; tile nodes and
+// level_chunk levels per block.
 extern "C" int fesom_fct_bounds(const void* ttf, const void* lo, int ntr,
-                                int levels, int n_nodes, int n_elems,
-                                const void* node_layer_mask,
-                                const void* elem_layer_mask,
-                                const void* elem_nodes,
-                                const void* nod_in_elem, int k_max,
-                                const void* nlevels_node, void* tep_max,
-                                void* tep_min, void* inc_max, void* inc_min,
+                                int levels, int n_nodes, int m_max,
+                                const void* slot, const void* node_info,
+                                const void* nlevels_node, const void* tile_ptr,
+                                const void* tile_nodes, int tile, int u_max,
+                                int level_chunk, void* inc_max, void* inc_min,
                                 int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_double)
-    launch<double>(ttf, lo, ntr, levels, n_nodes, n_elems, node_layer_mask,
-                   elem_layer_mask, elem_nodes, nod_in_elem, k_max,
-                   nlevels_node, tep_max, tep_min, inc_max, inc_min, s);
-  else
-    launch<float>(ttf, lo, ntr, levels, n_nodes, n_elems, node_layer_mask,
-                  elem_layer_mask, elem_nodes, nod_in_elem, k_max,
-                  nlevels_node, tep_max, tep_min, inc_max, inc_min, s);
+  cudaError_t err =
+      is_double ? launch<double>(ttf, lo, ntr, levels, n_nodes, m_max, slot,
+                                 node_info, nlevels_node, tile_ptr, tile_nodes,
+                                 tile, u_max, level_chunk, inc_max, inc_min, s)
+                : launch<float>(ttf, lo, ntr, levels, n_nodes, m_max, slot,
+                                node_info, nlevels_node, tile_ptr, tile_nodes,
+                                tile, u_max, level_chunk, inc_max, inc_min, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return fesom::last_error();
 }

@@ -5,6 +5,10 @@ wrappers live beside their plain torch versions, in ``core/ops.py``,
 ``core/tracers.py``, ``core/ssh.py``, ``core/eos.py``,
 ``core/mixing/kpp.py`` and ``scripts/gather_cost_model.py``).  The library is built and loaded on the first
 launch, never at import: the CPU path needs neither ``nvcc`` nor a card.
+
+Beside each wrapper a ``*_work`` function counts, from shapes alone, the
+bytes the function must move and the operations it does; ``bound_ms``
+turns the pair into the card's least time for the call.
 """
 from __future__ import annotations
 
@@ -18,13 +22,16 @@ KERNELS = ("node_edge_reduce", "elem_to_node_mean", "tridiag_solve",
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# C signatures, in argument order (see csrc/*.cu); the last is the stream
+# C signatures by entry point, in argument order (see csrc/*.cu); the last
+# is the stream
 _ARGTYPES = {
     "node_edge_reduce": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P],
-    "elem_to_node_mean": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P],
+    "elem_to_node_mean": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _P, _I, _P],
+    "elem_to_node_mean_flat": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P],
     "tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
-    "fct_bounds": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
-                   _P, _P, _P, _I, _P],
+    "fct_bounds": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                   _P, _P, _I, _P],
     "ring_spmv": [_P, _P, _P, _I, _I, _P, _I, _P],
     "block_schwarz": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _P,
                       _P, _P, _P, _P, _I, _P],
@@ -34,6 +41,25 @@ _ARGTYPES = {
     "kpp_column": [_P] * 15 + [_I] * 3 + [_D] * 8 + [_P] * 4 + [_I, _P],
 }
 _LIB = None
+
+
+# Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet; dense
+# rates outside the tensor cores, which no kernel here uses): device
+# memory, float32 and float64 arithmetic.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def bound_ms(work, dtype) -> tuple:
+    """The least milliseconds the card could take for ``work`` = (bytes,
+    flops) of a kernel's ``*_work`` counter (each input byte read once,
+    each output byte written once), and which of the two binds."""
+    nbytes, flops = work
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    if by_bytes >= by_flops:
+        return by_bytes, "bytes"
+    return by_flops, "operations"
 
 
 def reset_launches() -> None:
@@ -80,16 +106,17 @@ def float_code(dtype) -> int:
     raise ValueError(f"kernels take float32 or float64, not {dtype}")
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call kernel ``name`` on the current stream of ``device``: tensors
-    are passed as pointers (None as a null pointer), ints and floats as
-    the C signature's int and double.  Raises on a refused launch."""
+def launch(name: str, device: torch.device, *args, entry: str = "") -> None:
+    """Call kernel ``name`` (its C entry ``fesom_<name><entry>``) on the
+    current stream of ``device``: tensors are passed as pointers (None as
+    a null pointer), ints and floats as the C signature's int and double.
+    Raises on a refused launch."""
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                  for a in args]
-        err = getattr(lib, "fesom_" + name)(*cargs, stream)
+        err = getattr(lib, "fesom_" + name + entry)(*cargs, stream)
     if err != 0:
         raise RuntimeError(f"kernel {name}: CUDA error {err} "
                            f"({lib.fesom_error_string(err).decode()})")

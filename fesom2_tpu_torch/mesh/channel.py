@@ -22,7 +22,7 @@ import os
 
 import numpy as np
 
-from fesom2_tpu.constants import rad, r_earth
+from ..constants import rad, r_earth
 from .io import RawMesh
 
 # soufflet channel extent (toy/soufflet.py YSIZE; model.py cyclic_length)

@@ -51,7 +51,7 @@ import os
 
 import numpy as np
 
-from fesom2_tpu.constants import rad
+from ..constants import rad
 from .channel import write_mesh
 from .io import RawMesh
 from .rotation import rotation_matrix, r2g

@@ -22,7 +22,7 @@ from typing import Optional
 
 import numpy as np
 
-from fesom2_tpu.constants import rad
+from ..constants import rad
 from .rotation import rotation_matrix, g2r
 
 

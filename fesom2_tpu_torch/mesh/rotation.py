@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from fesom2_tpu.constants import rad
+from ..constants import rad
 
 
 def rotation_matrix(alpha_deg: float, beta_deg: float, gamma_deg: float) -> np.ndarray:

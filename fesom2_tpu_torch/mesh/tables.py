@@ -7,13 +7,14 @@ Layout conventions are unchanged: level axis first, entity axis last
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
 import torch
 
-from fesom2_tpu.constants import rad, r_earth, omega, pi
+from ..constants import rad, r_earth, omega, pi
+from .cluster import ClusterTables, build_cluster_tables
 from .io import RawMesh, read_raw_mesh
 from .rotation import rotation_matrix, r2g
 
@@ -146,7 +147,8 @@ class MeshTables:
 
     Shapes: N nodes, E elements, Ed edges, nl levels (nl-1 layers), K = max
     elements per node, KE = max edges per node.  Index tables are int32,
-    -1 = missing.
+    -1 = missing.  ``cluster`` holds the tables of the two cluster kernels
+    (``mesh/cluster.py``), derived from the fields above it.
     """
     elem_nodes: torch.Tensor        # [E,3]
     edges: torch.Tensor             # [Ed,2]
@@ -197,6 +199,7 @@ class MeshTables:
     cyclic_length: float
     cartesian: bool
     ocean_area: float
+    cluster: Optional[ClusterTables] = None
 
 
 def build_mesh(path: str, *, cyclic_length_deg: float = 360.0,
@@ -442,7 +445,7 @@ def build_mesh_from_raw(raw: RawMesh, *, cyclic_length_deg: float = 360.0,
     f = lambda x: torch.as_tensor(np.asarray(x, np.float64), device=device).to(dtype)
     i = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
     b = lambda x: torch.as_tensor(np.asarray(x, bool), device=device)
-    return MeshTables(
+    mesh = MeshTables(
         elem_nodes=i(elem_nodes), edges=i(edges), edge_tri=i(edge_tri),
         elem_neighbors=i(elem_neighbors), elem_edges=i(elem_edges),
         nod_in_elem=i(nod_in_elem), nod_in_elem_num=i(num),
@@ -469,3 +472,4 @@ def build_mesh_from_raw(raw: RawMesh, *, cyclic_length_deg: float = 360.0,
         n_nodes=N, n_elems=E, n_edges=Ed, n_edges_in=int(n_in), nl=nl,
         cyclic_length=float(cl), cartesian=False,
         ocean_area=float(area[0].sum()))
+    return replace(mesh, cluster=build_cluster_tables(mesh))

@@ -26,8 +26,8 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from fesom2_tpu.config import ModelConfig
-from fesom2_tpu.constants import vcpw
+from .config import ModelConfig
+from .constants import vcpw
 from .mesh import MeshTables, build_mesh, build_mesh_from_raw
 from .mesh.channel import channel_raw_mesh
 from .core import eos, dynamics, ssh, ale, tracers, gm_redi
@@ -105,30 +105,38 @@ class Model(nn.Module):
         for prefix, obj in (("mesh", mesh), ("st", tracer_statics),
                             ("sst", soufflet_statics), ("ring", ssh_ring),
                             ("pc", ssh_block_pc)):
-            if obj is None:
-                continue
-            statics = {}
-            for f in dataclasses.fields(obj):
-                val = getattr(obj, f.name)
-                if isinstance(val, torch.Tensor):
-                    self.register_buffer(f"{prefix}__{f.name}", val)
-                else:
-                    statics[f.name] = val
-            self._static[prefix] = statics
-            self._cls[prefix] = type(obj)
+            if obj is not None:
+                self._register(prefix, obj)
         self.register_buffer("density_ref", density_ref)
         self.register_buffer("ssh_dense_inv", ssh_dense_inv)
         # CG iterations of the last step's SSH solve (0 for the dense solve)
         self.ssh_iters = 0
 
+    def _register(self, prefix: str, obj) -> None:
+        """A dataclass's tensors as buffers ``<prefix>__<field>``, a nested
+        dataclass (the mesh's cluster tables) under its own prefix."""
+        statics = {}
+        for f in dataclasses.fields(obj):
+            val = getattr(obj, f.name)
+            if isinstance(val, torch.Tensor):
+                self.register_buffer(f"{prefix}__{f.name}", val)
+            elif dataclasses.is_dataclass(val):
+                self._register(f"{prefix}__{f.name}", val)
+            else:
+                statics[f.name] = val
+        self._static[prefix] = statics
+        self._cls[prefix] = type(obj)
+
     def _group(self, prefix: str):
         if prefix not in self._cls:
             return None
-        cls = self._cls[prefix]
-        tensors = {f.name: getattr(self, f"{prefix}__{f.name}")
-                   for f in dataclasses.fields(cls)
-                   if f.name not in self._static[prefix]}
-        return cls(**tensors, **self._static[prefix])
+        kw = dict(self._static[prefix])
+        for f in dataclasses.fields(self._cls[prefix]):
+            name = f"{prefix}__{f.name}"
+            if f.name not in kw:
+                kw[f.name] = self._group(name) if name in self._cls \
+                    else getattr(self, name)
+        return self._cls[prefix](**kw)
 
     @property
     def mesh(self) -> MeshTables:

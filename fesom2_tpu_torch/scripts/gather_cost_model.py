@@ -82,6 +82,22 @@ def _probe_kernel(name: str, vals: torch.Tensor, idx: torch.Tensor):
     return out
 
 
+def window_gather_work(G: int, T: int, NL: int, rows_read: int) -> tuple:
+    """(bytes, flops) of one gather: the [G, T] int32 indices, the
+    ``rows_read`` distinct window rows of NL float32 that these indices
+    name, the [G, T, NL] output; no arithmetic."""
+    return 4 * (G * T + rows_read * NL + G * T * NL), 0
+
+
+def onehot_gather_work(G: int, W: int, T: int, NL: int) -> tuple:
+    """(bytes, flops) of the one-hot product as a method, not of the
+    function it computes (that is ``window_gather_work``'s gather, which
+    needs no arithmetic): the indices, the whole [G, W, NL] window (a
+    product reads all of it), the output; a product and an add per
+    (g, t, w, nl) in float32."""
+    return 4 * (G * T + G * W * NL + G * T * NL), 2 * G * T * W * NL
+
+
 def window_gather(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[g, t, :] = vals[g, idx[g, t], :] for vals [G, W, NL] float32 and
     idx [G, T] int32.  An index outside [0, W) gives a NaN row (as

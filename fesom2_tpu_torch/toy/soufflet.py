@@ -13,7 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fesom2_tpu.constants import pi, g, density_0, r_earth
+from ..constants import pi, g, density_0, r_earth
 from ..mesh import MeshTables
 from ..core.state import OceanState
 

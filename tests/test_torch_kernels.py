@@ -1,7 +1,8 @@
 """Each hand-written CUDA kernel against its plain torch version, on the
 card, at a small size (the channel of 8 x 24 nodes, 10 layers; the gather
 probe at G=16, W=64, T=32, NL=8; the column kernels pressure_bv and
-kpp_column on the level-3 globe with 20 layers, partial cells).
+kpp_column on the level-3 globe with 20 layers, partial cells; the cluster
+kernels elem_to_node_mean and fct_bounds there too, with 19 layers).
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run on a machine that has only torch:
@@ -23,7 +24,8 @@ from fesom2_tpu_torch.core import eos, ops, ssh, tracers
 from fesom2_tpu_torch.core.mixing import kpp
 from fesom2_tpu_torch.core.state import (allocate_state, initial_z3d,
                                          init_thickness_linfs)
-from fesom2_tpu_torch.mesh import build_mesh, build_mesh_from_raw, globe
+from fesom2_tpu_torch.mesh import (build_mesh, build_mesh_from_raw, cluster,
+                                   globe)
 from fesom2_tpu_torch.mesh.channel import channel_raw_mesh
 from fesom2_tpu_torch.model import pi_config, soufflet_config
 from fesom2_tpu_torch.scripts import gather_cost_model as probe
@@ -52,6 +54,8 @@ def _on_card(obj, dtype):
             v = v.to(dev)
             if v.is_floating_point():
                 v = v.to(dtype)
+        elif dataclasses.is_dataclass(v):
+            v = _on_card(v, dtype)
         kw[f.name] = v
     return type(obj)(**kw)
 
@@ -99,6 +103,66 @@ def test_kernels_match_plain_on_card(mesh, rng, dtype, tol):
     for g, w in zip(got, want):
         assert torch.equal(g.isnan(), w.isnan()) and bool(w.isnan().any())
         assert torch.equal(g[~g.isnan()], w[~w.isnan()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [32, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_cluster_kernels_on_varying_depth_on_card(tmp_path, rng, dtype, tol,
+                                                  tile):
+    """elem_to_node_mean and fct_bounds on the level-3 globe with 19
+    layers (no multiple of a level chunk) and columns of 5 to 19 levels,
+    with tiles smaller than the mesh (16 of them, the last one ragged)
+    and larger; 1, 2 and 4 rows."""
+    _need_card()
+    path = globe.write_globe(str(tmp_path), level=3, n_layers=19,
+                             dz_bottom=600.0)
+    m = build_mesh(path, force_rotation=True, use_partial_cell=True,
+                   device="cuda", dtype=dtype)
+    m = dataclasses.replace(m, cluster=cluster.build_cluster_tables(m, tile))
+    assert int(m.nlevels_node.min()) == 5
+    L = m.nl - 1
+    put = lambda a: torch.as_tensor(a, device="cuda").to(dtype)
+    kernels.reset_launches()
+    for rows in ((), (2,), (2, 2)):
+        x = put(rng.uniform(-1, 1, rows + (L, m.n_elems)))
+        for respect in (True, False):
+            got = ops.elem_to_node_mean(x, m, respect)
+            want = ops.elem_to_node_mean_plain(x, m, respect)
+            assert float((got - want).abs().max()) \
+                <= tol * float(want.abs().max())
+    assert kernels.LAUNCHES["elem_to_node_mean"] == 6
+    for ntr in (1, 2, 3):
+        ttf = put(rng.uniform(0, 30, (ntr, L, m.n_nodes)))
+        lo = put(rng.uniform(0, 30, (ntr, L, m.n_nodes)))
+        ttf[0, 2, 40] = float("nan")
+        got = tracers.fct_bounds(ttf, lo, m)
+        want = tracers.fct_bounds_plain(ttf, lo, m)
+        for g, w in zip(got, want):
+            assert torch.equal(g.isnan(), w.isnan()) and bool(w.isnan().any())
+            assert torch.equal(g.nan_to_num(), w.nan_to_num())
+        # every value under the -1e3 filler: the filler-free levels
+        got = tracers.fct_bounds(ttf - 5e3, lo - 5e3, m)
+        want = tracers.fct_bounds_plain(ttf - 5e3, lo - 5e3, m)
+        assert all(torch.equal(g.nan_to_num(), w.nan_to_num())
+                   for g, w in zip(got, want))
+    assert kernels.LAUNCHES["fct_bounds"] == 6
+
+
+@pytest.mark.cuda
+def test_refused_launch_raises_and_leaves_no_error_behind(mesh):
+    """More shared memory than a block may have: the launch raises, and
+    the next launch of the kernel is not blamed for it."""
+    _need_card()
+    m = _on_card(mesh, torch.float64)
+    x = torch.zeros(2, NLAY, m.n_elems, dtype=torch.float64, device="cuda")
+    huge = dataclasses.replace(m, cluster=dataclasses.replace(
+        m.cluster, mean_u_max=40000))
+    with pytest.raises(RuntimeError):
+        ops.elem_to_node_mean(x, huge)
+    assert torch.equal(ops.elem_to_node_mean(x, m), torch.zeros(
+        2, NLAY, m.n_nodes, dtype=torch.float64, device="cuda"))
 
 
 @pytest.mark.cuda

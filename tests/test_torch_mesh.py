@@ -77,7 +77,8 @@ def test_channel_files_roundtrip(mesh_dir):
 def test_mesh_tables_match_jax(meshes):
     jm, tm = meshes
     names = [f.name for f in dataclasses.fields(jm)]
-    assert names == [f.name for f in dataclasses.fields(tm)]
+    # the port's mesh also carries its cluster kernels' tables
+    assert names + ["cluster"] == [f.name for f in dataclasses.fields(tm)]
     for name in names:
         a = np.asarray(getattr(jm, name))
         b = to_numpy(getattr(tm, name))
@@ -132,6 +133,10 @@ def test_mesh_and_forcing_from_numpy(meshes):
             assert a.dtype == b.dtype and a.shape == b.shape, f.name
             assert torch.allclose(a, b, rtol=1e-13, atol=0.0) \
                 if b.is_floating_point() else torch.equal(a, b), f.name
+        elif f.name == "cluster":
+            assert a.tile_nodes == b.tile_nodes
+            assert torch.equal(a.mean_slot, b.mean_slot)
+            assert torch.equal(a.fct_slot, b.fct_slot)
         else:
             assert a == b, f.name
     jf = jax_zero_forcing(jm)
@@ -146,10 +151,12 @@ def test_port_imports_no_jax():
     code = ("import sys, fesom2_tpu_torch, fesom2_tpu_torch.model, "
             "fesom2_tpu_torch.run, fesom2_tpu_torch.convert, "
             "fesom2_tpu_torch.scripts.gather_cost_model, "
+            "fesom2_tpu_torch.scripts.cluster_kernel_times, "
+            "fesom2_tpu_torch.mesh.cluster, "
             "fesom2_tpu_torch.parallel.partition; "
             "bad = [m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or (m.startswith('fesom2_tpu.') and m "
-            "not in ('fesom2_tpu.config', 'fesom2_tpu.constants'))]; "
+            "or m.startswith('jax.') or m == 'fesom2_tpu' "
+            "or m.startswith('fesom2_tpu.')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
