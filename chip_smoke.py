@@ -28,7 +28,15 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    one PyTorch call computes the same function on the same inputs (a CSR
    product, ``torch.bmm``, ``torch.gather``), that call's time; the port
    never makes such a call.  The cluster kernels' tile tables are
-   reported with the sectors a tile's staging touches;
+   reported with the sectors a tile's staging touches, and for the
+   channel and the globe under both of its numberings (along the curve,
+   as the step runs it, and by subdivision) what a 256-node tile touches
+   through ``node_edges``, ``nod_in_elem`` and ``node_neighbors``; then
+   ``node_edge_reduce``, ``elem_to_node_mean`` and ``fct_bounds`` are held
+   against their plain versions on the subdivision-numbered globe and
+   timed on both numberings in turns; ``onehot_gather``'s method bound is
+   that of three bf16 products on the tensor cores, and ``torch.bmm`` is
+   also timed over 50 calls between one pair of events;
 4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
    linfs, dense SSH) through ``run.run_soufflet``, with sanity bounds,
    linfs volume conservation and a launch count above 0 for every kernel
@@ -54,7 +62,8 @@ Run from the root of a checkout.  Phases, each reported on its own line:
 10. the ocean of the benched CI configuration at full width
     (``model.setup_pi_model`` + ``run.run_pi_ocean``): the level-7 globe
     of ``mesh/globe.py`` (163,842 vertices before the land mask, about
-    114,000 ocean nodes), 47 layers, 96 steps/day, CG free surface; 20
+    114,000 ocean nodes, numbered along the curve), 47 layers, 96
+    steps/day, CG free surface; 20
     float64 steps gated on finite fields, |u| < 3 m/s, T in [-3, 35] C,
     area-mean hbar below 1e-6 m and every kernel of the path launched;
     CG iterations per step, setup seconds, throughput in float32 and
@@ -67,8 +76,9 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     vertical advection and the split FCT branch) within 1e-9.
 
 Any failure exits non-zero before the last line.  Before it come one
-JSON line with every kernel's launches, error, times, bound and library
-time, the seconds the run took and the card; the last line is
+JSON line with the gather kernels' device times on both numberings, one
+with every kernel's launches, error, times, bound and library time, the
+seconds the run took and the card; the last line is
 ``{"ok": true, "device": {...}}``.  It needs one card and exits non-zero
 where CUDA is not available.
 """
@@ -105,6 +115,22 @@ def timed(fn, reps: int = 30, warmup: int = 5):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def timed_batch(fn, calls: int = 50):
+    """Milliseconds per call of fn() over ``calls`` calls between one pair
+    of CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def device_kernels(prof):
@@ -266,7 +292,7 @@ def main():
     import copy
     from fesom2_tpu_torch.core import eos, ops, ssh, tracers
     from fesom2_tpu_torch.core.mixing import kpp
-    from fesom2_tpu_torch.mesh import cluster, globe
+    from fesom2_tpu_torch.mesh import build_mesh, cluster, globe
     from fesom2_tpu_torch.mesh.channel import channel_raw_mesh, write_mesh
     from fesom2_tpu_torch.model import setup_pi_model, setup_soufflet_model
     from fesom2_tpu_torch.run import (globe_ocean_inputs, run_pi_ocean,
@@ -541,7 +567,35 @@ def main():
                 f"{st4['sectors_per_tile']:.1f} (float32) 32-byte sectors "
                 f"of a field row")
 
+    # the globe once more, numbered as the subdivision leaves it: the same
+    # mesh under a permutation, for the gather kernels' times on both
+    t0 = time.perf_counter()
+    sub_path = globe.write_globe(str(
+        Path(__file__).resolve().parent / "build" / "chip_smoke"
+        / "globe_l7_subdivision"), level=7, numbering="subdivision")
+    sub = {dtype: build_mesh(sub_path, force_rotation=True,
+                             cyclic_length_deg=360.0, use_partial_cell=True,
+                             dtype=dtype, device=dev)
+           for dtype in (torch.float64, torch.float32)}
+    say(f"phase 3 level-7 globe in subdivision numbering written and its "
+        f"tables built twice in {time.perf_counter() - t0:.2f} s")
+    for label, mesh in (("channel", mesh64), ("globe along the curve", gmesh),
+                        ("globe by subdivision", sub[torch.float64])):
+        for what, table in (("edges", mesh.node_edges),
+                            ("elements", mesh.nod_in_elem),
+                            ("neighbour nodes", mesh.node_neighbors)):
+            st8, st4 = (cluster.table_tile_stats(table, cluster.TILE_NODES, b)
+                        for b in (8, 4))
+            say(f"phase 3 locality {label}: a tile of {cluster.TILE_NODES} "
+                f"nodes names {st8['entries_per_tile']:.1f} distinct {what} "
+                f"in {st8['sectors_per_tile']:.1f} (float64) and "
+                f"{st4['sectors_per_tile']:.1f} (float32) 32-byte sectors of "
+                f"a field row; its warps' gathers ask for "
+                f"{st8['warp_sectors_per_tile']:.1f} and "
+                f"{st4['warp_sectors_per_tile']:.1f}")
+
     summary = {k: {"max_abs_err": 0.0} for k in kernels.KERNELS}
+    numbering_us = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         tag = str(dtype).replace("torch.", "")
         for name, label, kern, plain, exact, work, library in (
@@ -609,11 +663,71 @@ def main():
                          device_ms=k_dev and k_dev / 1e3,
                          library_device_ms=l_dev and l_dev / 1e3)
             if name == "onehot_gather":
-                m_ms, m_by = kernels.bound_ms(probe.onehot_gather_work(
-                    *probe.PROBE_SHAPE.values()), dtype)
-                summary[name]["method_bound_ms"] = m_ms
+                work = probe.onehot_gather_work(*probe.PROBE_SHAPE.values())
+                m_ms, m_by = kernels.bound_ms(
+                    work, dtype, kernels.PEAK_TENSOR_FLOPS[torch.bfloat16])
+                lb_ms = timed_batch(library)
+                summary[name].update(method_bound_ms=m_ms,
+                                     library_batch_ms=lb_ms)
                 say(f"phase 3 onehot_gather: the one-hot product as a method "
-                    f"is bound at {m_ms * 1e3:.1f} us ({m_by})")
+                    f"(three bf16 products on the tensor cores, "
+                    f"{work[1] / 1e9:.1f} GFLOP at 989 TFLOP/s; "
+                    f"{work[0] / 1e6:.1f} MB at 3.35 TB/s) is bound at "
+                    f"{m_ms * 1e3:.1f} us ({m_by}); torch.bmm on the prebuilt "
+                    f"one-hot, 50 calls between one pair of events: "
+                    f"{lb_ms * 1e3:.1f} us a call")
+
+    # the three gather kernels on both numberings of the level-7 globe:
+    # held against plain on the subdivision numbering too, then timed in
+    # turns (curve, subdivision, subdivision, curve): the profiler's device
+    # us, and us per call of 20 calls between one pair of events
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        tag = str(dtype).replace("torch.", "")
+        timings = {}
+        for turn, (label, mesh) in enumerate((
+                ("curve", gm[dtype].mesh), ("subdivision", sub[dtype]),
+                ("subdivision", sub[dtype]), ("curve", gm[dtype].mesh))):
+            L_, N_, E_, Ed_ = (mesh.nl - 1, mesh.n_nodes, mesh.n_elems,
+                               mesh.n_edges)
+            f = rand(2, L_, Ed_, dtype=dtype)
+            x = rand(2, L_, E_, dtype=dtype)
+            ttf = rand(2, L_, N_, lo=0.0, hi=30.0, dtype=dtype)
+            lo_ = rand(2, L_, N_, lo=0.0, hi=30.0, dtype=dtype)
+            for name, kern, plain, exact in (
+                    ("node_edge_reduce div",
+                     lambda: ops.edge_divergence(f, mesh),
+                     lambda: ops.edge_divergence_plain(f, mesh), False),
+                    ("node_edge_reduce pair",
+                     lambda: ops.edge_signed_reduce2(f, mesh),
+                     lambda: ops.edge_signed_reduce2_plain(f, mesh), False),
+                    ("elem_to_node_mean",
+                     lambda: ops.elem_to_node_mean(x, mesh),
+                     lambda: ops.elem_to_node_mean_plain(x, mesh), False),
+                    ("fct_bounds",
+                     lambda: tracers.fct_bounds(ttf, lo_, mesh),
+                     lambda: tracers.fct_bounds_plain(ttf, lo_, mesh), True),
+                    ("torch gather flux[..., node_edges]",
+                     lambda: f[..., mesh.node_edges.long().clamp_min(0)],
+                     None, False)):
+                if plain is not None and turn == 1:
+                    got, want = kern(), plain()
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = want if isinstance(want, tuple) else (want,)
+                    rel = max(max_abs(g, w) / float(w.abs().max())
+                              for g, w in zip(got, want))
+                    if not (all(torch.equal(g, w) for g, w in zip(got, want))
+                            if exact else rel <= tol):
+                        fail(f"{name} {tag} on the subdivision numbering: "
+                             f"{rel:.3e} of max|plain|")
+                timings.setdefault((name, label), []).append(
+                    (device_us(kern), timed_batch(kern, 20) * 1e3))
+        for (name, label), us in timings.items():
+            say(f"phase 3 numbering {tag} {name:36s} {label:12s} device_us="
+                f"{' '.join(us_text(u) for u, _ in us)} us a call of 20 "
+                f"between two events={' '.join(f'{b:.2f}' for _, b in us)}")
+            numbering_us.setdefault(name, {}).setdefault(tag, {})[label] = {
+                "device_us": [u for u, _ in us],
+                "batch_us": [b for _, b in us]}
 
     # a NaN in ttf must spread through fct_bounds as through torch.maximum
     for dtype in (torch.float64, torch.float32):
@@ -844,7 +958,8 @@ def main():
         profile_steps("phase 10", mdl, st, 3, card,
                       run=lambda m, s_, k, frc=frc, sw=sw: run_pi_ocean(
                           m, s_, frc, sw, k),
-                      also=("elem_to_node_mean", "fct_bounds"))
+                      also=("elem_to_node_mean", "fct_bounds",
+                            "node_edge_reduce", "index"))
 
     # phase 11 -----------------------------------------------------------
     small = globe.write_globe(str(Path(__file__).resolve().parent / "build"
@@ -891,6 +1006,7 @@ def main():
                "onehot_gather": "scripts/gather_cost_model.py:148",
                "pressure_bv": "fesom2_tpu/core/eos.py:88",
                "kpp_column": "fesom2_tpu/core/mixing/kpp.py:157"}
+    say(json.dumps({"numbering_device_us": numbering_us}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"fesom2_tpu_torch/csrc/{k}.cu",
@@ -900,6 +1016,7 @@ def main():
          "bound_ms": summary[k]["bound_ms"],
          "bound_by": summary[k]["bound_by"],
          "method_bound_ms": summary[k].get("method_bound_ms"),
+         "library_batch_ms": summary[k].get("library_batch_ms"),
          "library_ms": summary[k]["library_ms"],
          "device_ms": summary[k]["device_ms"],
          "library_device_ms": summary[k]["library_device_ms"],

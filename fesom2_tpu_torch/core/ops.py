@@ -19,7 +19,7 @@ import torch
 
 from .. import kernels
 from ..mesh import MeshTables
-from ..mesh.cluster import level_chunk
+from ..mesh.cluster import level_chunk, row_chunk
 
 
 def _flat_rows(x: torch.Tensor) -> torch.Tensor:
@@ -87,18 +87,21 @@ def edge_signed_reduce2_plain(flux: torch.Tensor, mesh: MeshTables):
 
 
 def _node_edge_reduce(flux: torch.Tensor, mesh: MeshTables, pair: bool):
+    """The kernel on the mesh's ``edge_slot`` table: a thread per node
+    walks ``row_chunk`` rows of flux [.., Ed] flattened to [R, Ed]."""
     kernels.cuda_only(flux, "node_edge_reduce")
     f = _flat_rows(flux)
     R, Ed = f.shape
-    N, KE = mesh.node_edges.shape
+    slot = mesh.cluster.edge_slot
+    KE, N = slot.shape
     dev, dt = flux.device, flux.dtype
     kernels.require(f, "flux", (R, mesh.n_edges), dt, dev)
-    kernels.require(mesh.node_edges, "node_edges", (N, KE), torch.int32, dev)
-    kernels.require(mesh.node_edge_sign, "node_edge_sign", (N, KE), dt, dev)
+    kernels.require(slot, "edge_slot", (KE, mesh.n_nodes), torch.int32, dev)
     out0 = torch.empty((R, N), dtype=dt, device=dev)
     out1 = torch.empty((R, N), dtype=dt, device=dev) if pair else None
-    kernels.launch("node_edge_reduce", dev, f, R, Ed, mesh.node_edges,
-                   mesh.node_edge_sign, N, KE, out0, out1, int(pair),
+    blocks = -(-N // kernels.BLOCK_THREADS)
+    kernels.launch("node_edge_reduce", dev, f, R, Ed, slot, N, KE,
+                   row_chunk(R, blocks), out0, out1, int(pair),
                    kernels.float_code(dt))
     shape = flux.shape[:-1] + (N,)
     if pair:

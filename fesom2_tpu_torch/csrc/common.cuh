@@ -38,6 +38,14 @@ __device__ __forceinline__ void cp_async(T* smem_dst, const T* gmem_src) {
                "l"(gmem_src), "n"(static_cast<int>(sizeof(T)))
                : "memory");
 }
+// cp.async of one 16-byte line (both addresses 16-byte aligned), past L1.
+__device__ __forceinline__ void cp_async16(void* smem_dst,
+                                           const void* gmem_src) {
+  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem_src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

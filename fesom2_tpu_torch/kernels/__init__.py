@@ -25,7 +25,7 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signatures by entry point, in argument order (see csrc/*.cu); the last
 # is the stream
 _ARGTYPES = {
-    "node_edge_reduce": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P],
+    "node_edge_reduce": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _P],
     "elem_to_node_mean": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                           _I, _P, _I, _P],
     "elem_to_node_mean_flat": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P],
@@ -41,22 +41,27 @@ _ARGTYPES = {
     "kpp_column": [_P] * 15 + [_I] * 3 + [_D] * 8 + [_P] * 4 + [_I, _P],
 }
 _LIB = None
+BLOCK_THREADS = 256     # threads per block of the one-thread-per-item kernels
 
 
-# Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet; dense
-# rates outside the tensor cores, which no kernel here uses): device
-# memory, float32 and float64 arithmetic.
+# Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense
+# rates): device memory, float32 and float64 arithmetic outside the tensor
+# cores, and bf16 products with float32 sums on them (onehot_gather's
+# method; no other kernel here uses them).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_TENSOR_FLOPS = {torch.bfloat16: 989e12}
 
 
-def bound_ms(work, dtype) -> tuple:
+def bound_ms(work, dtype, peak_flops=None) -> tuple:
     """The least milliseconds the card could take for ``work`` = (bytes,
     flops) of a kernel's ``*_work`` counter (each input byte read once,
-    each output byte written once), and which of the two binds."""
+    each output byte written once), and which of the two binds.  The
+    operations run at ``PEAK_FLOPS[dtype]`` unless ``peak_flops`` names
+    another rate (the tensor cores')."""
     nbytes, flops = work
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    by_flops = flops / (peak_flops or PEAK_FLOPS[dtype]) * 1e3
     if by_bytes >= by_flops:
         return by_bytes, "bytes"
     return by_flops, "operations"

@@ -1,4 +1,4 @@
-"""Static tables of the two ``nod_in_elem`` cluster kernels.
+"""Static tables of the tiled gather kernels.
 
 ``elem_to_node_mean`` and ``fct_bounds`` reduce, per level, over the
 elements around each node.  Their CUDA kernels (``csrc/``) give a block a
@@ -24,8 +24,15 @@ it is constant, so it is derived here once per mesh, on the host in numpy
   cluster bound holds no -1e3 / +1e3 filler), and the node's own wet
   range.
 
-``mean_emulation`` and ``fct_emulation`` walk these tables in torch the way
-the kernels do; the CPU tests hold them against the plain versions.
+``node_edge_reduce`` sums signed edge fluxes over each node's edges.  Its
+kernel gives a thread one node and a run of rows; the thread reads, once,
+per slot one word ``edge << 1 | (sign < 0)`` (-1 in a padded slot) from
+``edge_slot`` [KE, N], the transpose of ``node_edges`` with the sign
+folded in, so that a warp's reads of one slot are contiguous.
+
+``mean_emulation``, ``fct_emulation`` and ``edge_reduce_emulation`` walk
+these tables in torch the way the kernels do; the CPU tests hold them
+against the plain versions.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ MAX_LOCAL = 1 << 16     # a local index takes 16 bits of a packed word
 MAX_LEVELS = 255        # a level bound takes 8 bits
 TARGET_BLOCKS = 2048    # blocks a launch aims at (132 SMs, a few waves)
 MIN_PLANES = 4          # fewest staged planes worth a block's set-up
+ROW_TARGET_BLOCKS = 8192    # blocks a node_edge_reduce launch aims at
 
 
 @dataclass(frozen=True, eq=False)
@@ -58,6 +66,7 @@ class ClusterTables:
     fct_tile_ptr: torch.Tensor    # [T+1] int32 into fct_tile_nodes
     fct_tile_nodes: torch.Tensor  # [sum U] int32 node ids, sorted per tile
     fct_u_max: int                # longest neighbour list of a tile
+    edge_slot: torch.Tensor       # [KE, N] int32: edge<<1 | sign<0, -1 padded
 
 
 def level_ranges(mask: np.ndarray):
@@ -192,6 +201,15 @@ def build_cluster_tables(mesh, tile_nodes: int = 0) -> ClusterTables:
                 | (n_lo.astype(np.uint32) << 16)
                 | (n_hi.astype(np.uint32) << 24)).view(np.int32)
 
+    # ---- node_edge_reduce -------------------------------------------------
+    ne = mesh.node_edges.cpu().numpy().astype(np.int64)
+    sign = mesh.node_edge_sign.cpu().numpy()
+    if int(ne.max(initial=0)) >= 1 << 30:
+        raise ValueError("an edge index outgrows 30 bits of a slot word")
+    if not np.array_equal(np.abs(sign), (ne >= 0).astype(sign.dtype)):
+        raise ValueError("node_edge_sign is not +-1 on edges, 0 on padding")
+    edge_slot = np.where(ne >= 0, ne << 1 | (sign < 0), -1)
+
     i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                     device=dev)
     return ClusterTables(
@@ -203,7 +221,8 @@ def build_cluster_tables(mesh, tile_nodes: int = 0) -> ClusterTables:
         mean_u_max=mean_u_max,
         fct_slot=i32(fct_slot.T), fct_node=i32(fct_node),
         fct_tile_ptr=i32(fptr), fct_tile_nodes=i32(fnodes),
-        fct_u_max=int(np.diff(fptr).max(initial=0)))
+        fct_u_max=int(np.diff(fptr).max(initial=0)),
+        edge_slot=i32(edge_slot.T))
 
 
 def tile_stats(ptr: torch.Tensor, ids: torch.Tensor, itemsize: int) -> dict:
@@ -220,6 +239,37 @@ def tile_stats(ptr: torch.Tensor, ids: torch.Tensor, itemsize: int) -> dict:
             "sectors_per_tile": sectors / tiles}
 
 
+def table_tile_stats(table: torch.Tensor, tile_nodes: int, itemsize: int,
+                     warp: int = 32) -> dict:
+    """How local the gathers through an incidence table [N, K] (-1 padded)
+    are, per tile of ``tile_nodes`` consecutive nodes on average: the
+    distinct entries the tile names, the 32-byte sectors of one field row
+    that hold them (what staging the tile once would move), and the
+    sectors summed over the gather instructions of its warps (``warp``
+    consecutive nodes reading one slot: what direct gathers move when no
+    cache merges them across instructions)."""
+    ids = table.cpu().numpy().astype(np.int64)
+    N, K = ids.shape
+    per_sector = 32 // itemsize
+    tiles = -(-N // tile_nodes)
+    span = int(ids.max(initial=0)) + 1
+    valid = ids >= 0
+
+    def distinct(group, what):
+        key = (np.broadcast_to(group[:, None], ids.shape)[valid] * span
+               + what[valid])
+        return np.unique(key).shape[0]
+
+    node = np.arange(N)
+    slot_of = np.broadcast_to(np.arange(K)[None, :], ids.shape)
+    return {"tiles": tiles,
+            "entries_per_tile": distinct(node // tile_nodes, ids) / tiles,
+            "sectors_per_tile": distinct(node // tile_nodes,
+                                         ids // per_sector) / tiles,
+            "warp_sectors_per_tile": distinct(
+                node // warp, slot_of * span + ids // per_sector) / tiles}
+
+
 def level_chunk(levels: int, planes_per_level: int,
                 blocks_per_chunk: int) -> int:
     """Levels per block: as few chunks of the column as give
@@ -229,6 +279,16 @@ def level_chunk(levels: int, planes_per_level: int,
     most = max(1, levels * planes_per_level // MIN_PLANES)
     chunks = max(1, min(chunks, most, levels))
     return -(-levels // chunks)
+
+
+def row_chunk(rows: int, blocks_per_chunk: int) -> int:
+    """Rows per thread of ``node_edge_reduce``: as few runs of the rows as
+    give ``ROW_TARGET_BLOCKS`` blocks (a small mesh: one row a thread).
+    The kernel stages nothing, so its blocks are cheap and many short runs
+    hide the gathers' latency best (swept on the level-7 globe with
+    ``scripts/gather_kernel_times.py --row-target-blocks``)."""
+    chunks = -(-ROW_TARGET_BLOCKS // max(blocks_per_chunk, 1))
+    return -(-rows // max(1, min(chunks, rows)))
 
 
 def _unpack(word: torch.Tensor):
@@ -262,6 +322,30 @@ def mean_emulation(x: torch.Tensor, ct: ClusterTables,
         num = num + torch.where(used, x[..., elem[k]] * w[:, k], 0.0)
         den = den + w[:, k]
     return num / den.clamp_min(1e-30)
+
+
+def edge_reduce_emulation(flux: torch.Tensor, ct: ClusterTables,
+                          pair: bool = False):
+    """``node_edge_reduce`` as its kernel computes it: [.., Ed] -> [.., N]
+    (``pair``: the sums of the positive and of the negative terms).  Each
+    node walks its slot words in the order k = 0..KE-1, takes the flux or
+    its negation by the word's low bit, and skips a padded slot."""
+    KE, N = ct.edge_slot.shape
+    shape = flux.shape[:-1] + (N,)
+    acc = torch.zeros(shape, dtype=flux.dtype, device=flux.device)
+    acc_minus = torch.zeros_like(acc)
+    for k in range(KE):
+        word = ct.edge_slot[k].long()
+        used = word >= 0
+        v = flux[..., (word >> 1).clamp_min(0)]
+        v = torch.where((word & 1) == 1, -v, v)
+        if pair:
+            acc = torch.where(used, acc + torch.where(v > 0, v, 0.0), acc)
+            acc_minus = torch.where(
+                used, acc_minus + torch.where(v < 0, v, 0.0), acc_minus)
+        else:
+            acc = torch.where(used, acc + v, acc)
+    return (acc, acc_minus) if pair else acc
 
 
 def fct_emulation(ttf: torch.Tensor, lo: torch.Tensor, ct: ClusterTables,

@@ -24,7 +24,16 @@ repository.  The construction:
 - triangles CLOCKWISE seen from outside the sphere, decided in 3-D by
   the sign of ((b - a) x (c - a)) . a, so neither the seam at 180E nor
   the rotation can flip it (the order of the FESOM mesh files; with
-  counter-clockwise triangles the SSH operator is indefinite).
+  counter-clockwise triangles the SSH operator is indefinite);
+- nodes numbered along a Hilbert curve over the faces of the cube around
+  the sphere (``curve_keys``), triangles by their lowest node, so that
+  neighbours in space are mostly neighbours in number and a gather over
+  an incidence table finds its values close together in memory (edges
+  follow through ``build_edges``, which numbers them by their lower
+  node).  ``numbering="subdivision"`` keeps the order in which the
+  subdivision appends its midpoints, level behind level, which has no
+  such locality: it is the same mesh under a permutation, kept so that
+  the gather kernels can be timed on both.
 
 ``nod2d.out`` holds geographic longitude and latitude, as FESOM files do
 when ``force_rotation`` is on (``mesh/io.py`` rotates them into the model
@@ -210,9 +219,63 @@ def _clockwise(v, tri):
     return tri
 
 
-def ocean_triangulation(level: int):
+NUMBERINGS = ("curve", "subdivision")
+CURVE_ORDER = 14        # the curve resolves 2**14 cells along a cube edge
+
+
+def _hilbert_index(x, y, order: int):
+    """Position along the Hilbert curve of the cells (x, y) of a
+    2**order x 2**order grid (int64 arrays)."""
+    x, y = x.copy(), y.copy()
+    n = 1 << order
+    d = np.zeros_like(x)
+    s = n >> 1
+    while s > 0:
+        rx = (x & s) > 0
+        ry = (y & s) > 0
+        d += s * s * ((3 * rx) ^ ry)
+        turn = ~ry & rx
+        x, y = np.where(turn, n - 1 - x, x), np.where(turn, n - 1 - y, y)
+        x, y = np.where(ry, x, y), np.where(ry, y, x)
+        s >>= 1
+    return d
+
+
+def curve_keys(v, order: int = CURVE_ORDER):
+    """A key per unit vector [N, 3] under which neighbours in space are
+    mostly neighbours in key: the face of the cube around the sphere that
+    the vector points at (+x, -x, +y, -y, +z, -z), then the Hilbert index
+    of its central projection on that face."""
+    axis = np.abs(v).argmax(1)
+    rows = np.arange(v.shape[0])
+    major = v[rows, axis]
+    face = 2 * axis + (major < 0)
+    # the two other components over the major one lie in [-1, 1]
+    a = v[rows, (axis + 1) % 3] / np.abs(major)
+    b = v[rows, (axis + 2) % 3] / np.abs(major)
+    n = 1 << order
+    cell = lambda t: np.clip(((t + 1.0) * 0.5 * n).astype(np.int64), 0, n - 1)
+    return face * n * n + _hilbert_index(cell(a), cell(b), order)
+
+
+def _renumber_along_curve(v, f):
+    """Nodes in the order of their ``curve_keys`` (ties by their old
+    number), triangles by their lowest, then middle, then highest node;
+    the order of the vertices inside a triangle is kept."""
+    order = np.lexsort((np.arange(v.shape[0]), curve_keys(v)))
+    new = np.empty_like(order)
+    new[order] = np.arange(order.shape[0])
+    v, f = v[order], new[f]
+    fs = np.sort(f, axis=1)
+    return v, f[np.lexsort((fs[:, 2], fs[:, 1], fs[:, 0]))]
+
+
+def ocean_triangulation(level: int, numbering: str = "curve"):
     """(unit vectors [N, 3], clockwise triangles [E, 3], coast [N] bool)
-    of the ocean: one edge-connected component, no vertex-only contact."""
+    of the ocean: one edge-connected component, no vertex-only contact;
+    numbered along the curve, or as the subdivision left it."""
+    if numbering not in NUMBERINGS:
+        raise ValueError(f"numbering {numbering!r}: one of {NUMBERINGS}")
     v, f = icosphere(level)
     cen = v[f].mean(1)
     f = f[~is_land(cen / np.linalg.norm(cen, axis=1, keepdims=True))]
@@ -226,6 +289,8 @@ def ocean_triangulation(level: int):
     used[f.ravel()] = True
     renum = np.cumsum(used) - 1
     v, f = v[used], renum[f]
+    if numbering == "curve":
+        v, f = _renumber_along_curve(v, f)
     f = _clockwise(v, f)
     nb = _triangle_neighbors(f)
     coast = np.zeros(v.shape[0], bool)
@@ -275,11 +340,12 @@ def bathymetry(v, tri, coast):
 
 
 def globe_raw_mesh(level: int = 7, n_layers: int = 47,
-                   dz_bottom: float = 250.0) -> RawMesh:
+                   dz_bottom: float = 250.0,
+                   numbering: str = "curve") -> RawMesh:
     """The global ocean mesh as a RawMesh in GEOGRAPHIC coordinates (what
     ``io.read_raw_mesh`` returns for ``write_globe``'s files without
     ``force_rotation``)."""
-    v, tri, coast = ocean_triangulation(level)
+    v, tri, coast = ocean_triangulation(level, numbering)
     lon, lat = _lonlat(v)
     coords_deg = np.stack([lon, lat], axis=1)
     zbar = stretched_levels(n_layers, dz_bottom=dz_bottom)
@@ -290,10 +356,11 @@ def globe_raw_mesh(level: int = 7, n_layers: int = 47,
                    edge_tri=None, edge2D_in=None)
 
 
-def write_globe(path: str, level: int = 7, **levels) -> str:
+def write_globe(path: str, level: int = 7, **options) -> str:
     """Write ``nod2d.out``, ``elem2d.out`` and ``aux3d.out`` (levels, then
-    the positive node depths) of ``globe_raw_mesh(level, **levels)``."""
-    raw = globe_raw_mesh(level, **levels)
+    the positive node depths) of ``globe_raw_mesh(level, **options)``
+    (``n_layers``, ``dz_bottom``, ``numbering``)."""
+    raw = globe_raw_mesh(level, **options)
     write_mesh(raw, path)
     with open(os.path.join(path, "aux3d.out"), "a") as fh:
         fh.write("\n".join(f"{-d:.17g}" for d in raw.depth) + "\n")

@@ -89,13 +89,46 @@ def window_gather_work(G: int, T: int, NL: int, rows_read: int) -> tuple:
     return 4 * (G * T + rows_read * NL + G * T * NL), 0
 
 
+SPLIT_PIECES = 3    # bf16 pieces of a float32 value (8 + 8 + 8 bits)
+
+
 def onehot_gather_work(G: int, W: int, T: int, NL: int) -> tuple:
     """(bytes, flops) of the one-hot product as a method, not of the
     function it computes (that is ``window_gather_work``'s gather, which
     needs no arithmetic): the indices, the whole [G, W, NL] window (a
     product reads all of it), the output; a product and an add per
-    (g, t, w, nl) in float32."""
-    return 4 * (G * T + G * W * NL + G * T * NL), 2 * G * T * W * NL
+    (g, t, w, nl) and bf16 piece, on the tensor cores
+    (``kernels.PEAK_TENSOR_FLOPS``)."""
+    return (4 * (G * T + G * W * NL + G * T * NL),
+            SPLIT_PIECES * 2 * G * T * W * NL)
+
+
+def split_bf16x3(vals: torch.Tensor) -> tuple:
+    """(hi, mid, lo), float32 tensors that bf16 holds exactly and that add
+    up to ``vals``: hi is vals with the low 16 bits of its word cut, mid
+    the remainder cut the same way, lo what is left.  Each difference is
+    exact in float32.  Cutting (not rounding) keeps hi finite up to the
+    largest float32.  A value below 2^-109 in magnitude has bits under
+    bf16's smallest subnormal and loses them in lo."""
+    def cut(x):
+        return (x.contiguous().view(torch.int32) & -65536).view(torch.float32)
+    hi = cut(vals)
+    rest = vals - hi
+    mid = cut(rest)
+    return hi, mid, cut(rest - mid)
+
+
+def onehot_gather_emulation(vals: torch.Tensor,
+                            idx: torch.Tensor) -> torch.Tensor:
+    """``onehot_gather`` as its kernel computes it: one one-hot product per
+    bf16 piece of vals, each into a float32 accumulator of its own, added
+    as (hi + mid) + lo; NaN rows outside the window."""
+    G, W, T, NL = _check_probe_args(vals, idx)
+    cols = torch.arange(W, device=idx.device)
+    onehot = (idx.long()[..., None] == cols).to(torch.bfloat16)
+    hi, mid, lo = (torch.bmm(onehot.float(), p.to(torch.bfloat16).float())
+                   for p in split_bf16x3(vals))
+    return _fill_out_of_window((hi + mid) + lo, idx, W)
 
 
 def window_gather(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

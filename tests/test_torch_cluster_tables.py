@@ -260,7 +260,8 @@ WORK = [
     (kpp.kpp_column_work(5, 10, 25, True, 8), (4080, 6500)),
     # the probe, G=2, W=8, T=3, NL=4, 5 distinct rows named
     (probe.window_gather_work(2, 3, 4, 5), (200, 0)),
-    (probe.onehot_gather_work(2, 8, 3, 4), (376, 384)),
+    # the one-hot method: three bf16 products of 2*2*3*8*4 = 384 flops
+    (probe.onehot_gather_work(2, 8, 3, 4), (376, 1152)),
 ]
 
 

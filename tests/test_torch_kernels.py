@@ -205,6 +205,60 @@ def test_probe_kernels_match_plain_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [dict(G=3, W=200, T=300, NL=50),
+                                   dict(G=2, W=128, T=16, NL=7),
+                                   dict(G=2, W=1, T=5, NL=100)],
+                         ids=["ragged", "narrow_unaligned", "one_row_window"])
+def test_onehot_gather_ragged_shapes_on_card(shape):
+    """Windows that are no multiple of a staged chunk, more outputs than a
+    block's 256, columns beyond one block's 48 and rows that are no
+    multiple of 16 bytes; huge and negative values."""
+    _need_card()
+    vals, idx = probe.probe_inputs(**shape)
+    vals[0] *= np.float32(1e30)
+    vals[-1] = -np.abs(vals[-1])
+    idx[0, 0], idx[1, 3] = shape["W"], -1
+    vals = torch.as_tensor(vals, device="cuda")
+    idx = torch.as_tensor(idx, device="cuda")
+    got = probe.onehot_gather(vals, idx)
+    for want in (probe.window_gather_plain(vals, idx),
+                 probe.onehot_gather_emulation(vals, idx)):
+        assert int(want.isnan().any(-1).sum()) == 2
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [0, 1, 3], ids=["KE", "KE+1", "KE+3"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_node_edge_reduce_equals_slot_order_sum_on_card(mesh, rng, dtype,
+                                                        extra):
+    """Bit-equal to the table walk's emulation (slots summed in order) for
+    KE held in registers (6, 7) and KE above that (9, read per row), with
+    1, 3 and 2 x 10 rows (runs of 4 rows and a remainder)."""
+    _need_card()
+    m = mesh
+    if extra:
+        N = m.n_nodes
+        m = dataclasses.replace(
+            m, node_edges=torch.cat([m.node_edges, torch.full(
+                (N, extra), -1, dtype=torch.int32)], 1),
+            node_edge_sign=torch.cat([m.node_edge_sign, torch.zeros(
+                (N, extra), dtype=m.node_edge_sign.dtype)], 1))
+        m = dataclasses.replace(m, cluster=cluster.build_cluster_tables(m))
+    m = _on_card(m, dtype)
+    assert m.cluster.edge_slot.shape[0] == mesh.node_edges.shape[1] + extra
+    for rows in ((), (3,), (2, NLAY)):
+        f = torch.as_tensor(rng.uniform(-1, 1, rows + (m.n_edges,)),
+                            device="cuda").to(dtype)
+        assert torch.equal(ops.edge_divergence(f, m),
+                           cluster.edge_reduce_emulation(f, m.cluster))
+        for g, w in zip(ops.edge_signed_reduce2(f, m),
+                        cluster.edge_reduce_emulation(f, m.cluster, True)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 def test_column_kernels_match_plain_on_card(tmp_path, rng, dtype, tol):
