@@ -36,7 +36,13 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    against their plain versions on the subdivision-numbered globe and
    timed on both numberings in turns; ``onehot_gather``'s method bound is
    that of three bf16 products on the tensor cores, and ``torch.bmm`` is
-   also timed over 50 calls between one pair of events;
+   also timed over 50 calls between one pair of events; the sea ice's
+   three kernels on the level-7 globe after one coupled step:
+   ``elem_contrib_to_nodes`` in both layouts on the whole globe and on the
+   ice subdomain's tables (library call: a CSR product over the same
+   incidence), ``mevp_stress`` and ``mevp_node`` on the subdomain's tables,
+   each against its plain version, then eight subcycles of the two kernels
+   against eight of ``mevp_subcycle_plain``;
 4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
    linfs, dense SSH) through ``run.run_soufflet``, with sanity bounds,
    linfs volume conservation and a launch count above 0 for every kernel
@@ -73,7 +79,26 @@ Run from the root of a checkout.  Phases, each reported on its own line:
 11. the CI ocean card against CPU on the level-3 globe, 5 float64 steps:
     the dense solve within 1e-9 of max|CPU|, CG forced within 1e-8, and
     the dense solve with ``w_max_cfl=1e-5`` (the w split active: implicit
-    vertical advection and the split FCT branch) within 1e-9.
+    vertical advection and the split FCT branch) within 1e-9;
+12. the coupled ocean + ice step of the CI configuration at full width
+    (``model.setup_pi_model``, ``pi_initial_state``,
+    ``pi_coupled_step_fn`` with ``pi_config()`` as it stands: mEVP with 120
+    subcycles on the subdomain poleward of 40 degrees, ice FCT advection,
+    ice thermodynamics, NCAR bulk forcing from the code-built atmosphere):
+    20 float64 steps on the level-7 globe gated on finite fields, the
+    ocean bounds of phase 10 (the area-mean hbar against what the water
+    flux handed to the ocean adds up to), 0 <= a_ice <= 1, m_ice and
+    m_snow >= 0, some a_ice > 0.5, 0 < max|u_ice| < 3 m/s, no ice outside
+    the subdomain, and every kernel of the path launched (``mevp_stress``
+    and ``mevp_node`` 120 times a step); then throughput in float32 and
+    float64, a 3-step profile per dtype, and the subcycle loop's
+    milliseconds per step with the kernels and with
+    ``mevp_subcycle_plain`` (information);
+13. the coupled step card against CPU on the level-3 globe, 3 float64
+    steps, dense and CG forced: every ocean and ice field within 1e-8 of
+    max|CPU| (the card's exp, pow and log differ from the CPU's in the
+    last bits, and 120 subcycles, the Newton iterations of the ice
+    surface temperature and three ocean steps carry them on).
 
 Any failure exits non-zero before the last line.  Before it come one
 JSON line with the gather kernels' device times on both numberings, one
@@ -149,12 +174,16 @@ def device_us(fn, calls: int = 20):
     from torch.profiler import profile, ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in device_kernels(prof)) / calls
-    return us if us > 0 else None
+    for _ in range(3):                  # a dropped trace is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total
+                 for e in device_kernels(prof)) / calls
+        if us > 0:
+            return us
+    return None
 
 
 def us_text(us) -> str:
@@ -238,10 +267,12 @@ def check_sane(phase: str, model, state, launches: dict):
         fail(f"{phase}: kernels never launched on the path: {idle}")
 
 
-def check_globe(phase: str, model, state, launches: dict):
+def check_globe(phase: str, model, state, launches: dict,
+                hbar_expected: float = 0.0):
     """The global ocean's bounds: every field finite, |u| < 3 m/s, T in
-    [-3, 35] C, area-mean hbar below 1e-6 m (the water flux has zero
-    mean) and a launch count above 0 for every kernel of the path."""
+    [-3, 35] C, area-mean hbar within 1e-6 m of ``hbar_expected`` (0 where
+    the water flux has zero mean; the coupled step's fluxes add up to a
+    known mean) and a launch count above 0 for every kernel of the path."""
     import torch
     m = model.mesh
     for name in ("u", "v", "eta", "hbar", "tr", "w", "Kv", "Av", "hnode"):
@@ -257,8 +288,9 @@ def check_globe(phase: str, model, state, launches: dict):
         f"max kpp_nonloc={float(state.kpp_nonloc.max()):.4f}")
     if not (umax < 3.0 and float(T.min()) > -3.0 and float(T.max()) < 35.0):
         fail(f"{phase}: fields outside the bounds")
-    if abs(hbar_int) >= 1e-6:
-        fail(f"{phase}: area-mean hbar {hbar_int:.3e} (volume)")
+    if abs(hbar_int - hbar_expected) >= 1e-6:
+        fail(f"{phase}: area-mean hbar {hbar_int:.3e}, expected "
+             f"{hbar_expected:.3e} (volume)")
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         fail(f"{phase}: kernels never launched on the path: {idle}")
@@ -291,12 +323,18 @@ def main():
     from fesom2_tpu_torch.kernels import build
     import copy
     from fesom2_tpu_torch.core import eos, ops, ssh, tracers
+    from fesom2_tpu_torch.forcing.atmos import update_atm_forcing
+    from fesom2_tpu_torch.ice import evp
+    from fesom2_tpu_torch.ice.coupling import ocean2ice
+    from fesom2_tpu_torch.ice.state import zero_ice_forcing
     from fesom2_tpu_torch.core.mixing import kpp
     from fesom2_tpu_torch.mesh import build_mesh, cluster, globe
     from fesom2_tpu_torch.mesh.channel import channel_raw_mesh, write_mesh
-    from fesom2_tpu_torch.model import setup_pi_model, setup_soufflet_model
-    from fesom2_tpu_torch.run import (globe_ocean_inputs, run_pi_ocean,
-                                      run_soufflet)
+    from fesom2_tpu_torch.model import (pi_coupled_step_fn, pi_initial_state,
+                                        setup_pi_model, setup_soufflet_model)
+    from fesom2_tpu_torch.run import (globe_ocean_inputs,
+                                      ice_outside_subdomain, run_pi,
+                                      run_pi_ocean, run_soufflet, step_info)
     from fesom2_tpu_torch.scripts import gather_cost_model as probe
 
     # phase 1 ------------------------------------------------------------
@@ -371,11 +409,12 @@ def main():
         Path(__file__).resolve().parent / "build" / "chip_smoke"
         / "globe_l7"), level=7)
     say(f"phase 3 level-7 globe written in {time.perf_counter() - t0:.2f} s")
-    gm, gm_setup, gin, g1 = {}, {}, {}, {}
+    gm, gatm, gm_setup, gin, g1 = {}, {}, {}, {}, {}
     for dtype in (torch.float64, torch.float32):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        gm[dtype] = setup_pi_model(globe_path, device=dev, dtype=dtype)
+        gm[dtype], gatm[dtype] = setup_pi_model(globe_path, device=dev,
+                                                dtype=dtype)
         torch.cuda.synchronize()
         gm_setup[dtype] = time.perf_counter() - t0
         gin[dtype] = globe_ocean_inputs(gm[dtype], seed=0)
@@ -554,6 +593,79 @@ def main():
                                             st.tr.element_size()), None))
         return out
 
+    ice_tables = {}
+
+    def ice_cases(dtype):
+        """The sea ice's kernels on the level-7 globe, at its state after
+        one coupled step: elem_contrib_to_nodes on the subdomain's tables
+        and on the whole globe (vertex-major and element-major, the row
+        counts of the path; library call: a CSR product over the same
+        incidence), mevp_stress and mevp_node on the subdomain's tables.
+        The mEVP kernels work in place: they are compared on copies and
+        timed on buffers of their own (an eighth item)."""
+        m, atm = gm[dtype], gatm[dtype]
+        mesh, cap = m.mesh, m.ice_sub
+        size = torch.empty((), dtype=dtype).element_size()
+        st, ice = pi_initial_state(m)
+        st, ice, _ = pi_coupled_step_fn(m, atm)(st, ice, 0)
+        with torch.no_grad():
+            surf = ocean2ice(st, mesh)
+            iforc = update_atm_forcing(
+                atm, m.cfg.dt, ice.u_ice, ice.v_ice, surf.u_w, surf.v_w,
+                surf.T_oc, zero_ice_forcing(mesh, dtype))
+            ice_l, forc_l, surf_l = evp.subdomain_inputs(ice, cap, iforc,
+                                                         surf)
+            tab = evp.mevp_setup(ice_l, cap, forc_l, surf_l, m.cfg)
+        uv0 = torch.stack([ice_l.u_ice, ice_l.v_ice])
+        sig0 = torch.stack([ice_l.sigma11, ice_l.sigma12, ice_l.sigma22])
+        ice_tables[dtype] = (tab, uv0, sig0, cap)
+        Ns, Es, Ks = cap.n_nodes, cap.n_elems, cap.nod_in_elem.shape[1]
+        if dtype == torch.float64:
+            say(f"phase 3 ice subdomain: {Ns} of {mesh.n_nodes} nodes, {Es} "
+                f"of {mesh.n_elems} elements, K={Ks}; nodes with ice "
+                f"{int(tab.node_c[12].sum())}, elements with ice "
+                f"{int(tab.elem_c[9].sum())}, max|u_ice| "
+                f"{float(uv0.abs().max()):.4f} m/s after one coupled step")
+        out = []
+        for label, tables, lead, vertex_major in (
+                ("subdomain", cap, (2,), True), ("globe", mesh, (), False),
+                ("globe", mesh, (3,), False), ("globe", mesh, (2,), True),
+                ("globe", mesh, (2, 3), False)):
+            n_e, n_n = tables.n_elems, tables.n_nodes
+            x = rand(*lead, *((3, n_e) if vertex_major else (n_e, 3)),
+                     dtype=dtype)
+            rows = x.numel() // (3 * n_e)
+            idx, valid = ops._contrib_index(tables, vertex_major)
+            inc = csr(torch.arange(n_n, device=dev)[:, None].expand_as(idx)[
+                valid], idx[valid], torch.ones(int(valid.sum()), dtype=dtype,
+                                               device=dev), (n_n, 3 * n_e))
+            xt = x.reshape(rows, -1).T.contiguous()
+            fn = ops.elem_contrib_to_nodes_3e if vertex_major \
+                else ops.elem_contrib_to_nodes
+            out.append((
+                "elem_contrib_to_nodes", f"{label} {list(x.shape)}",
+                lambda x=x, t=tables, fn=fn: fn(x, t),
+                lambda x=x, t=tables, vm=vertex_major:
+                ops.elem_contrib_to_nodes_plain(x, t, vm), False,
+                ops.elem_contrib_to_nodes_work(
+                    rows, n_e, n_n, tables.nod_in_elem.shape[1], size),
+                lambda inc=inc, xt=xt: inc @ xt))
+        work = evp.mevp_subcycle_work(Ns, Es, Ks, size)
+        fuv0 = evp.mevp_stress_plain(uv0, sig0, tab)[1].contiguous()
+        sig_t, uv_t = sig0.clone(), uv0.clone()
+        out.append(("mevp_stress", f"subdomain uv {[2, Ns]} sig {[3, Es]}",
+                    lambda: tuple(x.clone() for x in evp.mevp_stress(
+                        uv0, sig0.clone(), tab, cap)),
+                    lambda: evp.mevp_stress_plain(uv0, sig0, tab), False,
+                    work["mevp_stress"], None,
+                    lambda: evp.mevp_stress(uv0, sig_t, tab, cap)))
+        out.append(("mevp_node", f"subdomain uv {[2, Ns]} fuv {[2, 3, Es]}",
+                    lambda: evp.mevp_node(uv0.clone(), fuv0, tab, cap),
+                    lambda: evp.mevp_node_plain(uv0, fuv0, tab, cap), False,
+                    work["mevp_node"], None,
+                    lambda: evp.mevp_node(uv_t, fuv0, tab, cap)))
+        return out
+
     for label, mesh in (("channel", mesh64), ("globe", gmesh)):
         ct = mesh.cluster
         for what, ptr, ids in (
@@ -598,11 +710,13 @@ def main():
     numbering_us = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         tag = str(dtype).replace("torch.", "")
-        for name, label, kern, plain, exact, work, library in (
+        for name, label, kern, plain, exact, work, library, *own in (
                 cases(dtype, "channel", chan[dtype], chan1[dtype])
                 + cg_cases(dtype)
                 + (probe_cases() if dtype == torch.float32 else [])
-                + globe_cases(dtype)):
+                + globe_cases(dtype) + ice_cases(dtype)):
+            # an in-place kernel is timed on buffers of its own
+            kern_t = own[0] if own else kern
             got, want = kern(), plain()
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
@@ -631,21 +745,22 @@ def main():
                      f"(tol {'bitwise' if exact else tol})")
             if library is not None and name in ("node_edge_reduce",
                                                 "elem_to_node_mean",
-                                                "ring_spmv"):
+                                                "ring_spmv",
+                                                "elem_contrib_to_nodes"):
                 # the sparse products give the kernel's output transposed
                 lib = library().T.reshape(got[0].shape)
                 lib_rel = max_abs(lib, want[0]) / float(want[0].abs().max())
                 if not lib_rel <= 10 * tol:
                     fail(f"{name} {label} {tag}: the library call computes "
                          f"another function ({lib_rel:.3e} of max|plain|)")
-            k_ms = timed(kern)
+            k_ms = timed(kern_t)
             p_ms = timed(plain)
             l_ms = timed(library) if library is not None else None
             b_ms, bound_by = kernels.bound_ms(work, dtype)
-            k_dev, l_dev = device_us(kern), None
+            k_dev, l_dev = device_us(kern_t), None
             if library is not None:
                 l_dev = device_us(library)
-            say(f"phase 3 {name:18s} {tag} {label:36s} max_abs_err={err:.3e} "
+            say(f"phase 3 {name:21s} {tag} {label:36s} max_abs_err={err:.3e} "
                 f"rel={rel:.3e} "
                 f"kernel_us={k_ms * 1e3:.1f} plain_us={p_ms * 1e3:.1f} "
                 f"library_us={'none' if l_ms is None else f'{l_ms * 1e3:.1f}'} "
@@ -676,6 +791,29 @@ def main():
                     f"{m_ms * 1e3:.1f} us ({m_by}); torch.bmm on the prebuilt "
                     f"one-hot, 50 calls between one pair of events: "
                     f"{lb_ms * 1e3:.1f} us a call")
+
+    # eight subcycles of the two mEVP kernels against eight of the plain
+    # version, from the ice state after one coupled step
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        tab, uv0, sig0, cap = ice_tables[dtype]
+        uv_k, sig_k = uv0.clone(), sig0.clone()
+        uv_p, sig_p = uv0, sig0
+        for _ in range(8):
+            uv_k, sig_k = evp.mevp_subcycle(uv_k, sig_k, tab, cap)
+            uv_p, sig_p = evp.mevp_subcycle_plain(uv_p, sig_p, tab, cap)
+        torch.cuda.synchronize()
+        rel = {k: max_abs(a, b) / float(b.abs().max())
+               for k, a, b in (("uv", uv_k, uv_p), ("sig", sig_k, sig_p))}
+        bitwise = torch.equal(uv_k, uv_p) and torch.equal(sig_k, sig_p)
+        moved = float((uv_p - uv0).abs().max())
+        say(f"phase 3 mevp 8 subcycles {str(dtype).replace('torch.', '')}: "
+            f"kernels vs plain uv {rel['uv']:.3e} sig {rel['sig']:.3e} of "
+            f"max|plain|, bit-equal: {bitwise}; the velocities moved by "
+            f"{moved:.3e} m/s")
+        if not (max(rel.values()) <= tol and moved > 0.0
+                and torch.isfinite(uv_k).all() and torch.isfinite(sig_k).all()):
+            fail(f"phase 3: 8 mEVP subcycles, kernels vs plain {rel} "
+                 f"(tol {tol})")
 
     # the three gather kernels on both numberings of the level-7 globe:
     # held against plain on the subdivision numbering too, then timed in
@@ -973,8 +1111,8 @@ def main():
         cfg.dyn.w_max_cfl = w_max_cfl
         port_model.DENSE_SSH_MAX_NODES = limit
         try:
-            on_gpu = setup_pi_model(small, device=dev, cfg=cfg)
-            on_cpu = setup_pi_model(small, device="cpu", cfg=cfg)
+            on_gpu, _ = setup_pi_model(small, device=dev, cfg=cfg)
+            on_cpu, _ = setup_pi_model(small, device="cpu", cfg=cfg)
         finally:
             port_model.DENSE_SSH_MAX_NODES = dense_max_saved
         s_gpu = run_pi_ocean(on_gpu, *globe_ocean_inputs(on_gpu), 5)
@@ -995,6 +1133,150 @@ def main():
             if not rel <= tol:
                 fail(f"phase 11: {label} {name} card vs CPU {rel:.3e} > {tol}")
 
+    # phase 12 -----------------------------------------------------------
+    ice_kernels = ("elem_contrib_to_nodes", "mevp_stress", "mevp_node")
+    coupled_kernels = ci_kernels + ice_kernels
+    atm64 = gatm[torch.float64]
+    sub64 = m64.ice_sub
+    step64 = pi_coupled_step_fn(m64, atm64)
+    st, ice = pi_initial_state(m64)
+    ice0 = ice
+    area = gmesh.area[0]
+    kernels.reset_launches()
+    iters, hbar_expected = [], 0.0
+    t0 = time.perf_counter()
+    for k in range(20):
+        st, ice, oforc = step64(st, ice, k)
+        iters.append(m64.ssh_iters)
+        # what the water flux handed to the ocean adds to the mean surface
+        hbar_expected = hbar_expected - m64.cfg.dt * (
+            oforc.water_flux * area).sum() / area.sum()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in coupled_kernels}
+    say(f"phase 12 coupled CI step, 20 steps float64: {wall:.3f} s, CG "
+        f"iterations per step {iters}, launches {launches}")
+    per_coupled_step = {k: v / 20 for k, v in launches.items()}
+    say(f"phase 12 launches per coupled step {per_coupled_step}")
+    check_globe("phase 12", m64, st, launches, float(hbar_expected))
+    for name in ("u_ice", "v_ice", "m_ice", "a_ice", "m_snow", "sigma11",
+                 "sigma12", "sigma22", "t_skin", "net_heat_flux",
+                 "fresh_wa_flux"):
+        if not torch.isfinite(getattr(ice, name)).all():
+            fail(f"phase 12: ice.{name} is not finite")
+    info = step_info(st, gmesh, ice)
+    outside = int(((ice.a_ice > 0) & ~sub64.node_mask).sum())
+    say(f"phase 12 ice after 20 steps: a_ice in [{float(ice.a_ice.min()):.4f}, "
+        f"{info['aice_max']:.4f}], nodes with ice {int((ice.a_ice > 0).sum())} "
+        f"(at the start {int((ice0.a_ice > 0).sum())}), area "
+        f"{info['ice_area']:.6e} m^2, volume {info['ice_volume']:.6e} m^3, "
+        f"max m_ice {info['hice_max']:.4f} m, min m_snow "
+        f"{float(ice.m_snow.min()):.3e}, max|u_ice| {info['uice_max']:.4f} "
+        f"m/s, max|sigma| {float(ice.sigma11.abs().max()):.3e}, nodes with "
+        f"ice outside the subdomain {outside}")
+    if not (float(ice.a_ice.min()) >= 0.0 and info["aice_max"] <= 1.0
+            and float(ice.m_ice.min()) >= 0.0
+            and float(ice.m_snow.min()) >= 0.0):
+        fail("phase 12: ice concentration, thickness or snow out of range")
+    if not info["aice_max"] > 0.5:
+        fail("phase 12: no node with a_ice > 0.5")
+    uice = max(info["uice_max"], float(ice.v_ice.abs().max()))
+    if not 0.0 < uice < 3.0:
+        fail(f"phase 12: max|u_ice| {uice} outside (0, 3) m/s")
+    if outside or ice_outside_subdomain(ice, m64):
+        fail(f"phase 12: ice at {outside} nodes outside the EVP subdomain")
+    for k in ("mevp_stress", "mevp_node"):
+        if per_coupled_step[k] != m64.cfg.ice.evp_rheol_steps:
+            fail(f"phase 12: {k} launched {per_coupled_step[k]} times a "
+                 f"step, not {m64.cfg.ice.evp_rheol_steps}")
+    for k in ice_kernels:
+        path_launches[k] = launches[k]
+
+    cruns = {}
+    for dtype, m in gm.items():
+        s_, i_ = pi_initial_state(m)
+        s_, i_ = run_pi(m, gatm[dtype], s_, i_, 2)
+        cruns[dtype] = [m, s_, i_, 2]
+    for _ in range(2):
+        for dtype in (torch.float32, torch.float64):
+            mdl, s_, i_, k0 = cruns[dtype]
+            n = 10
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_, i_ = run_pi(mdl, gatm[dtype], s_, i_, n, first_step=k0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cruns[dtype][1:] = [s_, i_, k0 + n]
+            if not (torch.isfinite(s_.eta).all()
+                    and torch.isfinite(i_.u_ice).all()):
+                fail("phase 12: eta or u_ice is not finite")
+            say(f"phase 12 throughput {str(dtype).replace('torch.', '')}: "
+                f"{n / wall:.3f} coupled steps/s, {wet * n / wall:.6e} wet "
+                f"node-levels/s ({wet} wet node-levels; {card})")
+    for dtype, (mdl, s_, i_, k0) in cruns.items():
+        profile_steps("phase 12", mdl, s_, 3, card,
+                      run=lambda m, st_, k, a=gatm[dtype], i=i_, k0=k0:
+                      run_pi(m, a, st_, i, k, first_step=k0),
+                      also=("mevp", "elem_contrib", "elem_to_node_mean"))
+    # the subcycle loop of one step: 120 subcycles with the kernels (as the
+    # step runs them) and with mevp_subcycle_plain called directly
+    n_sub = m64.cfg.ice.evp_rheol_steps
+    for dtype in (torch.float64, torch.float32):
+        tab, uv0, sig0, cap = ice_tables[dtype]
+
+        def loop(subcycle, uv=uv0, sig=sig0, tab=tab, cap=cap):
+            uv, sig = uv.clone(), sig.clone()
+            for _ in range(n_sub):
+                uv, sig = subcycle(uv, sig, tab, cap)
+            return uv
+        k_ms = timed(lambda: loop(evp.mevp_subcycle), reps=5, warmup=1)
+        p_ms = timed(lambda: loop(evp.mevp_subcycle_plain), reps=3, warmup=1)
+        say(f"phase 12 subcycle loop {str(dtype).replace('torch.', '')}: "
+            f"{n_sub} subcycles take {k_ms:.3f} ms a step with the kernels "
+            f"({2 * n_sub} launches) and {p_ms:.3f} ms with "
+            f"mevp_subcycle_plain ({card})")
+
+    # phase 13 -----------------------------------------------------------
+    for label, limit in (("dense", dense_max_saved), ("CG forced", 0)):
+        port_model.DENSE_SSH_MAX_NODES = limit
+        try:
+            on_gpu, atm_gpu = setup_pi_model(small, device=dev)
+            on_cpu, atm_cpu = setup_pi_model(small, device="cpu")
+        finally:
+            port_model.DENSE_SSH_MAX_NODES = dense_max_saved
+        kernels.reset_launches()
+        s_gpu, i_gpu = run_pi(on_gpu, atm_gpu, *pi_initial_state(on_gpu), 3)
+        n_evp = kernels.LAUNCHES["mevp_node"]
+        s_cpu, i_cpu = run_pi(on_cpu, atm_cpu, *pi_initial_state(on_cpu), 3)
+        say(f"phase 13 level-3 globe ({on_cpu.mesh.n_nodes} nodes, subdomain "
+            f"{on_cpu.ice_sub.n_nodes}), {label}: CG iterations of the 3rd "
+            f"step card {on_gpu.ssh_iters}, cpu {on_cpu.ssh_iters}; nodes "
+            f"with ice {int((i_cpu.a_ice > 0).sum())}, max|u_ice| "
+            f"{float(i_cpu.u_ice.abs().max()):.4e}, mevp_node launches on "
+            f"the card {n_evp}")
+        if kernels.LAUNCHES["mevp_node"] != n_evp or n_evp != 3 * n_sub:
+            fail("phase 13: the CPU path launched a kernel, or the card's "
+                 "path did not")
+        if not (float(i_cpu.a_ice.max()) > 0.5
+                and float(i_cpu.u_ice.abs().max()) > 0.0
+                and float(i_cpu.sigma11.abs().max()) > 0.0):
+            fail(f"phase 13: {label}: no moving ice under stress")
+        for obj_gpu, obj_cpu, names in (
+                (s_gpu, s_cpu, ("u", "v", "eta", "hbar", "tr", "w", "Kv",
+                                "hnode", "fer_u")),
+                (i_gpu, i_cpu, ("u_ice", "v_ice", "m_ice", "a_ice", "m_snow",
+                                "sigma11", "sigma12", "sigma22", "t_skin",
+                                "net_heat_flux", "fresh_wa_flux"))):
+            for name in names:
+                ref = getattr(obj_cpu, name)
+                rel = max_abs(getattr(obj_gpu, name).cpu(), ref) \
+                    / float(ref.abs().max())
+                say(f"phase 13 {label} card vs cpu {name}: {rel:.3e} of "
+                    f"max|cpu|")
+                if not rel <= 1e-8:
+                    fail(f"phase 13: {label} {name} card vs CPU {rel:.3e} "
+                         f"> 1e-8")
+
     # result -------------------------------------------------------------
     sources = {"node_edge_reduce": "fesom2_tpu/core/ops.py:154",
                "elem_to_node_mean": "fesom2_tpu/core/ops.py:328",
@@ -1005,11 +1287,15 @@ def main():
                "window_gather": "scripts/gather_cost_model.py:115",
                "onehot_gather": "scripts/gather_cost_model.py:148",
                "pressure_bv": "fesom2_tpu/core/eos.py:88",
-               "kpp_column": "fesom2_tpu/core/mixing/kpp.py:157"}
+               "kpp_column": "fesom2_tpu/core/mixing/kpp.py:157",
+               "elem_contrib_to_nodes": "fesom2_tpu/core/ops.py:283",
+               "mevp_stress": "fesom2_tpu/ice/evp.py:85",
+               "mevp_node": "fesom2_tpu/ice/evp.py:106"}
     say(json.dumps({"numbering_device_us": numbering_us}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
-         "source": f"fesom2_tpu_torch/csrc/{k}.cu",
+         "source": "fesom2_tpu_torch/csrc/"
+         + kernels.SOURCES.get(k, f"{k}.cu"),
          "replaces": sources[k], "launches": path_launches[k],
          "max_abs_err": summary[k]["max_abs_err"],
          "ms": summary[k]["ms"], "plain_ms": summary[k]["plain_ms"],
@@ -1021,6 +1307,7 @@ def main():
          "device_ms": summary[k]["device_ms"],
          "library_device_ms": summary[k]["library_device_ms"],
          "launches_per_step": per_step.get(k),
+         "launches_per_coupled_step": per_coupled_step.get(k),
          "launches_per_cg_iteration": per_cg_iteration.get(k)}
         for k in kernels.KERNELS]}))
     say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")

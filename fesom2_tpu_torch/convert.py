@@ -4,6 +4,10 @@ port's dataclasses of tensors.
     state = state_from_numpy({f.name: np.asarray(getattr(s, f.name))
                               for f in dataclasses.fields(s)}, device, dtype)
     ring = tables_from(ssh.RingALE, jax_ring, device, dtype)
+
+The ice state, the ice forcing, an atmosphere and the ice subdomain cross
+the same way (``ice_state_from_numpy``, ``ice_forcing_from_numpy``,
+``atm_from_numpy``, ``ice_subdomain_from_numpy``).
 """
 from __future__ import annotations
 
@@ -13,6 +17,9 @@ import numpy as np
 import torch
 
 from .core.state import OceanState, Forcing
+from .forcing.atmos import AtmData
+from .ice.state import IceForcing, IceState
+from .ice.subdomain import IceSubdomain
 from .mesh import MeshTables
 from .mesh.cluster import build_cluster_tables
 
@@ -44,6 +51,30 @@ def state_from_numpy(arrays: dict, device, dtype=torch.float64) -> OceanState:
 
 def forcing_from_numpy(arrays: dict, device, dtype=torch.float64) -> Forcing:
     return _from_numpy(Forcing, arrays, device, dtype)
+
+
+def ice_state_from_numpy(arrays: dict, device,
+                         dtype=torch.float64) -> IceState:
+    return _from_numpy(IceState, arrays, device, dtype)
+
+
+def ice_forcing_from_numpy(arrays: dict, device,
+                           dtype=torch.float64) -> IceForcing:
+    return _from_numpy(IceForcing, arrays, device, dtype)
+
+
+def atm_from_numpy(arrays: dict, device, dtype=torch.float64) -> AtmData:
+    """AtmData from {field name: array}: the series [T, N], their time axes
+    [T] in seconds and the runoff [N] (``mesh.globe.globe_atm_fixtures``
+    gives such a dict)."""
+    return _from_numpy(AtmData, arrays, device, dtype)
+
+
+def ice_subdomain_from_numpy(arrays: dict, device,
+                             dtype=torch.float64) -> IceSubdomain:
+    """IceSubdomain from {field name: array or int}, the JAX package's
+    ``ice.subdomain.IceSubdomain`` field for field."""
+    return _from_numpy(IceSubdomain, arrays, device, dtype)
 
 
 def mesh_from_numpy(arrays: dict, device, dtype=torch.float64) -> MeshTables:

@@ -6,10 +6,11 @@ The port of ``fesom2_tpu/core/ops.py``.  Layout is levels-major
 mesh's int32 tables padded with -1, and every padded index is clamped or
 skipped before it is read.
 
-Three operators run a hand-written CUDA kernel on a CUDA tensor
+Four operators run a hand-written CUDA kernel on a CUDA tensor
 (``csrc/``): ``edge_divergence`` and ``edge_signed_reduce2``
 (node_edge_reduce), ``elem_to_node_mean`` and ``elem_to_node_mean_flat``
-(elem_to_node_mean), ``tridiag_solve``.  Beside each is its plain torch
+(elem_to_node_mean), ``elem_contrib_to_nodes`` and its ``_3e`` form,
+``tridiag_solve``.  Beside each is its plain torch
 version (``*_plain``), which the wrapper uses for a CPU tensor and nowhere
 else: a CUDA tensor goes through the kernel or the call raises.
 """
@@ -250,6 +251,87 @@ def elem_to_node_mean_flat(xs: torch.Tensor, mesh: MeshTables) -> torch.Tensor:
     if xs.device.type == "cpu":
         return elem_to_node_mean_flat_plain(xs, mesh)
     return _elem_to_node_mean_flat(xs, mesh)
+
+
+# --------------------------------------------------------------------------
+# FEM node assembly (kernel elem_contrib_to_nodes)
+# --------------------------------------------------------------------------
+def _contrib_index(mesh, vertex_major: bool):
+    """Where node n finds, in a row of contrib flattened, the value its
+    k-th adjacent element adds to it: (index [N, K] long, 0 at padded
+    slots; valid [N, K]).  ``mesh`` is the mesh or the ice subdomain."""
+    nie = mesh.nod_in_elem.long()
+    valid = nie >= 0
+    safe = torch.where(valid, nie, 0)
+    slot = mesh.nod_in_elem_slot.long()
+    idx = slot * mesh.n_elems + safe if vertex_major else safe * 3 + slot
+    return torch.where(valid, idx, 0), valid
+
+
+def slot_order_sum(flat: torch.Tensor, idx: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """sum_k valid[n, k] ? flat[..., idx[n, k]] : 0, added in the order
+    k = 0..K-1 (the order of the kernels and of the JAX package's reduce
+    over its slot axis; ``torch.sum`` over the slots may add otherwise)."""
+    out = None
+    for k in range(idx.shape[1]):
+        v = torch.where(valid[:, k], flat[..., idx[:, k]], 0.0)
+        out = v if out is None else out + v
+    return out
+
+
+def elem_contrib_to_nodes_plain(contrib: torch.Tensor, mesh,
+                                vertex_major: bool = False) -> torch.Tensor:
+    flat = contrib.reshape(contrib.shape[:-2] + (-1,))
+    return slot_order_sum(flat, *_contrib_index(mesh, vertex_major))
+
+
+def elem_contrib_to_nodes_work(rows: int, n_elems: int, n_nodes: int,
+                               k_max: int, itemsize: int) -> tuple:
+    """(bytes, flops) of one call on contrib [rows, 3 E]: contrib, the two
+    [N, K] int32 tables, the output [rows, N]; an add per slot."""
+    nbytes = (rows * (3 * n_elems + n_nodes) * itemsize
+              + 2 * n_nodes * k_max * 4)
+    return nbytes, k_max * rows * n_nodes
+
+
+def _elem_contrib_to_nodes(contrib: torch.Tensor, mesh,
+                           vertex_major: bool) -> torch.Tensor:
+    if contrib.device.type == "cpu":
+        return elem_contrib_to_nodes_plain(contrib, mesh, vertex_major)
+    kernels.cuda_only(contrib, "elem_contrib_to_nodes")
+    dev, dt = contrib.device, contrib.dtype
+    E = mesh.n_elems
+    N, K = mesh.nod_in_elem.shape
+    want = (3, E) if vertex_major else (E, 3)
+    if tuple(contrib.shape[-2:]) != want:
+        raise ValueError(f"contrib: trailing shape {tuple(contrib.shape[-2:])}"
+                         f", expected {want}")
+    flat = contrib.reshape(-1, 3 * E).contiguous()
+    R = flat.shape[0]
+    kernels.require(flat, "contrib", (R, 3 * E), dt, dev)
+    kernels.require(mesh.nod_in_elem, "nod_in_elem", (N, K), torch.int32, dev)
+    kernels.require(mesh.nod_in_elem_slot, "nod_in_elem_slot", (N, K),
+                    torch.int32, dev)
+    out = torch.empty((R, N), dtype=dt, device=dev)
+    kernels.launch("elem_contrib_to_nodes", dev, flat, R, E,
+                   mesh.nod_in_elem, mesh.nod_in_elem_slot, N, K,
+                   int(vertex_major), out, kernels.float_code(dt))
+    return out.reshape(contrib.shape[:-2] + (N,))
+
+
+def elem_contrib_to_nodes(contrib: torch.Tensor, mesh) -> torch.Tensor:
+    """Accumulate per-(element, local vertex) contributions onto nodes:
+    contrib [..., E, 3] is what element e adds to its k-th vertex; returns
+    [..., N].  Each node pulls from its adjacent elements through
+    ``nod_in_elem`` and its own slot within each (``nod_in_elem_slot``), in
+    slot order; no scatter.  ``mesh`` is the mesh or the ice subdomain."""
+    return _elem_contrib_to_nodes(contrib, mesh, vertex_major=False)
+
+
+def elem_contrib_to_nodes_3e(contrib: torch.Tensor, mesh) -> torch.Tensor:
+    """``elem_contrib_to_nodes`` for contrib [..., 3, E] (vertex-major)."""
+    return _elem_contrib_to_nodes(contrib, mesh, vertex_major=True)
 
 
 # --------------------------------------------------------------------------

@@ -18,7 +18,10 @@ import torch
 
 KERNELS = ("node_edge_reduce", "elem_to_node_mean", "tridiag_solve",
            "fct_bounds", "ring_spmv", "block_schwarz", "window_gather",
-           "onehot_gather", "pressure_bv", "kpp_column")
+           "onehot_gather", "pressure_bv", "kpp_column",
+           "elem_contrib_to_nodes", "mevp_stress", "mevp_node")
+# the source of each kernel under csrc/, where it is not <name>.cu
+SOURCES = {"mevp_stress": "mevp_subcycle.cu", "mevp_node": "mevp_subcycle.cu"}
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -39,6 +42,9 @@ _ARGTYPES = {
     "onehot_gather": [_P, _P, _I, _I, _I, _I, _P, _P],
     "pressure_bv": [_P] * 7 + [_I, _I, _I, _D, _D] + [_P] * 5 + [_I, _P],
     "kpp_column": [_P] * 15 + [_I] * 3 + [_D] * 8 + [_P] * 4 + [_I, _P],
+    "elem_contrib_to_nodes": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P],
+    "mevp_stress": [_P, _I, _P, _I, _P, _P, _P, _D, _D, _D, _I, _P],
+    "mevp_node": [_P, _I, _P, _I, _P, _P, _I, _P, _D, _D, _D, _D, _I, _P],
 }
 _LIB = None
 BLOCK_THREADS = 256     # threads per block of the one-thread-per-item kernels

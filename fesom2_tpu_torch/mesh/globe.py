@@ -51,6 +51,12 @@ surface forcing from a seed: a latitude and depth profile of T/S with
 of latitude, given directly as model-frame components; a heat flux
 pattern; a water flux with zero area mean; a shortwave pattern.
 
+``globe_atm_fixtures`` gives an atmosphere for the coupled step from a
+seed: a few records of wind, air temperature, humidity, radiation, rain
+and snow on three time axes of different spacing, and a runoff field, in
+place of the NCEP series of the reference's test set, which are not part
+of this repository either.
+
 Everything here is numpy; ``write_globe`` writes the files that both
 packages' ``build_mesh`` read.
 """
@@ -402,3 +408,42 @@ def globe_fixtures(geo_lat, elem_nodes, Z, nlevels_node, area, seed: int = 0):
         heat_flux=-90.0 * np.cos(2.0 * lat) + 20.0 * np.sin(lat),
         water_flux=wf,
         shortwave=260.0 * np.clip(np.cos(lat), 0.0, None) ** 1.5)
+
+
+def globe_atm_fixtures(geo_lat, seed: int = 0, n_records: int = 4) -> dict:
+    """A code-built atmosphere as numpy arrays, from the geographic node
+    latitudes [N] (radians): the fields of ``forcing.atmos.AtmData`` by
+    name, each series smooth in latitude plus seeded noise that differs
+    from record to record.
+
+    ``n_records`` (at least 3) records on each of three time axes that
+    start at 0 s: ``t_wind`` every 6 hours (wind in the model frame, m/s;
+    air temperature in Celsius, below freezing poleward of about 60
+    degrees; specific humidity at 80 % of saturation), ``t_rad`` daily
+    (downward short- and longwave, W m^-2) and ``t_prec`` every 30 days
+    (rain and snow, m/s of water; snow where the air is below freezing);
+    ``runoff`` [N] is constant in time."""
+    if n_records < 3:
+        raise ValueError("n_records must be at least 3")
+    rng = np.random.default_rng(seed)
+    lat = np.asarray(geo_lat, np.float64)
+    N, T = lat.shape[0], n_records
+    c = np.clip(np.cos(lat), 0.0, None)
+    noise = lambda scale: scale * rng.standard_normal((T, N))
+    swing = (1.0 + 0.1 * np.cos(np.arange(T)))[:, None]    # record to record
+    u_wind = 7.0 * np.cos(3.0 * lat)[None, :] * swing + noise(0.5)
+    v_wind = 2.0 * np.sin(2.0 * lat)[None, :] * swing + noise(0.5)
+    tair = (30.0 * c ** 1.5 - 10.6 - 12.0 * np.sin(lat) ** 8)[None, :] \
+        - 1.0 + swing + noise(0.2)
+    shum = 0.8 * 3.8e-3 * np.exp(17.27 * tair / (tair + 237.3))
+    swdn = 300.0 * (c ** 1.5)[None, :] * swing + np.abs(noise(2.0))
+    lwdn = (220.0 + 130.0 * c ** 2)[None, :] * swing + noise(2.0)
+    prec = 1.0e-8 * (0.5 + c ** 2)[None, :] * swing + np.abs(noise(1.0e-10))
+    cold = (30.0 * c ** 1.5 - 10.6 < 0.0)[None, :]
+    snow = np.where(cold, 0.5 * prec, 0.0)
+    axis = lambda step: step * np.arange(T, dtype=np.float64)
+    return dict(u_wind=u_wind, v_wind=v_wind, tair=tair, shum=shum,
+                t_wind=axis(21600.0), swdn=swdn, lwdn=lwdn,
+                t_rad=axis(86400.0), prec=prec, snow=snow,
+                t_prec=axis(30.0 * 86400.0),
+                runoff=2.0e-9 * c ** 2 + 1.0e-10)

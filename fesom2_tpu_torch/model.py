@@ -1,19 +1,24 @@
-"""Top-level model: setup and the ocean step, on one device.
+"""Top-level model: setup, the ocean step and the coupled ocean + ice
+step, on one device.
 
-The port of the ocean step of ``fesom2_tpu/model.py``: the step mirrors
-the reference orchestrator ``oce_timestep_ale`` (``src/oce_ale.F90:
-2521-2799``) with the per-step pre-phase of ``fvom_main.F90:199-268``.
-``Model`` is an ``nn.Module`` whose buffers are the static tables (mesh,
-tracer statics, the soufflet statics where the channel runs, reference
-density, and the SSH solver's: the dense inverse, or the ring operator and
-block preconditioner of the CG solve above ``DENSE_SSH_MAX_NODES``
-nodes); the step runs eagerly on the device those buffers live on.
+The port of ``fesom2_tpu/model.py``: the ocean step mirrors the reference
+orchestrator ``oce_timestep_ale`` (``src/oce_ale.F90:2521-2799``), the
+coupled step the hot loop of ``fvom_main.F90:199-268`` (forcing update ->
+ocean2ice -> ice step -> fluxes to the ocean -> ocean step).  ``Model`` is
+an ``nn.Module`` whose buffers are the static tables (mesh, tracer
+statics, the soufflet statics where the channel runs, reference density,
+the ice subdomain, and the SSH solver's: the dense inverse, or the ring
+operator and block preconditioner of the CG solve above
+``DENSE_SSH_MAX_NODES`` nodes); the step runs eagerly on the device those
+buffers live on.
 
 Two configurations are set up here: the soufflet channel
-(``setup_soufflet_model``) and the ocean of the benched CI configuration
-on a global mesh (``pi_config``, ``setup_pi_model``: zstar with partial
-cells, JM, KPP, GM/Redi, ``w_split``, MFCT/QR4C/FCT, shortwave
-penetration).  Configuration branches outside the port raise
+(``setup_soufflet_model``) and the benched CI configuration on a global
+mesh (``pi_config``, ``setup_pi_model``, ``pi_initial_state``,
+``pi_coupled_step_fn``: zstar with partial cells, JM, KPP, GM/Redi,
+``w_split``, MFCT/QR4C/FCT, shortwave penetration, mEVP sea ice on the
+polar-cap subdomain, FCT ice advection, ice thermodynamics, NCAR bulk
+forcing).  Configuration branches outside the port raise
 NotImplementedError naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
@@ -33,7 +38,13 @@ from .mesh.channel import channel_raw_mesh
 from .core import eos, dynamics, ssh, ale, tracers, gm_redi
 from .core.ops import edge_divergence, take_row
 from .core.state import (OceanState, Forcing, allocate_state, initial_z3d,
-                         init_thickness_linfs)
+                         init_thickness_linfs, zero_forcing)
+from .forcing.atmos import AtmData, update_atm_forcing
+from .ice import coupling as ice_cpl
+from .ice.state import IceState, IceForcing, allocate_ice, zero_ice_forcing
+from .ice.step import ice_timestep
+from .ice.subdomain import IceSubdomain, build_ice_subdomain
+from .mesh.globe import globe_atm_fixtures, globe_fixtures
 from .core.tracer_setup import TracerStatics, build_tracer_statics
 from .core.mixing import kpp, pp as pp_mixing
 from .toy import soufflet
@@ -49,8 +60,15 @@ def check_slice(cfg: ModelConfig) -> None:
     if cfg.run.toy_ocean and cfg.run.which_toy != "soufflet":
         missing.append(f"the toy configuration '{cfg.run.which_toy}' "
                        "(queue 1 item 15)")
-    if cfg.run.use_ice:
-        missing.append("sea ice and the coupled step (items 11-13)")
+    if cfg.run.use_ice and cfg.run.toy_ocean:
+        missing.append("sea ice on a toy channel (item 15)")
+    if cfg.run.use_ice and cfg.ice.whichEVP != 1:
+        missing.append(f"whichEVP={cfg.ice.whichEVP}: standard and adaptive "
+                       "EVP (item 17)")
+    if cfg.run.use_icepack:
+        missing.append("Icepack (item 18)")
+    if cfg.run.use_global_tides:
+        missing.append("the tidal potential (item 19)")
     if cfg.run.use_cavity:
         missing.append("ice-shelf cavities (item 15)")
     if cfg.ale.which_ALE not in ("linfs", "zstar"):
@@ -88,11 +106,13 @@ class Model(nn.Module):
                  tracer_statics: TracerStatics, density_ref: torch.Tensor,
                  soufflet_statics: Optional[soufflet.SouffletStatics] = None,
                  ssh_dense_inv: Optional[torch.Tensor] = None,
-                 ssh_ring=None, ssh_block_pc=None):
+                 ssh_ring=None, ssh_block_pc=None,
+                 ice_sub: Optional[IceSubdomain] = None):
         """The SSH solve is dense with ``ssh_dense_inv``, else CG with
         ``ssh_ring`` (``ssh.RingOperator`` under linfs, ``ssh.RingALE``
         under zstar) and ``ssh_block_pc`` (``ssh.BlockSchwarz``).
-        ``soufflet_statics`` is given for the soufflet channel only."""
+        ``soufflet_statics`` is given for the soufflet channel only;
+        ``ice_sub`` restricts the EVP subcycles to the polar caps."""
         super().__init__()
         check_slice(cfg)
         if (ssh_dense_inv is None) == (ssh_ring is None
@@ -104,11 +124,14 @@ class Model(nn.Module):
         self._cls = {}
         for prefix, obj in (("mesh", mesh), ("st", tracer_statics),
                             ("sst", soufflet_statics), ("ring", ssh_ring),
-                            ("pc", ssh_block_pc)):
+                            ("pc", ssh_block_pc), ("sub", ice_sub)):
             if obj is not None:
                 self._register(prefix, obj)
         self.register_buffer("density_ref", density_ref)
         self.register_buffer("ssh_dense_inv", ssh_dense_inv)
+        # the surface salinity the SSS relaxation restores to, [N]
+        # (``pi_initial_state`` sets it)
+        self.register_buffer("Ssurf", None)
         # CG iterations of the last step's SSH solve (0 for the dense solve)
         self.ssh_iters = 0
 
@@ -158,6 +181,11 @@ class Model(nn.Module):
     @property
     def ssh_block_pc(self) -> Optional[ssh.BlockSchwarz]:
         return self._group("pc")
+
+    @property
+    def ice_sub(self) -> Optional[IceSubdomain]:
+        """The polar-cap tables of the EVP subcycles, or None (whole mesh)."""
+        return self._group("sub")
 
     @property
     def dtype(self):
@@ -409,6 +437,119 @@ def _tracer_sources(t_expl, state: OceanState, mesh: MeshTables, cfg,
 
 
 # --------------------------------------------------------------------------
+# the coupled ocean + ice step
+# --------------------------------------------------------------------------
+def coupled_step_impl(model: Model, ice_update: bool = True):
+    """Ocean+ice step following the reference hot loop (fvom_main.F90:199-268):
+    ocean2ice -> ice_timestep -> oce_fluxes_mom/oce_fluxes -> ocean step.
+
+    ``ice_update=False`` builds the sequential-ice variant (ice_ave_steps >
+    1, ``fvom_main.F90:231-239``): the ice state is NOT stepped, but the
+    ocean still receives the fluxes computed from the (held) ice state; the
+    ice catches up with ice_dt = ice_ave_steps * dt on update steps.
+
+    Returns impl(state, ice, ocean_forcing, ice_forcing) -> (state, ice,
+    ocean_forcing).  The cavity and Icepack branches of
+    ``fesom2_tpu/model.py:318-413`` are not ported (``check_slice``)."""
+    cfg = model.cfg
+    check_slice(cfg)
+    use_virt_salt = cfg.ale.which_ALE == "linfs"
+
+    def step_impl(state: OceanState, ice: IceState, ocean_forcing: Forcing,
+                  ice_forcing: IceForcing):
+        mesh = model.mesh
+        surf = ice_cpl.ocean2ice(state, mesh)
+        if ice_update:
+            ice = ice_timestep(ice, mesh, ice_forcing, surf, cfg,
+                               use_virt_salt, ref_sss=cfg.tra.ref_sss,
+                               ref_sss_local=cfg.tra.ref_sss_local,
+                               sub=model.ice_sub)
+        with record_function("step.fluxes"):
+            sx, sy = ice_cpl.oce_fluxes_mom(ice, surf, ice_forcing, mesh, cfg)
+            ocean_forcing = replace(ocean_forcing, stress_x=sx, stress_y=sy)
+            ocean_forcing = ice_cpl.oce_fluxes(
+                ice, surf, ice_forcing, ocean_forcing, mesh, cfg,
+                use_virt_salt, Ssurf=model.Ssurf, ref_sss=cfg.tra.ref_sss,
+                ref_sss_local=cfg.tra.ref_sss_local)
+            # ice fields + atm stress for Monin-Obukhov mixing
+            # (oce_mo_conv.F90)
+            ocean_forcing = replace(
+                ocean_forcing, stress_atm_x=ice_forcing.stress_atmoce_x,
+                stress_atm_y=ice_forcing.stress_atmoce_y,
+                u_ice=ice.u_ice, v_ice=ice.v_ice, a_ice=ice.a_ice,
+                thdgr=ice.thdgr, m_ice=ice.m_ice, m_snow=ice.m_snow)
+            # shortwave penetration below open water
+            # (ref ice_oce_coupling.F90:338)
+            sw_3d = None
+            if cfg.run.use_sw_pene:
+                sw_3d, dheat = tracers.shortwave_penetration(
+                    ice_forcing.shortwave, ice.a_ice, state.zbar_3d, mesh,
+                    cfg.ice.albw)
+                ocean_forcing = replace(
+                    ocean_forcing, heat_flux=ocean_forcing.heat_flux + dheat)
+        state = model(state, ocean_forcing, sw_3d)
+        return state, ice, ocean_forcing
+
+    return step_impl
+
+
+def coupled_step_fn(model: Model):
+    """Public coupled step: step(state, ice, ocean_forcing, ice_forcing)
+    -> (state, ice, ocean_forcing), without gradients."""
+    return torch.no_grad()(coupled_step_impl(model))
+
+
+def pi_coupled_parts(model: Model, atm: AtmData, ice_update: bool = True):
+    """The coupled step with its forcing update, and what it reads beside
+    the model: impl(state, ice, step_idx, SP) -> (state, ice,
+    ocean_forcing), with SP = {"atm", "base_ice_forcing",
+    "base_oce_forcing"} returned alongside.  Model time is step_idx * dt
+    from the start of the forcing's time axes."""
+    cfg = model.cfg
+    check_slice(cfg)
+    coupled = coupled_step_impl(model, ice_update=ice_update)
+
+    def step_impl(state: OceanState, ice: IceState, step_idx, SP):
+        mesh = model.mesh
+        with record_function("step.forcing"):
+            if isinstance(step_idx, torch.Tensor):
+                step_idx = step_idx.to(model.dtype)
+            t_sec = step_idx * cfg.dt
+            surf = ice_cpl.ocean2ice(state, mesh)
+            ice_forcing = update_atm_forcing(
+                SP["atm"], t_sec, ice.u_ice, ice.v_ice, surf.u_w, surf.v_w,
+                surf.T_oc, SP["base_ice_forcing"])
+        return coupled(state, ice, SP["base_oce_forcing"], ice_forcing)
+
+    SP = dict(atm=atm,
+              base_ice_forcing=zero_ice_forcing(model.mesh, model.dtype),
+              base_oce_forcing=zero_forcing(model.mesh, model.dtype))
+    return step_impl, SP
+
+
+def pi_coupled_step_fn(model: Model, atm: AtmData):
+    """Full coupled step with the atmospheric forcing updated on the
+    device: step(state, ice, step_idx) -> (state, ice, ocean_forcing),
+    without gradients; ``step_idx`` is an int (or a 0-d tensor when
+    ``ice_ave_steps`` is 1).
+
+    With ``ice_ave_steps > 1`` (sequential ice, fvom_main.F90:231-239) the
+    ice is stepped when (step_idx + 1) % ice_ave_steps == 0 and held
+    otherwise; the ocean receives the held ice's fluxes."""
+    ave = max(1, int(model.cfg.ice.ice_ave_steps))
+    step_impl, SP = pi_coupled_parts(model, atm)
+    step_hold = pi_coupled_parts(model, atm, ice_update=False)[0] \
+        if ave > 1 else None
+
+    @torch.no_grad()
+    def step(state: OceanState, ice: IceState, step_idx):
+        update = ave == 1 or (int(step_idx) + 1) % ave == 0
+        return (step_impl if update else step_hold)(state, ice, step_idx, SP)
+
+    return step
+
+
+# --------------------------------------------------------------------------
 # setup
 # --------------------------------------------------------------------------
 def soufflet_config(step_per_day: int = 72,
@@ -503,10 +644,9 @@ def pi_config(parity: str = "ci", step_per_day: int = 96) -> ModelConfig:
     ``K_hor=3000``, shortwave penetration, ``force_rotation``).  No other
     parity is ported: any other value raises.
 
-    It keeps ``run.use_ice = True``, as the JAX configuration does.  The
-    port runs the ocean step alone (the ice and the coupled step are ROADMAP
-    queue 1 items 11-13), so the caller sets ``cfg.run.use_ice = False``
-    before ``setup_pi_model``; with ice on, ``check_slice`` raises.
+    The ice is on (mEVP, 120 subcycles, on the subdomain poleward of 40
+    degrees); a caller who wants the ocean alone (``run.run_pi_ocean``)
+    may set ``cfg.run.use_ice = False`` before ``setup_pi_model``.
     """
     if parity != "ci":
         raise ValueError(f"parity must be 'ci', not {parity!r}")
@@ -556,9 +696,11 @@ def pi_config(parity: str = "ci", step_per_day: int = 96) -> ModelConfig:
 
 
 def setup_pi_model(mesh_path: str, *, device, dtype=torch.float64,
-                   cfg: Optional[ModelConfig] = None) -> Model:
-    """The ocean of the global configuration on ``device``, as
-    ``fesom2_tpu/model.py:_finish_pi_setup`` (:849-886) builds it:
+                   step_per_day: int = 96, parity: str = "ci",
+                   cfg: Optional[ModelConfig] = None, atm_seed: int = 0):
+    """The global ocean + ice configuration on ``device``, as
+    ``fesom2_tpu/model.py:setup_pi_model`` and ``_finish_pi_setup``
+    (:764-911) build it.  Returns (Model, AtmData):
 
     1. the mesh tables with ``force_rotation``, a cyclic length of 360
        degrees and the configuration's partial cells;
@@ -566,16 +708,18 @@ def setup_pi_model(mesh_path: str, *, device, dtype=torch.float64,
     3. the unperturbed ``initial_z3d`` and the reference density on its
        mid depths (partial cells move the bottom layer's);
     4. the dense SSH inverse, or the block preconditioner and the ALE
-       ring (linfs: ring) of the CG solve above ``DENSE_SSH_MAX_NODES``.
+       ring (linfs: ring) of the CG solve above ``DENSE_SSH_MAX_NODES``;
+    5. the ice subdomain where ``cfg.ice.evp_subdomain_lat`` is set and
+       the ice is on;
+    6. the atmosphere: no forcing files come with the repository, so the
+       series are built in code on the mesh (``globe_atm_data`` with
+       ``atm_seed``).
 
-    ``cfg`` defaults to ``pi_config()`` with the ice off.  Neither the
-    forcing files nor the ice subdomain are read or built: the port runs
-    the ocean step alone, driven by ``run.run_pi_ocean``.
+    ``cfg`` defaults to ``pi_config(parity, step_per_day)``.
     """
     device = _check_device(device)
     if cfg is None:
-        cfg = pi_config()
-        cfg.run.use_ice = False
+        cfg = pi_config(parity, step_per_day)
     check_slice(cfg)
     mesh = build_mesh(mesh_path, force_rotation=True, cyclic_length_deg=360.0,
                       use_partial_cell=cfg.ale.use_partial_cell,
@@ -584,4 +728,64 @@ def setup_pi_model(mesh_path: str, *, device, dtype=torch.float64,
     tst = build_tracer_statics(mesh, K_hor=cfg.tra.K_hor, dtype=dtype)
     _, Z3 = initial_z3d(mesh, dtype)
     dref = eos.reference_density(mesh, Z3, cfg.dyn.state_equation)
-    return Model(mesh, cfg, tst, dref, **_ssh_solver(mesh, cfg, dtype))
+    sub = None
+    if cfg.run.use_ice and cfg.ice.evp_subdomain_lat is not None:
+        sub = build_ice_subdomain(mesh, lat_deg=cfg.ice.evp_subdomain_lat)
+    model = Model(mesh, cfg, tst, dref, ice_sub=sub,
+                  **_ssh_solver(mesh, cfg, dtype))
+    return model, globe_atm_data(model, seed=atm_seed)
+
+
+def _host(x: torch.Tensor):
+    return x.detach().cpu().numpy()
+
+
+def globe_atm_data(model: Model, seed: int = 0, n_records: int = 4) -> AtmData:
+    """The code-built atmosphere of ``mesh.globe.globe_atm_fixtures`` on
+    ``model``'s mesh, at its dtype and device."""
+    mesh = model.mesh
+    fx = globe_atm_fixtures(_host(mesh.geo_coords[:, 1]), seed=seed,
+                            n_records=n_records)
+    return AtmData(**{k: torch.as_tensor(v, device=mesh.zbar.device)
+                      .to(model.dtype) for k, v in fx.items()})
+
+
+def globe_ocean_fixtures(model: Model, seed: int = 0) -> dict:
+    """``mesh.globe.globe_fixtures`` (T, S and the surface forcing, numpy)
+    on ``model``'s mesh."""
+    mesh = model.mesh
+    return globe_fixtures(_host(mesh.geo_coords[:, 1]), _host(mesh.elem_nodes),
+                          _host(mesh.Z), _host(mesh.nlevels_node),
+                          _host(mesh.area[0]), seed=seed)
+
+
+def pi_initial_state(model: Model, seed: int = 0):
+    """Ocean + ice initial state (``fesom2_tpu/model.py:914-948``): the
+    column at rest with temperature and salinity of the globe fixtures (in
+    place of the WOA18 climatology, which is not in the repository), and
+    the reference's ice_initial_state (``ice_setup_step.F90:284-330``): ice
+    where the surface is colder than 0 C, 1 m (north) or 2 m (south) thick
+    under 0.1 m or 0.5 m of snow, at a concentration of 0.9.  Sets
+    ``model.Ssurf`` (the SSS relaxation's target).  Returns (state, ice)."""
+    mesh = model.mesh
+    dev, dtype = mesh.zbar.device, model.dtype
+    fx = globe_ocean_fixtures(model, seed)
+    state = model.initial_state()
+    tr = state.tr.clone()
+    tr[0] = torch.as_tensor(fx["T"], device=dev).to(dtype)
+    tr[1] = torch.as_tensor(fx["S"], device=dev).to(dtype)
+    state = replace(state, tr=tr, tr_old=tr)
+    model.Ssurf = tr[1, 0].clone()
+
+    ice = allocate_ice(mesh, dtype)
+    cold = tr[0, 0] < 0.0
+    north = mesh.geo_coords[:, 1] > 0
+    const = lambda value: torch.full_like(ice.m_ice, value)
+    ice = replace(
+        ice,
+        m_ice=torch.where(cold, torch.where(north, const(1.0), const(2.0)),
+                          0.0),
+        m_snow=torch.where(cold, torch.where(north, const(0.1), const(0.5)),
+                           0.0),
+        a_ice=torch.where(cold, const(0.9), 0.0))
+    return state, ice

@@ -2,23 +2,31 @@
 
     python -m fesom2_tpu_torch.run soufflet --steps N --device cuda \\
         [--f32] [--mesh DIR]
+    python -m fesom2_tpu_torch.run pi --steps N --device cuda \\
+        [--f32] [--level 7] [--seed 0] [--mesh DIR]
 
-The port of ``fesom2_tpu/run.py:run_soufflet``.  ``--device`` defaults to
-cuda and raises where CUDA is missing; the CPU runs only when asked for
-with ``--device cpu``.  Without ``--mesh`` the default code-built channel
-is used (``mesh/channel.py``).  Output streams are not ported yet
+The port of ``fesom2_tpu/run.py:run_soufflet`` and of the time loop of
+``run_pi``.  ``--device`` defaults to cuda and raises where CUDA is
+missing; the CPU runs only when asked for with ``--device cpu``.  Without
+``--mesh`` the soufflet run uses the default code-built channel
+(``mesh/channel.py``) and the pi run writes the globe of ``--level``
+(``mesh/globe.py``; level 7: 114,033 ocean nodes) into a temporary
+directory.  Output streams, restarts and ``mkrun`` are not ported yet
 (ROADMAP queue 1 item 20).
 
-``run_pi_ocean`` drives the ocean of the global configuration
-(``model.setup_pi_model``) with shortwave penetration and no ice, as the
-coupled step of ``fesom2_tpu/model.py:396-407`` does below open water;
-``globe_ocean_inputs`` gives its initial state and forcing on a mesh of
-``mesh/globe.py``.  The coupled ``pi`` run is not a subcommand yet: it
-needs the ice (ROADMAP queue 1 items 11-13).
+``run_pi`` takes coupled ocean + ice steps of the global configuration
+(``model.setup_pi_model``, ``model.pi_initial_state``,
+``model.pi_coupled_step_fn``) and raises where ice shows up outside the
+EVP subdomain.  ``run_pi_ocean`` drives its ocean alone, with shortwave
+penetration and no ice, as the coupled step of
+``fesom2_tpu/model.py:396-407`` does below open water;
+``globe_ocean_inputs`` gives that run's initial state and forcing on a
+mesh of ``mesh/globe.py``.
 """
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
 from dataclasses import dataclass, replace
 from typing import Dict, Optional
@@ -28,8 +36,18 @@ import torch
 from .core import tracers
 from .core.state import OceanState, Forcing, zero_forcing
 from .mesh import MeshTables
-from .mesh.globe import globe_fixtures
-from .model import Model, setup_soufflet_model
+from .mesh.globe import write_globe
+from .ice.state import IceState
+from .model import (Model, globe_atm_data, globe_ocean_fixtures,
+                    pi_coupled_step_fn, pi_initial_state, setup_pi_model,
+                    setup_soufflet_model)
+
+# the inputs of a run on the code-built globe, under one roof:
+# ``globe_atm_data`` (defined beside ``setup_pi_model``, which needs it)
+# and ``globe_ocean_inputs`` below
+__all__ = ["RunTimers", "step_info", "format_step_info",
+           "ice_outside_subdomain", "run_soufflet", "globe_atm_data",
+           "globe_ocean_inputs", "run_pi_ocean", "run_pi", "main"]
 
 
 @dataclass
@@ -55,8 +73,11 @@ class RunTimers:
         return "\n".join(lines)
 
 
-def step_info(state: OceanState, mesh: MeshTables) -> Dict[str, float]:
-    """Global min/max norms of the prognostic fields."""
+def step_info(state: OceanState, mesh: MeshTables,
+              ice: Optional[IceState] = None) -> Dict[str, float]:
+    """Global min/max norms of the prognostic fields; with ``ice`` also the
+    largest concentration, thickness and drift speed, the ice area [m^2]
+    and the ice volume [m^3]."""
     nmask = mesh.node_layer_mask
     area = mesh.area[0]
     T = state.tr[0][nmask]
@@ -67,7 +88,23 @@ def step_info(state: OceanState, mesh: MeshTables) -> Dict[str, float]:
         state.v.abs().max(), state.w.abs().max(), state.cfl_z.max()])
     names = ("eta_min", "eta_max", "eta_int", "T_min", "T_max", "S_min",
              "S_max", "u_max", "v_max", "w_max", "cfl_z_max")
+    if ice is not None:
+        vals = torch.cat([vals, torch.stack([
+            ice.a_ice.max(), ice.m_ice.max(), ice.u_ice.abs().max(),
+            (ice.a_ice * area).sum(), (ice.m_ice * area).sum()])])
+        names += ("aice_max", "hice_max", "uice_max", "ice_area",
+                  "ice_volume")
     return dict(zip(names, vals.tolist()))
+
+
+def ice_outside_subdomain(ice: IceState, model: Model) -> int:
+    """Nodes with a_ice > 0.01 outside the EVP subdomain (0 without one):
+    the dynamics are frozen there, so any such node means the cap was
+    chosen too tight (``fesom2_tpu/core/diag.py:72-78``)."""
+    sub = model.ice_sub
+    if sub is None:
+        return 0
+    return int(((ice.a_ice > 0.01) & ~sub.node_mask).sum())
 
 
 def format_step_info(info: Dict[str, float], step: int) -> str:
@@ -118,10 +155,7 @@ def globe_ocean_inputs(model: Model, seed: int = 0):
     with seeded noise, zonal wind stress, heat and zero-mean water fluxes,
     the atmospheric stress for the Monin-Obukhov mixing."""
     mesh = model.mesh
-    host = lambda x: x.detach().cpu().numpy()
-    fx = globe_fixtures(host(mesh.geo_coords[:, 1]), host(mesh.elem_nodes),
-                        host(mesh.Z), host(mesh.nlevels_node),
-                        host(mesh.area[0]), seed=seed)
+    fx = globe_ocean_fixtures(model, seed)
     dev, dt = mesh.zbar.device, model.dtype
     put = lambda a: torch.as_tensor(a, device=dev).to(dt)
     state = model.initial_state()
@@ -156,19 +190,74 @@ def run_pi_ocean(model: Model, state: OceanState, forcing: Forcing,
     return state
 
 
+def run_pi(model: Model, atm, state: OceanState, ice: IceState,
+           n_steps: int, *, first_step: int = 0, logfile_outfreq: int = 10,
+           verbose: bool = False, timers: Optional[RunTimers] = None):
+    """``n_steps`` coupled ocean + ice steps of the global configuration
+    from step index ``first_step`` (model time ``first_step * dt``).
+    Prints the step norms every ``logfile_outfreq`` steps when ``verbose``;
+    raises where ice lies outside the EVP subdomain at such a step or at
+    the end.  Returns (state, ice)."""
+    step = pi_coupled_step_fn(model, atm)
+    mesh = model.mesh
+    dev = mesh.zbar.device
+    for k in range(first_step, first_step + n_steps):
+        if timers is None:
+            # no host wait between steps: the host queues the next step's
+            # forcing and ice while the card finishes the ocean's
+            state, ice, _ = step(state, ice, k)
+        else:
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, ice, _ = step(state, ice, k)
+            _sync(dev)
+            timers.step += time.perf_counter() - t0
+            timers.n_steps += 1
+        last = k + 1 == first_step + n_steps
+        if last or (verbose and (k + 1) % logfile_outfreq == 0):
+            outside = ice_outside_subdomain(ice, model)
+            if outside:
+                raise RuntimeError(
+                    f"step {k + 1}: ice at {outside} nodes outside the EVP "
+                    "subdomain: rebuild it with more margin "
+                    "(cfg.ice.evp_subdomain_lat)")
+            if verbose:
+                print(format_step_info(step_info(state, mesh, ice), k + 1),
+                      flush=True)
+    return state, ice
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="fesom2_tpu_torch run driver")
-    p.add_argument("config", choices=["soufflet"])
+    p.add_argument("config", choices=["soufflet", "pi"])
     p.add_argument("--steps", type=int, default=72)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; the CPU only when asked)")
     p.add_argument("--f32", action="store_true")
     p.add_argument("--mesh", default=None,
-                   help="FESOM mesh directory (default: code-built channel)")
+                   help="FESOM mesh directory (default: code-built channel, "
+                        "or the globe of --level)")
+    p.add_argument("--level", type=int, default=7,
+                   help="pi: subdivision level of the code-built globe")
+    p.add_argument("--seed", type=int, default=0,
+                   help="pi: seed of the initial state and the atmosphere")
     args = p.parse_args(argv)
     dtype = torch.float32 if args.f32 else torch.float64
-    run_soufflet(args.steps, device=args.device, dtype=dtype,
-                 mesh_path=args.mesh)
+    if args.config == "soufflet":
+        run_soufflet(args.steps, device=args.device, dtype=dtype,
+                     mesh_path=args.mesh)
+        return
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = args.mesh or write_globe(tmp, level=args.level)
+        model, atm = setup_pi_model(path, device=args.device, dtype=dtype,
+                                    atm_seed=args.seed)
+    state, ice = pi_initial_state(model, seed=args.seed)
+    timers = RunTimers(setup=time.perf_counter() - t_all)
+    state, ice = run_pi(model, atm, state, ice, args.steps, verbose=True,
+                        timers=timers)
+    timers.total = time.perf_counter() - t_all
+    print(timers.report(model.mesh.zbar.device), flush=True)
 
 
 if __name__ == "__main__":

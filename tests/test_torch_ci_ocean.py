@@ -105,7 +105,7 @@ def pair(tmp_path_factory):
     p.path = globe.write_globe(str(tmp_path_factory.mktemp("globe")),
                                level=3, n_layers=12, dz_bottom=1000.0)
     p.cfg = ci_config()
-    p.tm = setup_pi_model(p.path, device="cpu", cfg=p.cfg)
+    p.tm, _ = setup_pi_model(p.path, device="cpu", cfg=p.cfg)
     p.jm = jax_ci_model(p.path, p.cfg)
     p.ts0, p.tf, p.tsw = globe_ocean_inputs(p.tm, seed=0)
     p.js0, p.jf, p.jsw = jax_inputs(p.jm, p.ts0, p.tf, p.tsw)
@@ -122,8 +122,17 @@ def jit(fn, *args):
 
 
 def test_setup_needs_the_ice_off(pair):
+    """The ocean-only model of this file has the ice off and no ice
+    subdomain; with the ice on (``pi_config()`` as it stands) the setup
+    builds the subdomain, and raises only for ice that is not ported."""
+    assert not pair.cfg.run.use_ice and pair.tm.ice_sub is None
     cfg = pi_config()
-    with pytest.raises(NotImplementedError, match="items 11-13"):
+    assert cfg.run.use_ice
+    coupled, atm = setup_pi_model(pair.path, device="cpu", cfg=cfg)
+    assert coupled.ice_sub is not None
+    assert atm.tair.shape[1] == coupled.mesh.n_nodes
+    cfg.ice.whichEVP = 2
+    with pytest.raises(NotImplementedError, match="item 17"):
         setup_pi_model(pair.path, device="cpu", cfg=cfg)
     with pytest.raises(ValueError, match="parity"):
         pi_config(parity="fast")
@@ -334,7 +343,7 @@ def test_three_steps_match_jax_cg_forced(pair):
     dense = (jmodel.DENSE_SSH_MAX_NODES, tmodel.DENSE_SSH_MAX_NODES)
     jmodel.DENSE_SSH_MAX_NODES = tmodel.DENSE_SSH_MAX_NODES = 0
     try:
-        tm = setup_pi_model(p.path, device="cpu", cfg=p.cfg)
+        tm, _ = setup_pi_model(p.path, device="cpu", cfg=p.cfg)
         jm = jax_ci_model(p.path, p.cfg)
     finally:
         jmodel.DENSE_SSH_MAX_NODES, tmodel.DENSE_SSH_MAX_NODES = dense

@@ -2,15 +2,17 @@
 card, at a small size (the channel of 8 x 24 nodes, 10 layers; the gather
 probe at G=16, W=64, T=32, NL=8; the column kernels pressure_bv and
 kpp_column on the level-3 globe with 20 layers, partial cells; the cluster
-kernels elem_to_node_mean and fct_bounds there too, with 19 layers).
+kernels elem_to_node_mean and fct_bounds there too, with 19 layers; the
+sea ice's elem_contrib_to_nodes, mevp_stress and mevp_node on the level-3
+globe and its ice subdomain).
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run on a machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Tolerance: 1e-12 (float64) and 1e-5 (float32) of max|plain|; fct_bounds
-and the two probe kernels bitwise.  ``chip_smoke.py`` makes the same
+Tolerance: 1e-12 (float64) and 1e-5 (float32) of max|plain|; fct_bounds,
+the two probe kernels and the three ice kernels bitwise.  ``chip_smoke.py`` makes the same
 comparison at full size.
 """
 import dataclasses
@@ -304,3 +306,58 @@ def test_column_kernels_match_plain_on_card(tmp_path, rng, dtype, tol):
                     <= tol * float(w.abs().max())
     assert kernels.LAUNCHES["pressure_bv"] == 3
     assert kernels.LAUNCHES["kpp_column"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ice_kernels_equal_plain_on_card(tmp_path, rng, dtype):
+    """elem_contrib_to_nodes in both layouts, on the mesh and on the ice
+    subdomain's tables, and eight mEVP subcycles of mevp_stress and
+    mevp_node, each bit-equal to its plain version (the same slot order
+    and order of operations); a CUDA tensor never takes the plain path."""
+    _need_card()
+    from fesom2_tpu_torch.ice import evp
+    from fesom2_tpu_torch.ice.state import (OceanSurface, allocate_ice,
+                                            zero_ice_forcing)
+    from fesom2_tpu_torch.ice.subdomain import build_ice_subdomain
+    path = globe.write_globe(str(tmp_path), level=3, n_layers=12,
+                             dz_bottom=1000.0)
+    m = build_mesh(path, force_rotation=True, use_partial_cell=True,
+                   device="cuda", dtype=dtype)
+    sub = build_ice_subdomain(m, lat_deg=40.0)
+    put = lambda a: torch.as_tensor(a, device="cuda").to(dtype)
+    kernels.reset_launches()
+    for tables in (m, sub):
+        for vertex_major, fn in ((False, ops.elem_contrib_to_nodes),
+                                 (True, ops.elem_contrib_to_nodes_3e)):
+            E = tables.n_elems
+            x = put(rng.standard_normal((2, 3, E) if vertex_major
+                                        else (2, E, 3)))
+            assert torch.equal(fn(x, tables), ops.elem_contrib_to_nodes_plain(
+                x, tables, vertex_major))
+    assert kernels.LAUNCHES["elem_contrib_to_nodes"] == 4
+    N, E = m.n_nodes, m.n_elems
+    u = lambda lo, hi, n=N: put(rng.uniform(lo, hi, n))
+    ice = dataclasses.replace(
+        allocate_ice(m, dtype), u_ice=u(-0.1, 0.1), v_ice=u(-0.1, 0.1),
+        m_ice=u(0.0, 2.0), a_ice=u(0.0, 1.0), m_snow=u(0.0, 0.3),
+        sigma11=u(-100.0, 100.0, E), sigma12=u(-100.0, 100.0, E),
+        sigma22=u(-100.0, 100.0, E))
+    forcing = dataclasses.replace(zero_ice_forcing(m, dtype),
+                                  stress_atmice_x=u(-0.2, 0.2),
+                                  stress_atmice_y=u(-0.2, 0.2))
+    surf = OceanSurface(T_oc=u(-1.0, 1.0), S_oc=u(33.0, 35.0),
+                        u_w=u(-0.05, 0.05), v_w=u(-0.05, 0.05),
+                        elevation=u(-0.3, 0.3))
+    ice, forcing, surf = evp.subdomain_inputs(ice, sub, forcing, surf)
+    tab = evp.mevp_setup(ice, sub, forcing, surf, pi_config())
+    uv0 = torch.stack([ice.u_ice, ice.v_ice])
+    sig0 = torch.stack([ice.sigma11, ice.sigma12, ice.sigma22])
+    uv_k, sig_k, uv_p, sig_p = uv0.clone(), sig0.clone(), uv0, sig0
+    for _ in range(8):
+        uv_k, sig_k = evp.mevp_subcycle(uv_k, sig_k, tab, sub)
+        uv_p, sig_p = evp.mevp_subcycle_plain(uv_p, sig_p, tab, sub)
+    assert torch.equal(uv_k, uv_p) and torch.equal(sig_k, sig_p)
+    assert float((uv_p - uv0).abs().max()) > 0.0
+    assert kernels.LAUNCHES["mevp_stress"] == kernels.LAUNCHES["mevp_node"] == 8
+    assert N > sub.n_nodes

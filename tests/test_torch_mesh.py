@@ -150,6 +150,11 @@ def test_mesh_and_forcing_from_numpy(meshes):
 def test_port_imports_no_jax():
     code = ("import sys, fesom2_tpu_torch, fesom2_tpu_torch.model, "
             "fesom2_tpu_torch.run, fesom2_tpu_torch.convert, "
+            "fesom2_tpu_torch.ice.state, fesom2_tpu_torch.ice.subdomain, "
+            "fesom2_tpu_torch.ice.coupling, fesom2_tpu_torch.ice.thermo, "
+            "fesom2_tpu_torch.ice.evp, fesom2_tpu_torch.ice.fct, "
+            "fesom2_tpu_torch.ice.step, fesom2_tpu_torch.forcing.bulk, "
+            "fesom2_tpu_torch.forcing.atmos, "
             "fesom2_tpu_torch.scripts.gather_cost_model, "
             "fesom2_tpu_torch.scripts.cluster_kernel_times, "
             "fesom2_tpu_torch.mesh.cluster, "
@@ -157,7 +162,10 @@ def test_port_imports_no_jax():
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fesom2_tpu' "
             "or m.startswith('fesom2_tpu.')]; "
-            "assert not bad, bad")
+            "assert not bad, bad; "
+            "from fesom2_tpu_torch.model import pi_coupled_step_fn, "
+            "pi_initial_state, setup_pi_model; "
+            "from fesom2_tpu_torch.run import run_pi, globe_atm_data")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
