@@ -17,7 +17,9 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    onehot_gather (float32) at its shapes; then, on the full-width global
    mesh of phase 10 (its state after one step), pressure_bv (JM),
    kpp_column (double diffusion off and on) and the step kernels on its
-   varying-depth tables; fct_bounds and the probe kernels bitwise; a
+   varying-depth tables, tridiag_solve at the step's three shapes (a, b,
+   c [L, E], [L + 1, N] and [L, N] with two right-hand sides); fct_bounds,
+   tridiag_solve and the probe kernels bitwise; a
    float32 kpp_column column beyond the tolerance passes only where
    rounding moved the boundary layer's last level, in at most 10 columns
    (or one in 10,000), and is reported; all timed with CUDA events
@@ -90,7 +92,8 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     flux handed to the ocean adds up to), 0 <= a_ice <= 1, m_ice and
     m_snow >= 0, some a_ice > 0.5, 0 < max|u_ice| < 3 m/s, no ice outside
     the subdomain, and every kernel of the path launched (``mevp_stress``
-    and ``mevp_node`` 120 times a step); then throughput in float32 and
+    and ``mevp_node`` 120 times a step, ``pressure_bv`` once and
+    ``tridiag_solve`` four times); then throughput in float32 and
     float64, a 3-step profile per dtype, and the subcycle loop's
     milliseconds per step with the kernels and with
     ``mevp_subcycle_plain`` (information);
@@ -102,7 +105,9 @@ Run from the root of a checkout.  Phases, each reported on its own line:
 
 Any failure exits non-zero before the last line.  Before it come one
 JSON line with the gather kernels' device times on both numberings, one
-with every kernel's launches, error, times, bound and library time, the
+with every kernel's launches, error, times, bound and library time (with
+the device ms a coupled step spends in it, from phase 12's profiles, and
+tridiag_solve's also priced at phase 3's times of its three shapes), the
 seconds the run took and the card; the last line is
 ``{"ok": true, "device": {...}}``.  It needs one card and exits non-zero
 where CUDA is not available.
@@ -204,7 +209,8 @@ def profile_steps(phase: str, model, state, n: int, card: str, run=None,
     ``run_soufflet``): wall and device kernel time, the busy share, the
     kernels per step, the 12 costliest kernels, every kernel whose name
     holds one of ``also``, and the host time of each ``step.*`` span
-    (information, not a gate)."""
+    (information, not a gate).  Returns the device us per step of each
+    CUDA kernel by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
@@ -235,6 +241,7 @@ def profile_steps(phase: str, model, state, n: int, card: str, run=None,
                      and e.device_type == DeviceType.CPU), key=lambda e: e.key):
         say(f"{phase} span {e.key:14s} host {e.cpu_time_total / 1e3 / n:8.3f} "
             f"ms/step")
+    return {e.key: e.self_device_time_total / n for e in kern}
 
 
 def max_abs(a, b):
@@ -436,11 +443,13 @@ def main():
         """pressure_bv's outputs on model m's state st, with m's EoS."""
         L, N = m.mesh.nl - 1, m.mesh.n_nodes
         wet = int(m.mesh.node_layer_mask.sum())
+        def outputs(state):        # one call, five fields
+            return tuple(getattr(state, k) for k in pbv_fields)
         return ("pressure_bv", f"{label} [{L}, {N}]",
-                lambda: tuple(getattr(eos.pressure_bv(
-                    st, m.mesh, m.cfg, m.density_ref), k) for k in pbv_fields),
-                lambda: tuple(getattr(eos.pressure_bv_plain(
-                    st, m.mesh, m.cfg, m.density_ref), k) for k in pbv_fields),
+                lambda: outputs(eos.pressure_bv(st, m.mesh, m.cfg,
+                                                m.density_ref)),
+                lambda: outputs(eos.pressure_bv_plain(st, m.mesh, m.cfg,
+                                                      m.density_ref)),
                 False, eos.pressure_bv_work(L, N, wet, eos._eos_kind(m.cfg),
                                             st.tr.element_size()), None)
 
@@ -552,16 +561,19 @@ def main():
                             xt.shape[1] // L, L, E, N, K, size,
                             ct.mean_tile_elems.numel(), ct.tile_nodes),
                         None if lev else (lambda xt=xt: mean @ xt)))
-        for X in (N, E) if full else (N,):
-            a = rand(L, X, lo=-0.4, hi=0.0, dtype=dtype)
-            c = rand(L, X, lo=-0.4, hi=0.0, dtype=dtype)
-            b = rand(L, X, lo=1.0, hi=2.0, dtype=dtype)
-            d = rand(2, L, X, dtype=dtype)
-            out.append(("tridiag_solve", f"a,b,c {[L, X]} d {[2, L, X]}",
+        # the three shapes of the step: momentum on elements, gm_redi's
+        # nl rows, the tracers' two solves (last: the row of the result)
+        for R, X in ((L, E), (L + 1, N), (L, N)):
+            a = rand(R, X, lo=-0.4, hi=0.0, dtype=dtype)
+            c = rand(R, X, lo=-0.4, hi=0.0, dtype=dtype)
+            b = rand(R, X, lo=1.0, hi=2.0, dtype=dtype)
+            d = rand(2, R, X, dtype=dtype)
+            out.append(("tridiag_solve",
+                        f"{label} a,b,c {[R, X]} d {[2, R, X]}",
                         lambda a=a, b=b, c=c, d=d: ops.tridiag_solve(a, b, c, d),
                         lambda a=a, b=b, c=c, d=d: ops.tridiag_solve_plain(
-                            a, b, c, d), False,
-                        ops.tridiag_solve_work(2, L, X, size), None))
+                            a, b, c, d), True,
+                        ops.tridiag_solve_work(2, R, X, size), None))
         ttf = rand(2, L, N, lo=0.0, hi=30.0, dtype=dtype)
         lo_ = rand(2, L, N, lo=0.0, hi=30.0, dtype=dtype)
         out.append(("fct_bounds", f"ttf,lo {[2, L, N]}",
@@ -768,6 +780,10 @@ def main():
                 f"device: kernel_us={us_text(k_dev)} "
                 f"plain_us={us_text(device_us(plain))} library_us="
                 f"{'none' if library is None else us_text(l_dev)}")
+            if name == "tridiag_solve" and label.startswith("globe"):
+                summary[name].setdefault("shapes", {})[f"{tag} {label}"] = {
+                    "ms": k_ms, "device_ms": k_dev and k_dev / 1e3,
+                    "bound_ms": b_ms, "plain_ms": p_ms}
             if dtype == torch.float64 or name.endswith("_gather"):
                 s = summary[name]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -1189,6 +1205,10 @@ def main():
         if per_coupled_step[k] != m64.cfg.ice.evp_rheol_steps:
             fail(f"phase 12: {k} launched {per_coupled_step[k]} times a "
                  f"step, not {m64.cfg.ice.evp_rheol_steps}")
+    for k, want in (("pressure_bv", 1), ("tridiag_solve", 4)):
+        if per_coupled_step[k] != want:
+            fail(f"phase 12: {k} launched {per_coupled_step[k]} times a "
+                 f"step, not {want}")
     for k in ice_kernels:
         path_launches[k] = launches[k]
 
@@ -1213,11 +1233,24 @@ def main():
             say(f"phase 12 throughput {str(dtype).replace('torch.', '')}: "
                 f"{n / wall:.3f} coupled steps/s, {wet * n / wall:.6e} wet "
                 f"node-levels/s ({wet} wet node-levels; {card})")
-    for dtype, (mdl, s_, i_, k0) in cruns.items():
-        profile_steps("phase 12", mdl, s_, 3, card,
-                      run=lambda m, st_, k, a=gatm[dtype], i=i_, k0=k0:
-                      run_pi(m, a, st_, i, k, first_step=k0),
-                      also=("mevp", "elem_contrib", "elem_to_node_mean"))
+    step_us = {str(dtype).replace("torch.", ""): profile_steps(
+        "phase 12", mdl, s_, 3, card,
+        run=lambda m, st_, k, a=gatm[dtype], i=i_, k0=k0:
+        run_pi(m, a, st_, i, k, first_step=k0),
+        also=("mevp", "elem_contrib", "elem_to_node_mean", "pressure_bv",
+              "tridiag_solve"))
+        for dtype, (mdl, s_, i_, k0) in cruns.items()}
+    # device ms a coupled step spends in each kernel: the self device time
+    # of its __global__ functions in the 3-step profiles above; None where
+    # the profiler kept no event of it
+    functions = {k: (f"::{k}_",) for k in coupled_kernels}
+    functions["block_schwarz"] = ("::local_solve_kernel<",
+                                  "::coarse_solve_kernel<", "::combine_kernel<")
+    step_ms = {tag: {k: sum(v for key, v in us.items()
+                            if any(f in key for f in functions[k])) / 1e3
+                     or None for k in coupled_kernels}
+               for tag, us in step_us.items()}
+    say(f"phase 12 device ms a coupled step per kernel (profile): {step_ms}")
     # the subcycle loop of one step: 120 subcycles with the kernels (as the
     # step runs them) and with mevp_subcycle_plain called directly
     n_sub = m64.cfg.ice.evp_rheol_steps
@@ -1291,6 +1324,21 @@ def main():
                "elem_contrib_to_nodes": "fesom2_tpu/core/ops.py:283",
                "mevp_stress": "fesom2_tpu/ice/evp.py:85",
                "mevp_node": "fesom2_tpu/ice/evp.py:106"}
+    # tridiag_solve's four calls a coupled step priced at phase 3's times
+    # of their shapes (momentum on elements, gm_redi's nl rows, the tracers'
+    # two solves), beside the profile's time
+    L7, N7, E7 = gmesh.nl - 1, gmesh.n_nodes, gmesh.n_elems
+    tri_calls = {(L7, N7): 2, (L7, E7): 1, (L7 + 1, N7): 1}
+    shapes = summary["tridiag_solve"]["shapes"]
+    tri_step = {}
+    for tag in ("float64", "float32"):
+        dev = [shapes[f"{tag} globe a,b,c {[R, X]} d {[2, R, X]}"][
+            "device_ms"] for R, X in tri_calls]
+        if all(v is not None for v in dev):
+            tri_step[tag] = sum(n * v for n, v in zip(tri_calls.values(),
+                                                      dev))
+    say(f"tridiag_solve device ms a coupled step by phase 3's shapes (2 x "
+        f"[2, {L7}, {N7}], [2, {L7}, {E7}], [2, {L7 + 1}, {N7}]): {tri_step}")
     say(json.dumps({"numbering_device_us": numbering_us}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
@@ -1308,7 +1356,11 @@ def main():
          "library_device_ms": summary[k]["library_device_ms"],
          "launches_per_step": per_step.get(k),
          "launches_per_coupled_step": per_coupled_step.get(k),
-         "launches_per_cg_iteration": per_cg_iteration.get(k)}
+         "launches_per_cg_iteration": per_cg_iteration.get(k),
+         "step_device_ms": step_ms["float64"].get(k),
+         "step_device_ms_f32": step_ms["float32"].get(k),
+         **({"shapes": shapes, "shapes_step_device_ms": tri_step}
+            if k == "tridiag_solve" else {})}
         for k in kernels.KERNELS]}))
     say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     say(card)

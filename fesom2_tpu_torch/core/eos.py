@@ -6,8 +6,8 @@ init_ref_density :3024-3069, pressure_bv :106-370, sw_alpha_beta
 :2736-2821).
 
 ``pressure_bv`` runs the hand-written CUDA kernel ``csrc/pressure_bv.cu``
-(one thread per node column) on a CUDA tensor; ``pressure_bv_plain``
-beside it serves CPU tensors only.
+(a 32-node tile over all levels a block, the cells in parallel) on a
+CUDA tensor; ``pressure_bv_plain`` beside it serves CPU tensors only.
 """
 from __future__ import annotations
 

@@ -386,10 +386,9 @@ def tridiag_solve(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     abc = [t.contiguous() for t in (a, b, c)]
     for name, t in zip("abc", abc):
         kernels.require(t, name, (L, X), dt, dev)
-    cp = torch.empty_like(df)
     x = torch.empty_like(df)
     kernels.launch("tridiag_solve", dev, abc[0], abc[1], abc[2], df, B, L, X,
-                   cp, x, kernels.float_code(dt))
+                   x, kernels.float_code(dt))
     return x.reshape(d.shape)
 
 

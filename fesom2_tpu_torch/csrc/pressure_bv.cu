@@ -1,6 +1,6 @@
 // pressure_bv: equation of state, hydrostatic pressure, Brunt-Vaisala
 // frequency, the buoyancy difference to the surface and the mixed-layer
-// depth of each node column, in one sweep down the column.
+// depth of each node column.
 //
 // Replaces fesom2_tpu/core/eos.py:88-175 pressure_bv (without cavities:
 // the surface row is row 0).  The EoS is the split form
@@ -21,12 +21,35 @@
 // level order, as torch.cumsum does, so kernel and plain agree to
 // rounding.
 //
-// Bound on the card: bytes.  Each column reads 6 values per level and
-// writes 4, with about 60 flops per level for the JM polynomials.
-// Design: one thread per node column, as tridiag_solve; at each level a
-// warp reads 32 consecutive nodes of the [L, N] arrays, so every load and
-// store is contiguous.  Below the bottom the inputs are zero or pinned
-// and the outputs are written as zeros.
+// Bound on the card: bytes (6 values a wet cell read, 4 a cell written),
+// with about 165 flops a wet cell under the byte bound.  The first design
+// (one thread per column walking its 47 levels) ran at 2.9x the bound:
+// 3,564 warps on 132 SMs, each thread one chain of loads, JM polynomials
+// and divisions.
+//
+// Design: a block owns a tile of 32 consecutive nodes over all levels;
+// threadIdx.x is the node, so a warp's copies and stores at one level are
+// 32 contiguous values.  Down the column ceil(L / kCells) threads each
+// take a run of kCells consecutive levels.  Each thread stages its cells'
+// inputs into shared memory with cp.async, all at once (dry cells are not
+// read, except level 1 of a one-layer column, whose N^2 the surface copy
+// reads, as in the plain version).  Pass 1, every cell in parallel: the
+// EoS components once, rho, rho * h for the pressure sum, and the cell's
+// densities at its upper and lower interface (N^2 at the interface
+// between k-1 and k needs k-1's components at zbar[k], which cell k-1
+// evaluates, so no component is evaluated twice), written over the
+// inputs they consumed; the surface cell puts its components in shared
+// memory.  Pass 2, after a barrier, every cell: dbsfc with the surface
+// water's components, N^2 from the two interface densities, the bottom
+// and surface copies written by the thread that holds the value (each
+// output row has one writer), and each run's first level crossing the
+// MLD criterion; meanwhile the last run's thread sums the pressure down
+// its column in level order.  After a second barrier that thread takes
+// the first MLD level over the runs.  Registers (64 a thread in float64:
+// 2 blocks of 384 threads an SM) and shared memory (6 L + 5 values a
+// node, 74 KB a block for L = 47 in float64: 3 blocks) limit the blocks an
+// SM holds; each thread's cells run one after another, about 7 divisions
+// and a sqrt each.  L may reach 32 kCells levels (1,024 threads).
 #include "common.cuh"
 
 namespace {
@@ -81,101 +104,206 @@ __device__ T insitu(const Eos<T>& e, T z, T sef) {
   return bulk * e.rhopot / (bulk + T(0.1) * z * sef);
 }
 
+constexpr int kTile = 32;   // nodes per block: threadIdx.x
+constexpr int kCells = 4;   // consecutive levels per thread: threadIdx.y
+
 template <typename T>
-__global__ void pressure_bv_kernel(
+__global__ void __launch_bounds__(1024) pressure_bv_kernel(
     const T* __restrict__ tt, const T* __restrict__ ss,
     const T* __restrict__ Z3, const T* __restrict__ zb3,
     const T* __restrict__ hnode, const T* __restrict__ dref,
     const int* __restrict__ nlevels, int nl, int cols, int kind, T g, T rho0,
     T* __restrict__ rho_out, T* __restrict__ hp_out, T* __restrict__ bv_out,
     T* __restrict__ db_out, T* __restrict__ mld2) {
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= cols) return;
-  const long long N = cols;
+  extern __shared__ __align__(16) unsigned char shared_raw[];
   const int L = nl - 1;
-  const int nln = nlevels[n];
+  const int runs = blockDim.y;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  // the tile's inputs, [L][kTile] each; pass 1 writes over what it has
+  // read: t -> the density at the upper interface, s -> at the lower
+  // one, h -> rho * h, rho_ref -> rho_full
+  T* sT = reinterpret_cast<T*>(shared_raw);
+  T* sS = sT + L * kTile;
+  T* sZ = sS + L * kTile;
+  T* sH = sZ + L * kTile;
+  T* sR = sH + L * kTile;
+  T* sZb = sR + L * kTile;      // interfaces 0..L-1
+  T* e0_s = sZb + L * kTile;    // [4][kTile]: the surface cell's components
+  T* base_s = e0_s + 4 * kTile; // [kTile]: -Z[0] rho[0] g
+  int* mld_s = reinterpret_cast<int*>(base_s + kTile);  // [runs][kTile]
+  const int n = blockIdx.x * kTile + tx;
+  const bool active = n < cols;
+  const long long N = cols;
+  const int nln1 = active ? nlevels[n] - 1 : 0;  // wet layers
+  const int k0 = ty * kCells;
   const T sef = kind == 1 ? T(1) : T(0);
   const T mg = -g;
   const T half_g = T(0.5) * g;  // the constant 0.5 * g, rounded once
+  constexpr int kNone = 1 << 30;
 
-  Eos<T> e0 = eos_components(tt[n], ss[n], kind, rho0);
-  Eos<T> eprev = e0;
-  T rhoh_prev = T(0);   // rho * h of the layer above
-  T hsum = T(0);        // running sum of the pressure increments
-  T hp_base = T(0);
-  T bv1 = T(0);         // bv at interface 1, copied to the surface
-  T bv_prev = T(0);     // the final value of the interface above
-  T db_last = T(0);     // dbsfc of the last wet layer
-  int mld_idx = 0;
-  for (int k = 0; k < L; ++k) {
-    const long long i = k * N + n;
-    const bool wet = k < nln - 1;
-    const T z = Z3[i];
-    Eos<T> e = k == 0 ? e0 : eos_components(tt[i], ss[i], kind, rho0);
-    // density anomaly
-    T rho = wet ? insitu(e, z, sef) - dref[i] : T(0);
-    rho_out[i] = rho;
-    // hydrostatic pressure
-    T rhoh = rho * hnode[i];
-    if (k == 0) {
-      hp_base = ((-z) * rho) * g;
-    } else {
-      hsum = hsum + half_g * (rhoh_prev + rhoh);
+  // stage the cells this thread owns; dry cells are not read, except
+  // level 1 of a one-layer column (its N^2 is the surface copy's)
+  if (active) {
+    for (int i = 0; i < kCells; ++i) {
+      const int k = k0 + i;
+      if (k >= L) break;
+      const long long idx = k * N + n;
+      const int s = k * kTile + tx;
+      const bool wet = k < nln1;
+      if (wet || k == 1) {
+        fesom::cp_async(sT + s, tt + idx);
+        fesom::cp_async(sS + s, ss + idx);
+        fesom::cp_async(sZ + s, Z3 + idx);
+        if (k >= 1) fesom::cp_async(sZb + s, zb3 + idx);
+      }
+      if (wet) {
+        fesom::cp_async(sH + s, hnode + idx);
+        fesom::cp_async(sR + s, dref + idx);
+      }
     }
-    rhoh_prev = rhoh;
-    hp_out[i] = wet ? hp_base + hsum : T(0);
-    // buoyancy difference to the surface water brought to depth z
-    T rho_full = rho + dref[i];
-    T db = mg * (insitu(e0, z, sef) - rho_full) /
-           (rho_full == T(0) ? T(1) : rho_full);
-    db = wet ? db : T(0);
-    if (k <= nln - 1) db_out[i] = (k == nln - 1) ? db_last : db;
-    else db_out[i] = T(0);
-    if (wet) db_last = db;
-    // Brunt-Vaisala frequency at interface k (between layers k-1 and k)
-    if (k >= 1) {
-      const T zi = zb3[i];
-      T ru = insitu(eprev, zi, sef);
-      T rd = insitu(e, zi, sef);
-      T dz_inv = T(1) / (Z3[i - N] - z);
-      T bv = mg * dz_inv * (ru - rd) / rho0;
-      if (k == 1) bv1 = bv;
-      T out;
-      if (k <= nln - 1) out = (k == nln - 1) ? bv_prev : bv;
-      else out = T(0);
-      bv_out[i] = out;
-      bv_prev = out;
-    }
-    // mixed-layer depth: the first level that crosses the criterion
-    if (k >= 1 && mld_idx == 0 &&
-        (!wet || (e.rhopot - e0.rhopot) > T(0.125)))
-      mld_idx = k;
-    eprev = e;
   }
-  // interface 0 copies interface 1; the last interface (k = L) exists
-  // only as the bottom copy of a full column
-  bv_out[n] = bv1;
-  if (nln - 1 == 1) bv_out[N + n] = bv1;  // the bottom copies row 0
-  const long long iL = L * N + n;
-  bv_out[iL] = (nln - 1 == L) ? bv_prev : T(0);
-  db_out[iL] = (nln - 1 == L) ? db_last : T(0);
-  mld2[n] = Z3[(mld_idx > 1 ? mld_idx : 1) * N + n];
+  fesom::cp_async_commit();
+  fesom::cp_async_wait<0>();
+  __syncthreads();
+
+  // pass 1: each cell on its own
+  T rhopot[kCells];
+#pragma unroll
+  for (int i = 0; i < kCells; ++i) {
+    const int k = k0 + i;
+    rhopot[i] = T(0);
+    if (active && k < L) {
+      const int s = k * kTile + tx;
+      const bool wet = k < nln1;
+      T rho = T(0);
+      if (wet || k == 1) {
+        const T z = sZ[s];
+        const Eos<T> e = eos_components(sT[s], sS[s], kind, rho0);
+        rhopot[i] = e.rhopot;
+        T rhoh = T(0);
+        if (wet) {
+          const T dr = sR[s];
+          rho = insitu(e, z, sef) - dr;
+          rhoh = rho * sH[s];
+          sR[s] = rho + dr;
+        }
+        sH[s] = rhoh;
+        // densities at the upper interface (N^2 at interface k) and at
+        // the lower one (N^2 at interface k + 1)
+        if (k >= 1) sT[s] = insitu(e, sZb[s], sef);
+        if (k + 1 < L && (k + 1 < nln1 || k == 0))
+          sS[s] = insitu(e, sZb[s + kTile], sef);
+        if (k == 0) {
+          e0_s[tx] = e.b0;
+          e0_s[kTile + tx] = e.bpz;
+          e0_s[2 * kTile + tx] = e.bpz2;
+          e0_s[3 * kTile + tx] = e.rhopot;
+          base_s[tx] = ((-z) * rho) * g;
+        }
+      }
+      rho_out[k * N + n] = rho;
+    }
+  }
+  __syncthreads();
+
+  if (active) {
+    // the last run sums the pressure down the column, in level order
+    if (ty == runs - 1) {
+      const T base = base_s[tx];
+      T hsum = T(0);
+      for (int k = 0; k < L; ++k) {
+        T hp = T(0);
+        if (k < nln1) {
+          if (k >= 1)
+            hsum = hsum + half_g * (sH[(k - 1) * kTile + tx] +
+                                    sH[k * kTile + tx]);
+          hp = base + hsum;
+        }
+        hp_out[k * N + n] = hp;
+      }
+    }
+    // pass 2
+    Eos<T> e0;
+    e0.b0 = e0_s[tx];
+    e0.bpz = e0_s[kTile + tx];
+    e0.bpz2 = e0_s[2 * kTile + tx];
+    e0.rhopot = e0_s[3 * kTile + tx];
+    int mld = kNone;
+#pragma unroll
+    for (int i = 0; i < kCells; ++i) {
+      const int k = k0 + i;
+      if (k < L) {
+        const int s = k * kTile + tx;
+        const long long idx = k * N + n;
+        const bool wet = k < nln1;
+        // buoyancy difference to the surface water brought to depth z;
+        // row nln-1 copies row nln-2 and is written by its thread
+        T db = T(0);
+        if (wet) {
+          const T rho_full = sR[s];
+          db = mg * (insitu(e0, sZ[s], sef) - rho_full) /
+               (rho_full == T(0) ? T(1) : rho_full);
+        }
+        if (k != nln1) db_out[idx] = db;
+        if (k + 1 == nln1) db_out[idx + N] = db;
+        else if (k == L - 1) db_out[idx + N] = T(0);
+        // N^2 at interface k (between layers k-1 and k)
+        T bv = T(0);
+        if (k >= 1 && (wet || k == 1)) {
+          const T dz_inv = T(1) / (sZ[s - kTile] - sZ[s]);
+          bv = mg * dz_inv * (sS[s - kTile] - sT[s]) / rho0;
+        }
+        if (k == 1) bv_out[n] = bv;  // the surface copies interface 1
+        if (k >= 1 && (k == 1 || k != nln1)) bv_out[idx] = bv;
+        if (k >= 1 && k + 1 == nln1) bv_out[idx + N] = bv;
+        else if (k == L - 1) bv_out[idx + N] = T(0);
+        if (L == 1) bv_out[n] = T(0);
+        // mixed-layer depth: the first level that crosses the criterion
+        if (k >= 1 && mld == kNone &&
+            (!wet || (rhopot[i] - e0.rhopot) > T(0.125)))
+          mld = k;
+      }
+    }
+    mld_s[ty * kTile + tx] = mld;
+  }
+  __syncthreads();
+  if (active && ty == runs - 1) {
+    int first = 0;
+    for (int r = 0; r < runs; ++r) {
+      const int m = mld_s[r * kTile + tx];
+      if (m != kNone) {
+        first = m;
+        break;
+      }
+    }
+    mld2[n] = Z3[(first > 1 ? first : 1) * N + n];
+  }
 }
 
 template <typename T>
-void launch(const void* t, const void* s, const void* Z3, const void* zb3,
-            const void* hnode, const void* dref, const void* nlevels, int nl,
-            int cols, int kind, double g, double rho0, void* rho, void* hp,
-            void* bv, void* db, void* mld2, cudaStream_t stream) {
-  if (cols == 0) return;
-  pressure_bv_kernel<T><<<fesom::blocks_for(cols), fesom::kThreads, 0,
-                          stream>>>(
+cudaError_t launch(const void* t, const void* s, const void* Z3,
+                   const void* zb3, const void* hnode, const void* dref,
+                   const void* nlevels, int nl, int cols, int kind, double g,
+                   double rho0, void* rho, void* hp, void* bv, void* db,
+                   void* mld2, cudaStream_t stream) {
+  const int L = nl - 1;
+  if (cols == 0) return cudaSuccess;
+  const int runs = (L + kCells - 1) / kCells;
+  if (L < 1 || cols < 0 || runs * kTile > 1024) return cudaErrorInvalidValue;
+  const size_t bytes =
+      static_cast<size_t>(6 * L + 5) * kTile * sizeof(T) +
+      static_cast<size_t>(runs) * kTile * sizeof(int);
+  cudaError_t err = fesom::allow_shared(pressure_bv_kernel<T>, bytes);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((cols + kTile - 1) / kTile);
+  pressure_bv_kernel<T><<<grid, dim3(kTile, runs), bytes, stream>>>(
       static_cast<const T*>(t), static_cast<const T*>(s),
       static_cast<const T*>(Z3), static_cast<const T*>(zb3),
       static_cast<const T*>(hnode), static_cast<const T*>(dref),
       static_cast<const int*>(nlevels), nl, cols, kind, static_cast<T>(g),
       static_cast<T>(rho0), static_cast<T*>(rho), static_cast<T*>(hp),
       static_cast<T*>(bv), static_cast<T*>(db), static_cast<T*>(mld2));
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -187,11 +315,13 @@ extern "C" int fesom_pressure_bv(const void* t, const void* s, const void* Z3,
                                  void* rho, void* hp, void* bv, void* db,
                                  void* mld2, int is_double, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_double)
-    launch<double>(t, s, Z3, zb3, hnode, dref, nlevels, nl, cols, kind, g,
-                   rho0, rho, hp, bv, db, mld2, st);
-  else
-    launch<float>(t, s, Z3, zb3, hnode, dref, nlevels, nl, cols, kind, g,
-                  rho0, rho, hp, bv, db, mld2, st);
+  cudaError_t err =
+      is_double ? launch<double>(t, s, Z3, zb3, hnode, dref, nlevels, nl,
+                                 cols, kind, g, rho0, rho, hp, bv, db, mld2,
+                                 st)
+                : launch<float>(t, s, Z3, zb3, hnode, dref, nlevels, nl,
+                                cols, kind, g, rho0, rho, hp, bv, db, mld2,
+                                st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return fesom::last_error();
 }

@@ -32,7 +32,7 @@ _ARGTYPES = {
     "elem_to_node_mean": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                           _I, _P, _I, _P],
     "elem_to_node_mean_flat": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P],
-    "tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
+    "tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     "fct_bounds": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                    _P, _P, _I, _P],
     "ring_spmv": [_P, _P, _P, _I, _I, _P, _I, _P],

@@ -410,6 +410,30 @@ def globe_fixtures(geo_lat, elem_nodes, Z, nlevels_node, area, seed: int = 0):
         shortwave=260.0 * np.clip(np.cos(lat), 0.0, None) ** 1.5)
 
 
+def recut_columns(nlevels_node, nl: int, zbar, Z, depths: dict):
+    """The level counts of a globe with some columns recut, for the column
+    kernels' tests: every 37th node from the 5th keeps one wet layer
+    (``nlevels - 1 == 1``), every 29th from the 11th reaches the full depth
+    (``nlevels - 1 == nl - 1``; the globe leaves its last layer dry) and
+    takes the standard depths in place of its partial cell.
+
+    ``depths`` holds a state's ``Z_3d`` [nl-1, N], ``zbar_3d`` [nl, N] and
+    ``hnode`` [nl-1, N] as numpy arrays; ``zbar`` [nl] and ``Z`` [nl-1] are
+    the standard depths.  Returns (nlevels_node [N], node_layer_mask
+    [nl-1, N], the three depth arrays recut)."""
+    nlev = np.asarray(nlevels_node).copy()
+    nlev[5::37] = 2
+    full = np.zeros(nlev.shape, dtype=bool)
+    full[11::29] = True
+    nlev[full] = nl
+    mask = np.arange(nl - 1)[:, None] < (nlev - 1)[None, :]
+    zbar, Z = np.asarray(zbar), np.asarray(Z)
+    std = {"Z_3d": Z, "zbar_3d": zbar, "hnode": zbar[:-1] - zbar[1:]}
+    return nlev, mask, {k: np.where(full[None, :], v[:, None],
+                                    np.asarray(depths[k]))
+                        for k, v in std.items()}
+
+
 def globe_atm_fixtures(geo_lat, seed: int = 0, n_records: int = 4) -> dict:
     """A code-built atmosphere as numpy arrays, from the geographic node
     latitudes [N] (radians): the fields of ``forcing.atmos.AtmData`` by

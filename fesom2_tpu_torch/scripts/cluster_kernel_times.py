@@ -28,42 +28,15 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
-
-def events_ms(fn, reps: int, warmup: int = 5) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
-
-
-def device_kernels_us(fn, calls: int = 10) -> dict:
-    """Device microseconds per call of each CUDA kernel fn() launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import profile, ProfilerActivity
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:60]: e.self_device_time_total / calls
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+if __package__:
+    from . import timing
+else:                   # run as a file, another checkout leading PYTHONPATH
+    import timing
 
 
 def main(argv=None) -> int:
@@ -87,9 +60,7 @@ def main(argv=None) -> int:
     cluster.TARGET_BLOCKS = args.target_blocks or cluster.TARGET_BLOCKS
     cluster.MIN_PLANES = args.min_planes or cluster.MIN_PLANES
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = timing.card_name()
     dev = torch.device("cuda", 0)
     if not args.channel:
         path = write_globe(f"{args.mesh_dir}_l{args.level}", level=args.level)
@@ -113,53 +84,39 @@ def main(argv=None) -> int:
             return torch.as_tensor(rng.uniform(lo, hi, shape),
                                    device=dev).to(dtype)
 
+        Case = timing.Case
         cases = []
         for rows, lev in ((1, True), (2, True), (4, True), (2, False)):
             x = rand(rows, L, E)
-            cases.append((f"elem_to_node_mean levels={lev} {[rows, L, E]}",
-                          lambda x=x, lev=lev: ops.elem_to_node_mean(
-                              x, mesh, lev),
-                          lambda x=x, lev=lev: ops.elem_to_node_mean_plain(
-                              x, mesh, lev), False))
+            cases.append(Case(
+                lambda x=x, lev=lev: ops.elem_to_node_mean(x, mesh, lev),
+                lambda x=x, lev=lev: ops.elem_to_node_mean_plain(x, mesh, lev),
+                False, {"case": f"elem_to_node_mean levels={lev} "
+                                f"{[rows, L, E]}"}))
         xs = rand(2, E)
-        cases.append((f"elem_to_node_mean flat {[2, E]}",
-                      lambda: ops.elem_to_node_mean_flat(xs, mesh),
-                      lambda: ops.elem_to_node_mean_flat_plain(xs, mesh),
-                      False))
+        cases.append(Case(lambda: ops.elem_to_node_mean_flat(xs, mesh),
+                          lambda: ops.elem_to_node_mean_flat_plain(xs, mesh),
+                          False, {"case": f"elem_to_node_mean flat {[2, E]}"}))
         for ntr in (1, 2):
             ttf, lo_ = rand(ntr, L, N, lo=0, hi=30), rand(ntr, L, N, lo=0,
                                                           hi=30)
             ttf[0, L // 2, N // 2] = float("nan")
-            cases.append((f"fct_bounds {[ntr, L, N]}",
-                          lambda a=ttf, b=lo_: tracers.fct_bounds(a, b, mesh),
-                          lambda a=ttf, b=lo_: tracers.fct_bounds_plain(
-                              a, b, mesh), True))
-        for name, kern, plain, exact in cases:
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            if exact:
-                ok = all(torch.equal(g.isnan(), w.isnan()) and torch.equal(
-                    g.nan_to_num(), w.nan_to_num())
-                    for g, w in zip(got, want))
-                rel = 0.0 if ok else float("inf")
-            else:
-                rel = max(float((g - w).abs().max() / w.abs().max())
-                          for g, w in zip(got, want))
-                ok = rel <= tol
-            print(json.dumps({
-                "label": args.label, "tile": args.tile,
-                "target_blocks": cluster.TARGET_BLOCKS,
-                "min_planes": cluster.MIN_PLANES, "card": card,
-                "case": name,
-                "dtype": str(dtype).replace("torch.", ""),
-                "agrees": ok, "rel_err": rel,
-                "kernel_ms": events_ms(kern, args.reps),
-                "plain_ms": events_ms(plain, max(args.reps // 6, 3), 1),
-                "device_us": device_kernels_us(kern)}), flush=True)
-            if not ok:
-                return 1
+            cases.append(Case(
+                lambda a=ttf, b=lo_: tracers.fct_bounds(a, b, mesh),
+                lambda a=ttf, b=lo_: tracers.fct_bounds_plain(a, b, mesh),
+                True, {"case": f"fct_bounds {[ntr, L, N]}"}))
+
+        def timings(c):
+            return {"kernel_ms": timing.events_ms(c.kern, args.reps),
+                    "plain_ms": timing.events_ms(c.plain,
+                                                 max(args.reps // 6, 3), 1),
+                    "device_us": timing.device_kernels_us(c.kern)}
+        if not timing.run_cases(
+                cases, tol, timings, label=args.label, tile=args.tile,
+                target_blocks=cluster.TARGET_BLOCKS,
+                min_planes=cluster.MIN_PLANES, card=card,
+                dtype=str(dtype).replace("torch.", "")):
+            return 1
     return 0
 
 

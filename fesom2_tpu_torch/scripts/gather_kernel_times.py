@@ -48,7 +48,6 @@ import argparse
 import ctypes
 import importlib.util
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -56,7 +55,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .cluster_kernel_times import device_kernels_us, events_ms
+from .timing import (as_tuple, batch_ms, card_name, device_kernels_us,
+                     events_ms, same_bits)
 
 
 def load_parent_library(root: str) -> ctypes.CDLL:
@@ -116,31 +116,6 @@ def device_us(fn) -> float:
     return sum(device_kernels_us(fn).values())
 
 
-def batch_us(fn, calls: int = 20) -> float:
-    """Microseconds per call over ``calls`` calls between one pair of CUDA
-    events: the device's time where a call outlasts its enqueue, the
-    host's enqueue rate where it does not."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls * 1e3
-
-
-def same_bits(a, b) -> bool:
-    return bool(torch.equal(a.isnan(), b.isnan())
-                and torch.equal(a.nan_to_num(), b.nan_to_num()))
-
-
-def as_tuple(x) -> tuple:
-    return x if isinstance(x, tuple) else (x,)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--level", type=int, default=7)
@@ -164,9 +139,7 @@ def main(argv=None) -> int:
                                  or cluster.ROW_TARGET_BLOCKS)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = card_name()
     dev = torch.device("cuda", 0)
     sink = open(args.out, "w") if args.out else None
     failed = []
@@ -192,7 +165,7 @@ def main(argv=None) -> int:
         out = {"new": [], "old": []}
         for name, fn in runs:
             out[name].append({"device_us": device_us(fn),
-                              "batch_us": batch_us(fn),
+                              "batch_us": batch_ms(fn) * 1e3,
                               "events_us": events_ms(fn, args.reps) * 1e3})
         return out
 
@@ -335,7 +308,7 @@ def main(argv=None) -> int:
         window_gather=in_turns(lambda: probe.window_gather(vals, idx),
                                None)["new"],
         torch_bmm=[{"device_us": device_kernels_us(bmm),
-                    "batch_us": batch_us(bmm, 50),
+                    "batch_us": batch_ms(bmm, 50) * 1e3,
                     "events_us": events_ms(bmm, args.reps) * 1e3}
                    for _ in range(2)],
         **turns)

@@ -12,7 +12,8 @@ so they run on a machine that has only torch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerance: 1e-12 (float64) and 1e-5 (float32) of max|plain|; fct_bounds,
-the two probe kernels and the three ice kernels bitwise.  ``chip_smoke.py`` makes the same
+tridiag_solve, the two probe kernels and the three ice kernels bitwise;
+pressure_bv's mld2 equal in float64.  ``chip_smoke.py`` makes the same
 comparison at full size.
 """
 import dataclasses
@@ -94,7 +95,8 @@ def test_kernels_match_plain_on_card(mesh, rng, dtype, tol):
           ops.elem_to_node_mean_flat_plain(x[0], m))
     a, c = r(NLAY, 50, lo=-0.4, hi=0.0), r(NLAY, 50, lo=-0.4, hi=0.0)
     b, d = r(NLAY, 50, lo=1.0, hi=2.0), r(2, NLAY, 50)
-    check(ops.tridiag_solve(a, b, c, d), ops.tridiag_solve_plain(a, b, c, d))
+    assert torch.equal(ops.tridiag_solve(a, b, c, d),
+                       ops.tridiag_solve_plain(a, b, c, d))
     ttf, lo = r(2, NLAY, m.n_nodes), r(2, NLAY, m.n_nodes)
     got = tracers.fct_bounds(ttf, lo, m)
     want = tracers.fct_bounds_plain(ttf, lo, m)
@@ -361,3 +363,79 @@ def test_ice_kernels_equal_plain_on_card(tmp_path, rng, dtype):
     assert float((uv_p - uv0).abs().max()) > 0.0
     assert kernels.LAUNCHES["mevp_stress"] == kernels.LAUNCHES["mevp_node"] == 8
     assert N > sub.n_nodes
+
+
+def _recut_column_state(tmp_path, rng, dtype):
+    """The level-3 globe with 20 layers on the card, its columns recut to
+    one wet layer (nlevels - 1 == 1) and to the full depth (nlevels - 1 ==
+    L, with the standard depths), T/S of the fixtures: the cases of
+    tests/test_torch_column_kernels.py."""
+    path = globe.write_globe(str(tmp_path), level=3, n_layers=20,
+                             dz_bottom=600.0)
+    m = build_mesh(path, force_rotation=True, use_partial_cell=True,
+                   device="cuda", dtype=dtype)
+    fx = globe.globe_fixtures(*(x.cpu().numpy() for x in (
+        m.geo_coords[:, 1], m.elem_nodes, m.Z, m.nlevels_node, m.area[0])))
+    put = lambda a: torch.as_tensor(a, device="cuda").to(dtype)
+    st = init_thickness_linfs(allocate_state(m, 2, dtype), m)
+    nlev, mask, cut = globe.recut_columns(
+        m.nlevels_node.cpu().numpy(), m.nl, m.zbar.cpu().numpy(),
+        m.Z.cpu().numpy(), {k: getattr(st, k).cpu().numpy()
+                            for k in ("Z_3d", "zbar_3d", "hnode")})
+    st = dataclasses.replace(st, tr=put(np.stack([fx["T"], fx["S"]])),
+                             **{k: put(v) for k, v in cut.items()})
+    m = dataclasses.replace(
+        m, nlevels_node=torch.as_tensor(nlev, dtype=m.nlevels_node.dtype,
+                                        device="cuda"),
+        node_layer_mask=torch.as_tensor(mask, device="cuda"))
+    dref = eos.reference_density(m, initial_z3d(m, dtype)[1], 1)
+    return m, st, dref, nlev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_column_kernel_cases_on_card(tmp_path, rng, dtype, tol):
+    """pressure_bv (JM, linear, soufflet EoS) and tridiag_solve on columns
+    of one wet layer, of the full depth and of the globe's own depths, 501
+    nodes (a ragged last tile); tridiag_solve bitwise with 1, 2 and 3
+    right-hand sides on nodes and elements, nl - 1 rows, nl (gm_redi) and
+    60 (dp in shared memory), identity rows below each column's bottom;
+    pressure_bv within tol of max|plain|, mld2 equal in float64."""
+    _need_card()
+    m, st, dref, nlev = _recut_column_state(tmp_path, rng, dtype)
+    assert m.n_nodes % 32 and m.n_elems % 32
+    kernels.reset_launches()
+    for se, toy in ((1, False), (0, False), (0, True)):
+        cfg = soufflet_config() if toy else pi_config()
+        cfg.dyn.state_equation = se
+        got = eos.pressure_bv(st, m, cfg, dref)
+        want = eos.pressure_bv_plain(st, m, cfg, dref)
+        for name in ("density_m_rho0", "hpressure", "bvfreq", "dbsfc",
+                     "mld2"):
+            g, w = getattr(got, name), getattr(want, name)
+            assert bool(torch.isfinite(w).all()), name
+            assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+        if dtype == torch.float64:
+            assert torch.equal(got.mld2, want.mld2)
+        one = torch.as_tensor(nlev - 1 == 1, device="cuda")
+        assert torch.equal(got.bvfreq[0, one], got.bvfreq[1, one])
+    assert kernels.LAUNCHES["pressure_bv"] == 3
+    put = lambda a: torch.as_tensor(a, device="cuda").to(dtype)
+    # 60 rows: above the 48 levels whose dp the kernel keeps in registers
+    for rows, nl_x in ((m.nl - 1, m.nlevels_node), (m.nl - 1, m.nlevels_elem),
+                       (m.nl, m.nlevels_node), (60, m.nlevels_node)):
+        X = nl_x.shape[0]
+        active = (torch.arange(rows, device="cuda")[:, None]
+                  < (nl_x.long() - 1)[None, :])
+        def draw(lo, hi, lead=(), off=0.0):
+            return torch.where(active, put(rng.uniform(lo, hi, lead + (
+                rows, X))), off)
+        for B in (1, 2, 3):
+            a, c = draw(-0.4, 0.0), draw(-0.4, 0.0)
+            b, d = draw(1.0, 2.0, off=1.0), draw(-1.0, 1.0, (B,))
+            assert torch.equal(ops.tridiag_solve(a, b, c, d),
+                               ops.tridiag_solve_plain(a, b, c, d))
+        x = ops.tridiag_solve(a, b, c, d[0])        # d [L, X]: one rhs
+        assert torch.equal(x, ops.tridiag_solve_plain(a, b, c, d[0]))
+    assert kernels.LAUNCHES["tridiag_solve"] == 16
