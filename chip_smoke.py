@@ -18,7 +18,9 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    mesh of phase 10 (its state after one step), pressure_bv (JM),
    kpp_column (double diffusion off and on) and the step kernels on its
    varying-depth tables, tridiag_solve at the step's three shapes (a, b,
-   c [L, E], [L + 1, N] and [L, N] with two right-hand sides); fct_bounds,
+   c [L, E], [L + 1, N] and [L, N] with two right-hand sides),
+   block_schwarz with the globe's own preconditioner (the coupled step's
+   445 blocks of 368 nodes; the channel's tables before it); fct_bounds,
    tridiag_solve and the probe kernels bitwise; a
    float32 kpp_column column beyond the tolerance passes only where
    rounding moved the boundary layer's last level, in at most 10 columns
@@ -40,9 +42,13 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    that of three bf16 products on the tensor cores, and ``torch.bmm`` is
    also timed over 50 calls between one pair of events; the sea ice's
    three kernels on the level-7 globe after one coupled step:
-   ``elem_contrib_to_nodes`` in both layouts on the whole globe and on the
-   ice subdomain's tables (library call: a CSR product over the same
-   incidence), ``mevp_stress`` and ``mevp_node`` on the subdomain's tables,
+   ``elem_contrib_to_nodes`` at each shape the coupled step launches (the
+   subdomain's one row element-major, the globe's three rows vertex-major
+   and element-major, six rows element-major), each with its calls a step
+   and their sum priced at these times, and the subdomain's vertex-major
+   form, which the step does not launch (library call: a CSR product over
+   the same incidence), ``mevp_stress`` and ``mevp_node`` on the
+   subdomain's tables,
    each against its plain version, then eight subcycles of the two kernels
    against eight of ``mevp_subcycle_plain``;
 4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
@@ -92,9 +98,12 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     flux handed to the ocean adds up to), 0 <= a_ice <= 1, m_ice and
     m_snow >= 0, some a_ice > 0.5, 0 < max|u_ice| < 3 m/s, no ice outside
     the subdomain, and every kernel of the path launched (``mevp_stress``
-    and ``mevp_node`` 120 times a step, ``pressure_bv`` once and
-    ``tridiag_solve`` four times); then throughput in float32 and
-    float64, a 3-step profile per dtype, and the subcycle loop's
+    and ``mevp_node`` 120 times a step, ``pressure_bv`` and ``kpp_column``
+    once, ``tridiag_solve`` four times and ``elem_contrib_to_nodes``
+    eleven times); then throughput in float32 and float64, a 3-step
+    profile per dtype with the launches a step of each kernel counted in
+    it (the same gates) and the CG kernels' device us a launch, and the
+    subcycle loop's
     milliseconds per step with the kernels and with
     ``mevp_subcycle_plain`` (information);
 13. the coupled step card against CPU on the level-3 globe, 3 float64
@@ -106,8 +115,10 @@ Run from the root of a checkout.  Phases, each reported on its own line:
 Any failure exits non-zero before the last line.  Before it come one
 JSON line with the gather kernels' device times on both numberings, one
 with every kernel's launches, error, times, bound and library time (with
-the device ms a coupled step spends in it, from phase 12's profiles, and
-tridiag_solve's also priced at phase 3's times of its three shapes), the
+the device ms a coupled step spends in it, from phase 12's profiles, its
+launches a float64 and a float32 coupled step, and the times of every
+shape of tridiag_solve, elem_contrib_to_nodes, block_schwarz and
+kpp_column, the first two's calls a step also priced at those times), the
 seconds the run took and the card; the last line is
 ``{"ok": true, "device": {...}}``.  It needs one card and exits non-zero
 where CUDA is not available.
@@ -453,6 +464,22 @@ def main():
                 False, eos.pressure_bv_work(L, N, wet, eos._eos_kind(m.cfg),
                                             st.tr.element_size()), None)
 
+    def bs_case(label, m, dtype):
+        """block_schwarz with model m's preconditioner on a random
+        residual; library call: one bmm, the blocks' local solves only."""
+        pc, N = m.ssh_block_pc, m.mesh.n_nodes
+        size = torch.empty((), dtype=dtype).element_size()
+        x = rand(N, dtype=dtype)
+        nb, K = pc.block_ids.shape
+        rb = x[pc.block_ids.long().clamp_min(0)][..., None].contiguous()
+        return ("block_schwarz", f"{label} blocks [{nb}, {K}, {K}] (library: "
+                f"local solves only)",
+                lambda: pc(x),
+                lambda: ssh.block_schwarz_plain(pc, x), False,
+                ssh.block_schwarz_work(N, nb, K, pc.node_slots.shape[1],
+                                       pc.coarse_ids.shape[1], size),
+                lambda: torch.bmm(pc.inv_blocks, rb))
+
     def cg_cases(dtype):
         """The CG path's kernels with the 46k channel's tables; the ring
         values rebuilt from a 0.5 m hbar perturbation, as a step does;
@@ -462,25 +489,17 @@ def main():
         size = torch.empty((), dtype=dtype).element_size()
         hbar_e = rand(m.mesh.n_elems, lo=-0.5, hi=0.5, dtype=dtype)
         op = m.ssh_ring.materialize(hbar_e)
-        pc = m.ssh_block_pc
         N = m.mesh.n_nodes
         x = rand(N, dtype=dtype)
-        nb, K = pc.block_ids.shape
         Kr = op.cols.shape[0]
         ring = csr(torch.arange(N, device=dev).repeat(Kr),
                    op.cols.long().reshape(-1), op.vals.reshape(-1), (N, N))
         xcol = x[:, None].contiguous()
-        rb = x[pc.block_ids.long().clamp_min(0)][..., None].contiguous()
         return [("ring_spmv", f"ring {list(op.cols.shape)}",
                  lambda: op(x),
                  lambda: ssh.ring_spmv_plain(op.cols, op.vals, x), False,
                  ssh.ring_spmv_work(Kr, N, size), lambda: ring @ xcol),
-                ("block_schwarz", f"blocks [{nb}, {K}, {K}]",
-                 lambda: pc(x),
-                 lambda: ssh.block_schwarz_plain(pc, x), False,
-                 ssh.block_schwarz_work(N, nb, K, pc.node_slots.shape[1],
-                                        pc.coarse_ids.shape[1], size),
-                 lambda: torch.bmm(pc.inv_blocks, rb)),
+                bs_case("channel", m, dtype),
                 pbv_case("zstar channel", m, big1[dtype])]
 
     def probe_cases():
@@ -587,12 +606,16 @@ def main():
 
     def globe_cases(dtype):
         """The step kernels on the globe's varying-depth tables, then
-        pressure_bv and kpp_column on its state after one step."""
+        pressure_bv and kpp_column on its state after one step, and
+        block_schwarz with the globe's own preconditioner (the coupled
+        step's; the last block_schwarz case, so its row of the result)."""
         m, st, f = gm[dtype], g1[dtype], gin[dtype][1]
         mesh = m.mesh
         wet = int(mesh.node_layer_mask.sum())
         out = cases(dtype, "globe", m, st, full=False)
-        for dd in (False, True):
+        out.append(bs_case("globe", m, dtype))
+        # the step's case (no double diffusion) last: the row of the result
+        for dd in (True, False):
             cfg = copy.deepcopy(m.cfg)
             cfg.tra.double_diffusion = dd
             args = kpp.column_inputs(st, mesh, cfg, f)
@@ -606,6 +629,7 @@ def main():
         return out
 
     ice_tables = {}
+    ecn_calls = {}      # elem_contrib_to_nodes: calls a coupled step by shape
 
     def ice_cases(dtype):
         """The sea ice's kernels on the level-7 globe, at its state after
@@ -639,14 +663,22 @@ def main():
                 f"{int(tab.elem_c[9].sum())}, max|u_ice| "
                 f"{float(uv0.abs().max()):.4f} m/s after one coupled step")
         out = []
-        for label, tables, lead, vertex_major in (
-                ("subdomain", cap, (2,), True), ("globe", mesh, (), False),
-                ("globe", mesh, (3,), False), ("globe", mesh, (2,), True),
-                ("globe", mesh, (2, 3), False)):
+        # the shapes of the coupled step, each with its calls a step and the
+        # call sites that give it (the last: the row of the result), after
+        # one that the step does not launch (mevp_subcycle_plain's form)
+        for label, tables, lead, vertex_major, calls, site in (
+                ("subdomain", cap, (2,), True, 0, "not on the step's path"),
+                ("subdomain", cap, (), False, 2, "ice/evp.py:83-84"),
+                ("globe", mesh, (3,), True, 2, "ice/fct.py:88-89"),
+                ("globe", mesh, (3,), False, 6,
+                 "ice/fct.py:40 (_mass_matvec, 5 calls), :154"),
+                ("globe", mesh, (2, 3), False, 1, "ice/fct.py:140")):
             n_e, n_n = tables.n_elems, tables.n_nodes
             x = rand(*lead, *((3, n_e) if vertex_major else (n_e, 3)),
                      dtype=dtype)
             rows = x.numel() // (3 * n_e)
+            ecn_calls[f"{label} {list(x.shape)}"] = {
+                "launches_per_coupled_step": calls, "site": site}
             idx, valid = ops._contrib_index(tables, vertex_major)
             inc = csr(torch.arange(n_n, device=dev)[:, None].expand_as(idx)[
                 valid], idx[valid], torch.ones(int(valid.sum()), dtype=dtype,
@@ -780,10 +812,15 @@ def main():
                 f"device: kernel_us={us_text(k_dev)} "
                 f"plain_us={us_text(device_us(plain))} library_us="
                 f"{'none' if library is None else us_text(l_dev)}")
-            if name == "tridiag_solve" and label.startswith("globe"):
+            # every shape of the kernels whose step calls take several
+            if (name == "tridiag_solve" and label.startswith("globe")) \
+                    or name in ("block_schwarz", "elem_contrib_to_nodes",
+                                "kpp_column"):
                 summary[name].setdefault("shapes", {})[f"{tag} {label}"] = {
                     "ms": k_ms, "device_ms": k_dev and k_dev / 1e3,
-                    "bound_ms": b_ms, "plain_ms": p_ms}
+                    "bound_ms": b_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                    "library_device_ms": l_dev and l_dev / 1e3,
+                    **ecn_calls.get(label, {})}
             if dtype == torch.float64 or name.endswith("_gather"):
                 s = summary[name]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -1205,7 +1242,9 @@ def main():
         if per_coupled_step[k] != m64.cfg.ice.evp_rheol_steps:
             fail(f"phase 12: {k} launched {per_coupled_step[k]} times a "
                  f"step, not {m64.cfg.ice.evp_rheol_steps}")
-    for k, want in (("pressure_bv", 1), ("tridiag_solve", 4)):
+    step_calls = {"pressure_bv": 1, "tridiag_solve": 4, "kpp_column": 1,
+                  "elem_contrib_to_nodes": 11}
+    for k, want in step_calls.items():
         if per_coupled_step[k] != want:
             fail(f"phase 12: {k} launched {per_coupled_step[k]} times a "
                  f"step, not {want}")
@@ -1233,13 +1272,27 @@ def main():
             say(f"phase 12 throughput {str(dtype).replace('torch.', '')}: "
                 f"{n / wall:.3f} coupled steps/s, {wet * n / wall:.6e} wet "
                 f"node-levels/s ({wet} wet node-levels; {card})")
-    step_us = {str(dtype).replace("torch.", ""): profile_steps(
-        "phase 12", mdl, s_, 3, card,
-        run=lambda m, st_, k, a=gatm[dtype], i=i_, k0=k0:
-        run_pi(m, a, st_, i, k, first_step=k0),
-        also=("mevp", "elem_contrib", "elem_to_node_mean", "pressure_bv",
-              "tridiag_solve"))
-        for dtype, (mdl, s_, i_, k0) in cruns.items()}
+    # the 3-step profiles, each dtype's launches a coupled step counted in
+    # them (the CG kernels' with the CG iterations of each dtype's steps)
+    step_us, launches_dtype = {}, {}
+    for dtype, (mdl, s_, i_, k0) in cruns.items():
+        tag = str(dtype).replace("torch.", "")
+        kernels.reset_launches()
+        step_us[tag] = profile_steps(
+            "phase 12", mdl, s_, 3, card,
+            run=lambda m, st_, k, a=gatm[dtype], i=i_, k0=k0:
+            run_pi(m, a, st_, i, k, first_step=k0),
+            also=("mevp", "elem_contrib", "elem_to_node_mean", "pressure_bv",
+                  "tridiag_solve"))
+        launches_dtype[tag] = {k: kernels.LAUNCHES[k] / 3
+                               for k in coupled_kernels}
+        say(f"phase 12 launches per coupled step {tag} (the profiled 3 "
+            f"steps; CG iterations of the last {mdl.ssh_iters}): "
+            f"{launches_dtype[tag]}")
+        for k, want in step_calls.items():
+            if launches_dtype[tag][k] != want:
+                fail(f"phase 12: {k} launched {launches_dtype[tag][k]} times "
+                     f"a {tag} step, not {want}")
     # device ms a coupled step spends in each kernel: the self device time
     # of its __global__ functions in the 3-step profiles above; None where
     # the profiler kept no event of it
@@ -1251,6 +1304,11 @@ def main():
                      or None for k in coupled_kernels}
                for tag, us in step_us.items()}
     say(f"phase 12 device ms a coupled step per kernel (profile): {step_ms}")
+    per_launch_us = {tag: {k: step_ms[tag][k] / launches_dtype[tag][k] * 1e3
+                           for k in ("block_schwarz", "ring_spmv")
+                           if step_ms[tag][k] and launches_dtype[tag][k]}
+                     for tag in step_ms}
+    say(f"phase 12 device us a launch in the profiled steps: {per_launch_us}")
     # the subcycle loop of one step: 120 subcycles with the kernels (as the
     # step runs them) and with mevp_subcycle_plain called directly
     n_sub = m64.cfg.ice.evp_rheol_steps
@@ -1339,6 +1397,17 @@ def main():
                                                       dev))
     say(f"tridiag_solve device ms a coupled step by phase 3's shapes (2 x "
         f"[2, {L7}, {N7}], [2, {L7}, {E7}], [2, {L7 + 1}, {N7}]): {tri_step}")
+    # elem_contrib_to_nodes' eleven calls a coupled step priced the same way
+    ecn_step = {}
+    for tag in ("float64", "float32"):
+        rows = [r for key, r in summary["elem_contrib_to_nodes"][
+            "shapes"].items() if key.startswith(tag)]
+        if all(r["device_ms"] is not None for r in rows):
+            ecn_step[tag] = sum(r["launches_per_coupled_step"]
+                                * r["device_ms"] for r in rows)
+    say(f"elem_contrib_to_nodes device ms a coupled step by phase 3's "
+        f"shapes: {ecn_step}")
+    step_rows = {"tridiag_solve": tri_step, "elem_contrib_to_nodes": ecn_step}
     say(json.dumps({"numbering_device_us": numbering_us}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
@@ -1356,11 +1425,14 @@ def main():
          "library_device_ms": summary[k]["library_device_ms"],
          "launches_per_step": per_step.get(k),
          "launches_per_coupled_step": per_coupled_step.get(k),
+         "launches_per_coupled_step_f32": launches_dtype["float32"].get(k),
          "launches_per_cg_iteration": per_cg_iteration.get(k),
          "step_device_ms": step_ms["float64"].get(k),
          "step_device_ms_f32": step_ms["float32"].get(k),
-         **({"shapes": shapes, "shapes_step_device_ms": tri_step}
-            if k == "tridiag_solve" else {})}
+         **({"shapes": summary[k]["shapes"]} if "shapes" in summary[k]
+            else {}),
+         **({"shapes_step_device_ms": step_rows[k]} if k in step_rows
+            else {})}
         for k in kernels.KERNELS]}))
     say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     say(card)

@@ -7,9 +7,10 @@ The port of ``fesom2_tpu/core/mixing/kpp.py`` (ref
 
 The column part of ``oce_mixing_kpp`` (interior mixing, boundary-layer
 depth, the blmix profile, the enhancement and the combine) runs the
-hand-written CUDA kernel ``csrc/kpp_column.cu`` on a CUDA tensor, one
-thread per node column; ``kpp_column_plain`` beside it, the same code in
-torch, serves CPU tensors only.  Torch keeps the gathers around it: the
+hand-written CUDA kernel ``csrc/kpp_column.cu`` on a CUDA tensor (a
+block a tile of node columns staged in shared memory, the levels in
+parallel); ``kpp_column_plain`` beside it, the same code in torch, serves
+CPU tensors only.  Torch keeps the gathers around it: the
 node stress before it, the element mean of the viscosity after it.
 """
 from __future__ import annotations
@@ -346,7 +347,8 @@ def kpp_column(unode, vnode, bvfreq, dbsfc, zbar_3d, Z_3d, hnode, ustar, Bo,
                double_diffusion: bool = False, alpha=None, beta=None, T=None,
                S=None):
     """``kpp_column_plain`` on a CPU tensor; on a CUDA tensor the kernel
-    ``csrc/kpp_column.cu`` (one thread per node column) or a raise."""
+    ``csrc/kpp_column.cu`` or a raise.  Columns hold at least one wet
+    layer (``nlevels_node >= 2``)."""
     if unode.device.type == "cpu":
         return kpp_column_plain(unode, vnode, bvfreq, dbsfc, zbar_3d, Z_3d,
                                 hnode, ustar, Bo, coriolis_node, nlevels_node,
