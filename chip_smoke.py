@@ -20,8 +20,9 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    varying-depth tables, tridiag_solve at the step's three shapes (a, b,
    c [L, E], [L + 1, N] and [L, N] with two right-hand sides),
    block_schwarz with the globe's own preconditioner (the coupled step's
-   445 blocks of 368 nodes; the channel's tables before it); fct_bounds,
-   tridiag_solve and the probe kernels bitwise; a
+   445 blocks of 368 nodes; the channel's tables before it) and ring_spmv
+   on the globe's ALE ring (the channel's before it); fct_bounds,
+   tridiag_solve, elem_contrib_to_nodes and the probe kernels bitwise; a
    float32 kpp_column column beyond the tolerance passes only where
    rounding moved the boundary layer's last level, in at most 10 columns
    (or one in 10,000), and is reported; all timed with CUDA events
@@ -42,13 +43,12 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    that of three bf16 products on the tensor cores, and ``torch.bmm`` is
    also timed over 50 calls between one pair of events; the sea ice's
    three kernels on the level-7 globe after one coupled step:
-   ``elem_contrib_to_nodes`` at each shape the coupled step launches (the
-   subdomain's one row element-major, the globe's three rows vertex-major
-   and element-major, six rows element-major), each with its calls a step
-   and their sum priced at these times, and the subdomain's vertex-major
-   form, which the step does not launch (library call: a CSR product over
-   the same incidence), ``mevp_stress`` and ``mevp_node`` on the
-   subdomain's tables,
+   ``elem_contrib_to_nodes`` at the six shapes the coupled step launches
+   (the subdomain's two rows element-major; on the globe six rows
+   vertex-major, nine, six, two by three and three rows element-major),
+   each bitwise, with its call a step and their sum priced at these times
+   (library call: a CSR product over the same incidence), ``mevp_stress``
+   and ``mevp_node`` on the subdomain's tables,
    each against its plain version, then eight subcycles of the two kernels
    against eight of ``mevp_subcycle_plain``;
 4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
@@ -100,7 +100,7 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     the subdomain, and every kernel of the path launched (``mevp_stress``
     and ``mevp_node`` 120 times a step, ``pressure_bv`` and ``kpp_column``
     once, ``tridiag_solve`` four times and ``elem_contrib_to_nodes``
-    eleven times); then throughput in float32 and float64, a 3-step
+    six times); then throughput in float32 and float64, a 3-step
     profile per dtype with the launches a step of each kernel counted in
     it (the same gates) and the CG kernels' device us a launch, and the
     subcycle loop's
@@ -117,8 +117,8 @@ JSON line with the gather kernels' device times on both numberings, one
 with every kernel's launches, error, times, bound and library time (with
 the device ms a coupled step spends in it, from phase 12's profiles, its
 launches a float64 and a float32 coupled step, and the times of every
-shape of tridiag_solve, elem_contrib_to_nodes, block_schwarz and
-kpp_column, the first two's calls a step also priced at those times), the
+shape of tridiag_solve, elem_contrib_to_nodes, block_schwarz, ring_spmv
+and kpp_column, the first two's calls a step also priced at those times), the
 seconds the run took and the card; the last line is
 ``{"ok": true, "device": {...}}``.  It needs one card and exits non-zero
 where CUDA is not available.
@@ -486,19 +486,7 @@ def main():
         pressure_bv on its zstar state after one step.  Library calls: a
         CSR product for the ring, one bmm for the blocks' local solves."""
         m = big[dtype]
-        size = torch.empty((), dtype=dtype).element_size()
-        hbar_e = rand(m.mesh.n_elems, lo=-0.5, hi=0.5, dtype=dtype)
-        op = m.ssh_ring.materialize(hbar_e)
-        N = m.mesh.n_nodes
-        x = rand(N, dtype=dtype)
-        Kr = op.cols.shape[0]
-        ring = csr(torch.arange(N, device=dev).repeat(Kr),
-                   op.cols.long().reshape(-1), op.vals.reshape(-1), (N, N))
-        xcol = x[:, None].contiguous()
-        return [("ring_spmv", f"ring {list(op.cols.shape)}",
-                 lambda: op(x),
-                 lambda: ssh.ring_spmv_plain(op.cols, op.vals, x), False,
-                 ssh.ring_spmv_work(Kr, N, size), lambda: ring @ xcol),
+        return [ring_case("channel", m, dtype),
                 bs_case("channel", m, dtype),
                 pbv_case("zstar channel", m, big1[dtype])]
 
@@ -604,16 +592,36 @@ def main():
         out.append(pbv_case(label, model, state))
         return out
 
+    def ring_case(label, m, dtype):
+        """ring_spmv with model m's ALE ring, its values rebuilt from a
+        0.5 m hbar perturbation as a step does; library call: a CSR
+        product."""
+        size = torch.empty((), dtype=dtype).element_size()
+        hbar_e = rand(m.mesh.n_elems, lo=-0.5, hi=0.5, dtype=dtype)
+        op = m.ssh_ring.materialize(hbar_e)
+        N = m.mesh.n_nodes
+        x = rand(N, dtype=dtype)
+        Kr = op.cols.shape[0]
+        ring = csr(torch.arange(N, device=dev).repeat(Kr),
+                   op.cols.long().reshape(-1), op.vals.reshape(-1), (N, N))
+        xcol = x[:, None].contiguous()
+        return ("ring_spmv", f"{label} ring {list(op.cols.shape)}",
+                lambda: op(x),
+                lambda: ssh.ring_spmv_plain(op.cols, op.vals, x), False,
+                ssh.ring_spmv_work(Kr, N, size), lambda: ring @ xcol)
+
     def globe_cases(dtype):
         """The step kernels on the globe's varying-depth tables, then
         pressure_bv and kpp_column on its state after one step, and
-        block_schwarz with the globe's own preconditioner (the coupled
-        step's; the last block_schwarz case, so its row of the result)."""
+        block_schwarz and ring_spmv with the globe's own CG tables (the
+        coupled step's; the last case of each, so its row of the
+        result)."""
         m, st, f = gm[dtype], g1[dtype], gin[dtype][1]
         mesh = m.mesh
         wet = int(mesh.node_layer_mask.sum())
         out = cases(dtype, "globe", m, st, full=False)
         out.append(bs_case("globe", m, dtype))
+        out.append(ring_case("globe", m, dtype))
         # the step's case (no double diffusion) last: the row of the result
         for dd in (True, False):
             cfg = copy.deepcopy(m.cfg)
@@ -633,10 +641,10 @@ def main():
 
     def ice_cases(dtype):
         """The sea ice's kernels on the level-7 globe, at its state after
-        one coupled step: elem_contrib_to_nodes on the subdomain's tables
-        and on the whole globe (vertex-major and element-major, the row
-        counts of the path; library call: a CSR product over the same
-        incidence), mevp_stress and mevp_node on the subdomain's tables.
+        one coupled step: elem_contrib_to_nodes at the six shapes of the
+        step, on the subdomain's tables and on the whole globe (library
+        call: a CSR product over the same incidence), mevp_stress and
+        mevp_node on the subdomain's tables.
         The mEVP kernels work in place: they are compared on copies and
         timed on buffers of their own (an eighth item)."""
         m, atm = gm[dtype], gatm[dtype]
@@ -663,16 +671,18 @@ def main():
                 f"{int(tab.elem_c[9].sum())}, max|u_ice| "
                 f"{float(uv0.abs().max()):.4f} m/s after one coupled step")
         out = []
-        # the shapes of the coupled step, each with its calls a step and the
-        # call sites that give it (the last: the row of the result), after
-        # one that the step does not launch (mevp_subcycle_plain's form)
+        # the six calls of the coupled step, each with the call site that
+        # gives it (the last, the largest: the row of the result)
         for label, tables, lead, vertex_major, calls, site in (
-                ("subdomain", cap, (2,), True, 0, "not on the step's path"),
-                ("subdomain", cap, (), False, 2, "ice/evp.py:83-84"),
-                ("globe", mesh, (3,), True, 2, "ice/fct.py:88-89"),
-                ("globe", mesh, (3,), False, 6,
-                 "ice/fct.py:40 (_mass_matvec, 5 calls), :154"),
-                ("globe", mesh, (2, 3), False, 1, "ice/fct.py:140")):
+                ("subdomain", cap, (2,), False, 1, "ice/evp.py mevp_setup"),
+                ("globe", mesh, (6,), True, 1, "ice/fct.py ice_tg_rhs_div"),
+                ("globe", mesh, (6,), False, 1,
+                 "ice/fct.py _lumped_iterate, second product"),
+                ("globe", mesh, (2, 3), False, 1, "ice/fct.py ppair"),
+                ("globe", mesh, (3,), False, 1, "ice/fct.py out"),
+                ("globe", mesh, (9,), False, 1,
+                 "ice/fct.py _lumped_iterate, first product with the "
+                 "low-order fields")):
             n_e, n_n = tables.n_elems, tables.n_nodes
             x = rand(*lead, *((3, n_e) if vertex_major else (n_e, 3)),
                      dtype=dtype)
@@ -690,7 +700,7 @@ def main():
                 "elem_contrib_to_nodes", f"{label} {list(x.shape)}",
                 lambda x=x, t=tables, fn=fn: fn(x, t),
                 lambda x=x, t=tables, vm=vertex_major:
-                ops.elem_contrib_to_nodes_plain(x, t, vm), False,
+                ops.elem_contrib_to_nodes_plain(x, t, vm), True,
                 ops.elem_contrib_to_nodes_work(
                     rows, n_e, n_n, tables.nod_in_elem.shape[1], size),
                 lambda inc=inc, xt=xt: inc @ xt))
@@ -815,7 +825,7 @@ def main():
             # every shape of the kernels whose step calls take several
             if (name == "tridiag_solve" and label.startswith("globe")) \
                     or name in ("block_schwarz", "elem_contrib_to_nodes",
-                                "kpp_column"):
+                                "kpp_column", "ring_spmv"):
                 summary[name].setdefault("shapes", {})[f"{tag} {label}"] = {
                     "ms": k_ms, "device_ms": k_dev and k_dev / 1e3,
                     "bound_ms": b_ms, "plain_ms": p_ms, "library_ms": l_ms,
@@ -1243,7 +1253,7 @@ def main():
             fail(f"phase 12: {k} launched {per_coupled_step[k]} times a "
                  f"step, not {m64.cfg.ice.evp_rheol_steps}")
     step_calls = {"pressure_bv": 1, "tridiag_solve": 4, "kpp_column": 1,
-                  "elem_contrib_to_nodes": 11}
+                  "elem_contrib_to_nodes": 6}
     for k, want in step_calls.items():
         if per_coupled_step[k] != want:
             fail(f"phase 12: {k} launched {per_coupled_step[k]} times a "
@@ -1397,7 +1407,7 @@ def main():
                                                       dev))
     say(f"tridiag_solve device ms a coupled step by phase 3's shapes (2 x "
         f"[2, {L7}, {N7}], [2, {L7}, {E7}], [2, {L7 + 1}, {N7}]): {tri_step}")
-    # elem_contrib_to_nodes' eleven calls a coupled step priced the same way
+    # elem_contrib_to_nodes' six calls a coupled step priced the same way
     ecn_step = {}
     for tag in ("float64", "float32"):
         rows = [r for key, r in summary["elem_contrib_to_nodes"][

@@ -21,7 +21,7 @@ from .forcing.atmos import AtmData
 from .ice.state import IceForcing, IceState
 from .ice.subdomain import IceSubdomain
 from .mesh import MeshTables
-from .mesh.cluster import build_cluster_tables
+from .mesh.cluster import build_cluster_tables, elem_slot_table
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
@@ -73,8 +73,12 @@ def atm_from_numpy(arrays: dict, device, dtype=torch.float64) -> AtmData:
 def ice_subdomain_from_numpy(arrays: dict, device,
                              dtype=torch.float64) -> IceSubdomain:
     """IceSubdomain from {field name: array or int}, the JAX package's
-    ``ice.subdomain.IceSubdomain`` field for field."""
-    return _from_numpy(IceSubdomain, arrays, device, dtype)
+    ``ice.subdomain.IceSubdomain`` field for field; the node assembly's
+    packed ``elem_slot`` is derived anew."""
+    slot = elem_slot_table(arrays["nod_in_elem"], arrays["nod_in_elem_slot"],
+                           int(arrays["n_elems"]))
+    return _from_numpy(IceSubdomain, {**arrays, "elem_slot": slot}, device,
+                       dtype)
 
 
 def mesh_from_numpy(arrays: dict, device, dtype=torch.float64) -> MeshTables:

@@ -20,7 +20,7 @@ import torch
 
 from .. import kernels
 from ..mesh import MeshTables
-from ..mesh.cluster import level_chunk, row_chunk
+from ..mesh.cluster import assembly_row_chunk, level_chunk, row_chunk
 
 
 def _flat_rows(x: torch.Tensor) -> torch.Tensor:
@@ -288,21 +288,36 @@ def elem_contrib_to_nodes_plain(contrib: torch.Tensor, mesh,
 
 def elem_contrib_to_nodes_work(rows: int, n_elems: int, n_nodes: int,
                                k_max: int, itemsize: int) -> tuple:
-    """(bytes, flops) of one call on contrib [rows, 3 E]: contrib, the two
-    [N, K] int32 tables, the output [rows, N]; an add per slot."""
-    nbytes = (rows * (3 * n_elems + n_nodes) * itemsize
-              + 2 * n_nodes * k_max * 4)
+    """(bytes, flops) of one call on contrib [rows, 3 E]: contrib, the
+    output [rows, N] and one int32 word a slot (where node n finds its
+    k-th contribution: ``elem_slot``, or any table that says as much); an
+    add per slot."""
+    nbytes = rows * (3 * n_elems + n_nodes) * itemsize + n_nodes * k_max * 4
     return nbytes, k_max * rows * n_nodes
+
+
+def elem_slot_of(mesh) -> torch.Tensor:
+    """The node assembly's packed slot table [K, N] (``e * 3 + s``, -1
+    padded; ``mesh/cluster.py``): the mesh's, or the ice subdomain's own."""
+    return mesh.cluster.elem_slot if isinstance(mesh, MeshTables) \
+        else mesh.elem_slot
 
 
 def _elem_contrib_to_nodes(contrib: torch.Tensor, mesh,
                            vertex_major: bool) -> torch.Tensor:
     if contrib.device.type == "cpu":
         return elem_contrib_to_nodes_plain(contrib, mesh, vertex_major)
+    return _assemble(contrib, mesh, vertex_major)
+
+
+def _assemble(contrib: torch.Tensor, mesh, vertex_major: bool):
+    """The kernel on the packed slot table: a thread per node walks
+    ``assembly_row_chunk`` rows of contrib flattened to [R, 3 E]."""
     kernels.cuda_only(contrib, "elem_contrib_to_nodes")
     dev, dt = contrib.device, contrib.dtype
     E = mesh.n_elems
-    N, K = mesh.nod_in_elem.shape
+    slot = elem_slot_of(mesh)
+    K, N = slot.shape
     want = (3, E) if vertex_major else (E, 3)
     if tuple(contrib.shape[-2:]) != want:
         raise ValueError(f"contrib: trailing shape {tuple(contrib.shape[-2:])}"
@@ -310,13 +325,12 @@ def _elem_contrib_to_nodes(contrib: torch.Tensor, mesh,
     flat = contrib.reshape(-1, 3 * E).contiguous()
     R = flat.shape[0]
     kernels.require(flat, "contrib", (R, 3 * E), dt, dev)
-    kernels.require(mesh.nod_in_elem, "nod_in_elem", (N, K), torch.int32, dev)
-    kernels.require(mesh.nod_in_elem_slot, "nod_in_elem_slot", (N, K),
-                    torch.int32, dev)
+    kernels.require(slot, "elem_slot", (K, mesh.n_nodes), torch.int32, dev)
     out = torch.empty((R, N), dtype=dt, device=dev)
-    kernels.launch("elem_contrib_to_nodes", dev, flat, R, E,
-                   mesh.nod_in_elem, mesh.nod_in_elem_slot, N, K,
-                   int(vertex_major), out, kernels.float_code(dt))
+    blocks = -(-N // kernels.BLOCK_THREADS)
+    kernels.launch("elem_contrib_to_nodes", dev, flat, R, E, slot, N, K,
+                   assembly_row_chunk(R, blocks), int(vertex_major), out,
+                   kernels.float_code(dt))
     return out.reshape(contrib.shape[:-2] + (N,))
 
 
@@ -325,7 +339,10 @@ def elem_contrib_to_nodes(contrib: torch.Tensor, mesh) -> torch.Tensor:
     contrib [..., E, 3] is what element e adds to its k-th vertex; returns
     [..., N].  Each node pulls from its adjacent elements through
     ``nod_in_elem`` and its own slot within each (``nod_in_elem_slot``), in
-    slot order; no scatter.  ``mesh`` is the mesh or the ice subdomain."""
+    slot order; no scatter (the kernel reads both from one packed word a
+    slot, ``elem_slot_of(mesh)``).  Leading axes are independent rows, so
+    a caller stacks fields into one call.  ``mesh`` is the mesh or the ice
+    subdomain."""
     return _elem_contrib_to_nodes(contrib, mesh, vertex_major=False)
 
 

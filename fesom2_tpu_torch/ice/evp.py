@@ -80,8 +80,9 @@ def mevp_setup(ice: IceState, mesh, forcing: IceForcing,
     bb = g * mesh.elem_area / 3.0
     aa_e = bb * (dx * eta_e).sum(-1)
     bb_e = bb * (dy * eta_e).sum(-1)
-    rhs_a = elem_contrib_to_nodes((-aa_e)[:, None].expand(-1, 3), mesh)
-    rhs_m = elem_contrib_to_nodes((-bb_e)[:, None].expand(-1, 3), mesh)
+    # both components in one assembly: rows [2, E, 3]
+    rhs_a, rhs_m = elem_contrib_to_nodes(
+        torch.stack([-aa_e, -bb_e])[..., None].expand(-1, -1, 3), mesh)
 
     # ---- per-node precomputes (ref :393-410) -----------------------------
     has_ice_n = ice.a_ice >= 0.01

@@ -11,6 +11,12 @@ The consistent P1 mass-matrix product is evaluated matrix-free per element:
 (M_c x)|_row = sum_{e containing row} area_e/12 * (x_1+x_2+x_3 + x_row),
 which is exactly the assembled CSR matvec of the reference.  Plain torch
 ops on top of ``core.ops.elem_contrib_to_nodes`` (a kernel on the card).
+
+The assembly's rows are independent, so fields that need it at the same
+point share one call: the two right-hand sides, and the high-order and
+divergence iterations, which run side by side, with the low-order
+solution's mass product in their first call.  An advection step makes
+five calls (the JAX package's sequence makes nine, with the same values).
 """
 from __future__ import annotations
 
@@ -85,34 +91,44 @@ def ice_tg_rhs_div(u_ice, v_ice, fields, mesh: MeshTables, ice_dt):
     acc = sum3((entries * feq).unbind(2))                      # [F, 3n, E]
     acc2 = sum3((entries2 * feq).unbind(2))
     cx = vol * ice_dt * c4 * (fsum[:, None] + fe + acc2) / 12.0
-    rhs = elem_contrib_to_nodes_3e(acc + cx, mesh)
-    rhs_div = elem_contrib_to_nodes_3e(-cx, mesh)
-    return rhs, rhs_div
+    rhs_both = elem_contrib_to_nodes_3e(torch.cat([acc + cx, -cx]), mesh)
+    return rhs_both[:fields.shape[0]], rhs_both[fields.shape[0]:]
 
 
-def _lumped_iterate(rhs, mesh: MeshTables, n_iter=3):
+def _lumped_iterate(rhs, mesh: MeshTables, n_iter=3, extra=None):
     """Solve M_c d = rhs by lumped-mass Jacobi iterations (ref :239-320);
-    rhs [..., N], batched."""
+    rhs [R, N], each row on its own.  ``extra`` [F, N], if given, rides
+    along the first mass product (one assembly for both): returns (d,
+    M_c extra); without, (d, None)."""
     inv_area = _inv_area(mesh)
     d = rhs * inv_area
-    for _ in range(n_iter - 1):
-        resid = rhs - _mass_matvec(d, mesh)
-        d = d + resid * inv_area
-    return d
+    m_extra = None
+    for i in range(n_iter - 1):
+        if i == 0 and extra is not None:
+            prod = _mass_matvec(torch.cat([d, extra]), mesh)
+            prod, m_extra = prod[:rhs.shape[0]], prod[rhs.shape[0]:]
+        else:
+            prod = _mass_matvec(d, mesh)
+        d = d + (rhs - prod) * inv_area
+    return d, m_extra
 
 
 def fct_advect_fields(u_ice, v_ice, fields, mesh: MeshTables, gamma, ice_dt):
     """Advect a stack of node scalars [F, N] with the TG/FEM-FCT scheme,
     vectorized over F.  Returns the new fields [F, N]."""
+    F = fields.shape[0]
     rhs, rhs_div = ice_tg_rhs_div(u_ice, v_ice, fields, mesh, ice_dt)
 
-    # high-order increments (consistent mass iterations, ref :239-320)
-    d_high = _lumped_iterate(rhs, mesh, n_iter=3)
+    # high-order and divergence increments (consistent mass iterations, ref
+    # :239-320 and ice_update_for_div :806-893), side by side; the
+    # low-order solution's mass product rides along their first product
+    d, m_fields = _lumped_iterate(torch.cat([rhs, rhs_div]), mesh, n_iter=3,
+                                  extra=fields)
+    d_high, d_div = d[:F], d[F:]
 
     # low-order solution (ref :173-236)
     area1 = mesh.area[0]
-    low = (rhs + gamma * _mass_matvec(fields, mesh)) * _inv_area(mesh) \
-        + (1.0 - gamma) * fields
+    low = (rhs + gamma * m_fields) * _inv_area(mesh) + (1.0 - gamma) * fields
 
     # FEM-FCT limiting (ref ice_fem_fct :321-632), batched over F
     en = mesh.elem_nodes.long()
@@ -152,9 +168,6 @@ def fct_advect_fields(u_ice, v_ice, fields, mesh: MeshTables, gamma, ice_dt):
     fac = torch.where(flux_q >= 0, pplus[..., en], pminus[..., en])  # [F,E,3]
     ae = fac.amin(-1)
     out = low + elem_contrib_to_nodes(ae[..., None] * flux_q, mesh)
-
-    # divergence part (ref ice_update_for_div :806-893)
-    d_div = _lumped_iterate(rhs_div, mesh, n_iter=3)
     return out + d_div
 
 

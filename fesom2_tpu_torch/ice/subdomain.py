@@ -26,6 +26,7 @@ import torch
 
 from ..constants import rad
 from ..mesh import MeshTables
+from ..mesh.cluster import elem_slot_table
 
 
 @dataclass
@@ -38,6 +39,7 @@ class IceSubdomain:
     elem_nodes: torch.Tensor       # [Es,3] i32 local
     nod_in_elem: torch.Tensor      # [Ns,K] i32 local, -1 pad
     nod_in_elem_slot: torch.Tensor  # [Ns,K] i32
+    elem_slot: torch.Tensor        # [K,Ns] i32 e*3 + slot, -1 pad (local)
     gradient_sca: torch.Tensor     # [Es,6]
     metric_factor: torch.Tensor    # [Es]
     elem_area: torch.Tensor        # [Es]
@@ -52,7 +54,9 @@ def subdomain_arrays(geo_lat, elem_nodes, lat_deg: float = 40.0) -> dict:
     """The index tables of the polar-cap subdomain |lat| > lat_deg as numpy
     arrays, from the geographic node latitudes [N] (radians) and the
     element nodes [E, 3]: ``sub_nodes``, ``sub_elems``, ``node_mask``,
-    ``elem_nodes`` (local), ``nod_in_elem``, ``nod_in_elem_slot``."""
+    ``elem_nodes`` (local), ``nod_in_elem``, ``nod_in_elem_slot`` and,
+    from the last two, the node assembly's packed ``elem_slot``
+    (``mesh/cluster.py``)."""
     glat = np.abs(np.asarray(geo_lat)) / rad
     seed = glat > lat_deg
     en = np.asarray(elem_nodes)
@@ -89,7 +93,8 @@ def subdomain_arrays(geo_lat, elem_nodes, lat_deg: float = 40.0) -> dict:
     safe = np.where(nie >= 0, nie, 0)
     slot = np.argmax(en_loc[safe] == np.arange(Ns)[:, None, None], axis=-1)
     return dict(sub_nodes=l2g, sub_elems=sub_elems, node_mask=node_mask,
-                elem_nodes=en_loc, nod_in_elem=nie, nod_in_elem_slot=slot)
+                elem_nodes=en_loc, nod_in_elem=nie, nod_in_elem_slot=slot,
+                elem_slot=elem_slot_table(nie, slot, Es))
 
 
 def build_ice_subdomain(mesh: MeshTables, lat_deg: float = 40.0
@@ -107,6 +112,7 @@ def build_ice_subdomain(mesh: MeshTables, lat_deg: float = 40.0
         node_mask=torch.as_tensor(t["node_mask"], device=dev),
         elem_nodes=i32(t["elem_nodes"]), nod_in_elem=i32(t["nod_in_elem"]),
         nod_in_elem_slot=i32(t["nod_in_elem_slot"]),
+        elem_slot=i32(t["elem_slot"]),
         gradient_sca=mesh.gradient_sca[ge].contiguous(),
         metric_factor=mesh.metric_factor[ge].contiguous(),
         elem_area=mesh.elem_area[ge].contiguous(),

@@ -42,7 +42,7 @@ _ARGTYPES = {
     "onehot_gather": [_P, _P, _I, _I, _I, _I, _P, _P],
     "pressure_bv": [_P] * 7 + [_I, _I, _I, _D, _D] + [_P] * 5 + [_I, _P],
     "kpp_column": [_P] * 15 + [_I] * 3 + [_D] * 8 + [_P] * 4 + [_I, _P],
-    "elem_contrib_to_nodes": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P],
+    "elem_contrib_to_nodes": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P],
     "mevp_stress": [_P, _I, _P, _I, _P, _P, _P, _D, _D, _D, _I, _P],
     "mevp_node": [_P, _I, _P, _I, _P, _P, _I, _P, _D, _D, _D, _D, _I, _P],
 }

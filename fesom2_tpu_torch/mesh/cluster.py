@@ -30,9 +30,16 @@ per slot one word ``edge << 1 | (sign < 0)`` (-1 in a padded slot) from
 ``edge_slot`` [KE, N], the transpose of ``node_edges`` with the sign
 folded in, so that a warp's reads of one slot are contiguous.
 
-``mean_emulation``, ``fct_emulation`` and ``edge_reduce_emulation`` walk
-these tables in torch the way the kernels do; the CPU tests hold them
-against the plain versions.
+``elem_contrib_to_nodes`` (the FEM node assembly) gives a thread one node
+and a run of rows the same way.  Per slot it reads one word ``e * 3 + s``
+(-1 in a padded slot) from ``elem_slot`` [K, N]: the element and the
+node's vertex number in it, folded from ``nod_in_elem`` and
+``nod_in_elem_slot`` (``elem_slot_table``; the ice subdomain builds its
+own from its local tables).
+
+``mean_emulation``, ``fct_emulation``, ``edge_reduce_emulation`` and
+``assembly_emulation`` walk these tables in torch the way the kernels do;
+the CPU tests hold them against the plain versions.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ MAX_LEVELS = 255        # a level bound takes 8 bits
 TARGET_BLOCKS = 2048    # blocks a launch aims at (132 SMs, a few waves)
 MIN_PLANES = 4          # fewest staged planes worth a block's set-up
 ROW_TARGET_BLOCKS = 8192    # blocks a node_edge_reduce launch aims at
+ASSEMBLY_TARGET_BLOCKS = 256    # blocks an elem_contrib_to_nodes launch aims at
 
 
 @dataclass(frozen=True, eq=False)
@@ -67,6 +75,7 @@ class ClusterTables:
     fct_tile_nodes: torch.Tensor  # [sum U] int32 node ids, sorted per tile
     fct_u_max: int                # longest neighbour list of a tile
     edge_slot: torch.Tensor       # [KE, N] int32: edge<<1 | sign<0, -1 padded
+    elem_slot: torch.Tensor       # [K, N] int32: elem*3 + vertex, -1 padded
 
 
 def level_ranges(mask: np.ndarray):
@@ -146,6 +155,27 @@ def _neighbour_ranges(nie, elem_nodes, e_lo, e_hi, n_lo, n_hi):
     return n_of[start], m_of[start], g_lo, g_hi
 
 
+def elem_slot_table(nod_in_elem, nod_in_elem_slot, n_elems: int
+                    ) -> np.ndarray:
+    """The node assembly's slot words [K, N] int32 from the incidence
+    tables [N, K] (numpy): ``e * 3 + s`` where node n's k-th element is e
+    and n is its vertex s, -1 in a padded slot (``nod_in_elem`` < 0).  The
+    transpose, so that a warp's reads of one slot are contiguous.  Raises
+    where a used slot names no element below ``n_elems`` or no vertex 0..2,
+    or 3 E outgrows an int32."""
+    nie = np.asarray(nod_in_elem).astype(np.int64)
+    vert = np.asarray(nod_in_elem_slot).astype(np.int64)
+    used = nie >= 0
+    if 3 * n_elems >= 1 << 31:
+        raise ValueError(f"{n_elems} elements: e * 3 + s outgrows int32")
+    if (nie[used] >= n_elems).any() or (vert[used] < 0).any() \
+            or (vert[used] > 2).any():
+        raise ValueError("nod_in_elem names an element or vertex outside "
+                         "the mesh")
+    return np.ascontiguousarray(np.where(used, nie * 3 + vert, -1).T,
+                                np.int32)
+
+
 def build_cluster_tables(mesh, tile_nodes: int = 0) -> ClusterTables:
     """Derive the tables from a ``MeshTables`` (any device; the work is
     numpy on the host, the result lies on the mesh's device) for tiles of
@@ -222,7 +252,9 @@ def build_cluster_tables(mesh, tile_nodes: int = 0) -> ClusterTables:
         fct_slot=i32(fct_slot.T), fct_node=i32(fct_node),
         fct_tile_ptr=i32(fptr), fct_tile_nodes=i32(fnodes),
         fct_u_max=int(np.diff(fptr).max(initial=0)),
-        edge_slot=i32(edge_slot.T))
+        edge_slot=i32(edge_slot.T),
+        elem_slot=i32(elem_slot_table(
+            nie, mesh.nod_in_elem_slot.cpu().numpy(), E)))
 
 
 def tile_stats(ptr: torch.Tensor, ids: torch.Tensor, itemsize: int) -> dict:
@@ -281,14 +313,25 @@ def level_chunk(levels: int, planes_per_level: int,
     return -(-levels // chunks)
 
 
-def row_chunk(rows: int, blocks_per_chunk: int) -> int:
-    """Rows per thread of ``node_edge_reduce``: as few runs of the rows as
-    give ``ROW_TARGET_BLOCKS`` blocks (a small mesh: one row a thread).
-    The kernel stages nothing, so its blocks are cheap and many short runs
-    hide the gathers' latency best (swept on the level-7 globe with
-    ``scripts/gather_kernel_times.py --row-target-blocks``)."""
-    chunks = -(-ROW_TARGET_BLOCKS // max(blocks_per_chunk, 1))
+def row_chunk(rows: int, blocks_per_chunk: int, target: int = 0) -> int:
+    """Rows per thread of a kernel that gives a thread one node and a run
+    of rows: as few runs of the rows as give ``target`` blocks (0:
+    ``ROW_TARGET_BLOCKS``, ``node_edge_reduce``'s; a small mesh: one row a
+    thread).  That kernel stages nothing, so its blocks are cheap and many
+    short runs hide the gathers' latency best (swept on the level-7 globe
+    with ``scripts/gather_kernel_times.py --row-target-blocks``)."""
+    chunks = -(-(target or ROW_TARGET_BLOCKS) // max(blocks_per_chunk, 1))
     return -(-rows // max(1, min(chunks, rows)))
+
+
+def assembly_row_chunk(rows: int, blocks_per_chunk: int) -> int:
+    """Rows per thread of ``elem_contrib_to_nodes``: ``row_chunk`` aimed
+    at ``ASSEMBLY_TARGET_BLOCKS`` blocks.  On the level-7 globe (446
+    blocks a run) a thread then walks all rows of a call, and the ice
+    subdomain (142) one row: swept there from 256 to 8,192 with
+    ``scripts/assembly_kernel_times.py --target-blocks``, this was the
+    fastest over the coupled step's six calls in both dtypes."""
+    return row_chunk(rows, blocks_per_chunk, ASSEMBLY_TARGET_BLOCKS)
 
 
 def _unpack(word: torch.Tensor):
@@ -346,6 +389,36 @@ def edge_reduce_emulation(flux: torch.Tensor, ct: ClusterTables,
         else:
             acc = torch.where(used, acc + v, acc)
     return (acc, acc_minus) if pair else acc
+
+
+def assembly_emulation(flat: torch.Tensor, elem_slot: torch.Tensor,
+                       n_elems: int, vertex_major: bool, row_chunk: int,
+                       unroll: int = 2) -> torch.Tensor:
+    """``elem_contrib_to_nodes`` as its kernel computes it: contrib
+    [R, 3 E] -> [R, N].  Each node decodes its slot words once (``e = w //
+    3``, ``s = w - 3 e``; the offset ``w`` element-major, ``s * E + e``
+    vertex-major), then walks its rows in runs of ``row_chunk``, ``unroll``
+    rows at a time, every gather of those rows taken before the first sum,
+    each sum from 0 in the order k = 0..K-1 over the used slots."""
+    K, N = elem_slot.shape
+    R = flat.shape[0]
+    word = elem_slot.long()
+    e = torch.div(word, 3, rounding_mode="floor")
+    off = (word - 3 * e) * n_elems + e if vertex_major else word
+    used = word >= 0
+    off = torch.where(used, off, 0)
+    out = torch.empty((R, N), dtype=flat.dtype, device=flat.device)
+    for r0 in range(0, R, row_chunk):
+        r1 = min(R, r0 + row_chunk)
+        for a in range(r0, r1, unroll):
+            rows = range(a, min(r1, a + unroll))
+            v = {(r, k): flat[r, off[k]] for r in rows for k in range(K)}
+            for r in rows:
+                acc = torch.zeros(N, dtype=flat.dtype, device=flat.device)
+                for k in range(K):
+                    acc = torch.where(used[k], acc + v[r, k], acc)
+                out[r] = acc
+    return out
 
 
 def fct_emulation(ttf: torch.Tensor, lo: torch.Tensor, ct: ClusterTables,

@@ -220,8 +220,9 @@ def test_elem_contrib_kernel_data_flow_is_the_slot_order_sum(case, dtype,
 
 
 def test_elem_contrib_to_nodes_work_counts_bytes():
+    # contrib and out once, one int32 slot word a (node, slot)
     nbytes, flops = ops.elem_contrib_to_nodes_work(2, 1000, 600, 7, 8)
-    assert nbytes == 2 * (3000 + 600) * 8 + 2 * 600 * 7 * 4
+    assert nbytes == 2 * (3000 + 600) * 8 + 600 * 7 * 4
     assert flops == 7 * 2 * 600
 
 
