@@ -22,7 +22,8 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    block_schwarz with the globe's own preconditioner (the coupled step's
    445 blocks of 368 nodes; the channel's tables before it) and ring_spmv
    on the globe's ALE ring (the channel's before it); fct_bounds,
-   tridiag_solve, elem_contrib_to_nodes and the probe kernels bitwise; a
+   tridiag_solve, ring_spmv, elem_contrib_to_nodes, mevp_subcycles and
+   the probe kernels bitwise; a
    float32 kpp_column column beyond the tolerance passes only where
    rounding moved the boundary layer's last level, in at most 10 columns
    (or one in 10,000), and is reported; all timed with CUDA events
@@ -42,15 +43,18 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    timed on both numberings in turns; ``onehot_gather``'s method bound is
    that of three bf16 products on the tensor cores, and ``torch.bmm`` is
    also timed over 50 calls between one pair of events; the sea ice's
-   three kernels on the level-7 globe after one coupled step:
+   two kernels on the level-7 globe after one coupled step:
    ``elem_contrib_to_nodes`` at the six shapes the coupled step launches
    (the subdomain's two rows element-major; on the globe six rows
    vertex-major, nine, six, two by three and three rows element-major),
    each bitwise, with its call a step and their sum priced at these times
-   (library call: a CSR product over the same incidence), ``mevp_stress``
-   and ``mevp_node`` on the subdomain's tables,
-   each against its plain version, then eight subcycles of the two kernels
-   against eight of ``mevp_subcycle_plain``;
+   (library call: a CSR product over the same incidence), and
+   ``mevp_subcycles`` on the subdomain's tables, the step's 120 subcycles
+   in one launch, bitwise against 120 of ``mevp_subcycle_plain`` and timed
+   beside its bound, then held bit for bit after 1, 8 and 120 subcycles,
+   with its launch plan and its latency floor (an empty cooperative kernel
+   on the same grid crossing the same grid barriers); ``ring_spmv``
+   bitwise at both rings (the channel's [8, N], the globe's [10, N]);
 4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
    linfs, dense SSH) through ``run.run_soufflet``, with sanity bounds,
    linfs volume conservation and a launch count above 0 for every kernel
@@ -97,15 +101,16 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     ocean bounds of phase 10 (the area-mean hbar against what the water
     flux handed to the ocean adds up to), 0 <= a_ice <= 1, m_ice and
     m_snow >= 0, some a_ice > 0.5, 0 < max|u_ice| < 3 m/s, no ice outside
-    the subdomain, and every kernel of the path launched (``mevp_stress``
-    and ``mevp_node`` 120 times a step, ``pressure_bv`` and ``kpp_column``
-    once, ``tridiag_solve`` four times and ``elem_contrib_to_nodes``
-    six times); then throughput in float32 and float64, a 3-step
-    profile per dtype with the launches a step of each kernel counted in
-    it (the same gates) and the CG kernels' device us a launch, and the
-    subcycle loop's
-    milliseconds per step with the kernels and with
-    ``mevp_subcycle_plain`` (information);
+    the subdomain, and every kernel of the path launched
+    (``mevp_subcycles``, ``pressure_bv`` and ``kpp_column`` once a step,
+    ``tridiag_solve`` four times and ``elem_contrib_to_nodes`` six times;
+    the retired pair ``mevp_stress`` and ``mevp_node`` no longer a kernel);
+    then throughput in float32 and float64, a 3-step profile per dtype
+    with the launches a step of each kernel counted in it (the same gates,
+    ``mevp_subcycles`` once a step in both dtypes) and the CG kernels'
+    device us a launch in the step (``ring_spmv``, ``block_schwarz``), and
+    the subcycle loop's wall and device milliseconds a step (one launch;
+    information);
 13. the coupled step card against CPU on the level-3 globe, 3 float64
     steps, dense and CG forced: every ocean and ice field within 1e-8 of
     max|CPU| (the card's exp, pow and log differ from the CPU's in the
@@ -607,7 +612,7 @@ def main():
         xcol = x[:, None].contiguous()
         return ("ring_spmv", f"{label} ring {list(op.cols.shape)}",
                 lambda: op(x),
-                lambda: ssh.ring_spmv_plain(op.cols, op.vals, x), False,
+                lambda: ssh.ring_spmv_plain(op.cols, op.vals, x), True,
                 ssh.ring_spmv_work(Kr, N, size), lambda: ring @ xcol)
 
     def globe_cases(dtype):
@@ -643,10 +648,10 @@ def main():
         """The sea ice's kernels on the level-7 globe, at its state after
         one coupled step: elem_contrib_to_nodes at the six shapes of the
         step, on the subdomain's tables and on the whole globe (library
-        call: a CSR product over the same incidence), mevp_stress and
-        mevp_node on the subdomain's tables.
-        The mEVP kernels work in place: they are compared on copies and
-        timed on buffers of their own (an eighth item)."""
+        call: a CSR product over the same incidence), and
+        mevp_subcycles on the subdomain's tables (the step's subcycles in
+        one launch).  The mEVP kernel works in place: it is compared on
+        copies and timed on buffers of its own (an eighth item)."""
         m, atm = gm[dtype], gatm[dtype]
         mesh, cap = m.mesh, m.ice_sub
         size = torch.empty((), dtype=dtype).element_size()
@@ -663,7 +668,7 @@ def main():
         uv0 = torch.stack([ice_l.u_ice, ice_l.v_ice])
         sig0 = torch.stack([ice_l.sigma11, ice_l.sigma12, ice_l.sigma22])
         ice_tables[dtype] = (tab, uv0, sig0, cap)
-        Ns, Es, Ks = cap.n_nodes, cap.n_elems, cap.nod_in_elem.shape[1]
+        Ns, Es, Ks = cap.n_nodes, cap.n_elems, cap.elem_slot.shape[0]
         if dtype == torch.float64:
             say(f"phase 3 ice subdomain: {Ns} of {mesh.n_nodes} nodes, {Es} "
                 f"of {mesh.n_elems} elements, K={Ks}; nodes with ice "
@@ -704,20 +709,17 @@ def main():
                 ops.elem_contrib_to_nodes_work(
                     rows, n_e, n_n, tables.nod_in_elem.shape[1], size),
                 lambda inc=inc, xt=xt: inc @ xt))
-        work = evp.mevp_subcycle_work(Ns, Es, Ks, size)
-        fuv0 = evp.mevp_stress_plain(uv0, sig0, tab)[1].contiguous()
+        n_sub = m.cfg.ice.evp_rheol_steps
         sig_t, uv_t = sig0.clone(), uv0.clone()
-        out.append(("mevp_stress", f"subdomain uv {[2, Ns]} sig {[3, Es]}",
-                    lambda: tuple(x.clone() for x in evp.mevp_stress(
-                        uv0, sig0.clone(), tab, cap)),
-                    lambda: evp.mevp_stress_plain(uv0, sig0, tab), False,
-                    work["mevp_stress"], None,
-                    lambda: evp.mevp_stress(uv0, sig_t, tab, cap)))
-        out.append(("mevp_node", f"subdomain uv {[2, Ns]} fuv {[2, 3, Es]}",
-                    lambda: evp.mevp_node(uv0.clone(), fuv0, tab, cap),
-                    lambda: evp.mevp_node_plain(uv0, fuv0, tab, cap), False,
-                    work["mevp_node"], None,
-                    lambda: evp.mevp_node(uv_t, fuv0, tab, cap)))
+        out.append(("mevp_subcycles", f"subdomain uv {[2, Ns]} sig {[3, Es]} "
+                    f"x{n_sub}",
+                    lambda: evp.mevp_subcycles(uv0.clone(), sig0.clone(), tab,
+                                               cap, n_sub),
+                    lambda: evp.mevp_subcycles_plain(uv0, sig0, tab, cap,
+                                                     n_sub), True,
+                    evp.mevp_subcycles_work(Ns, Es, Ks, size, n_sub), None,
+                    lambda: evp.mevp_subcycles(uv_t, sig_t, tab, cap,
+                                               n_sub)))
         return out
 
     for label, mesh in (("channel", mesh64), ("globe", gmesh)):
@@ -855,28 +857,38 @@ def main():
                     f"one-hot, 50 calls between one pair of events: "
                     f"{lb_ms * 1e3:.1f} us a call")
 
-    # eight subcycles of the two mEVP kernels against eight of the plain
-    # version, from the ice state after one coupled step
-    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+    # mevp_subcycles against the plain loop after 1, 8 and 120 subcycles,
+    # from the ice state after one coupled step; its launch plan and the
+    # latency floor of its grid barriers
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
         tab, uv0, sig0, cap = ice_tables[dtype]
-        uv_k, sig_k = uv0.clone(), sig0.clone()
-        uv_p, sig_p = uv0, sig0
-        for _ in range(8):
-            uv_k, sig_k = evp.mevp_subcycle(uv_k, sig_k, tab, cap)
-            uv_p, sig_p = evp.mevp_subcycle_plain(uv_p, sig_p, tab, cap)
-        torch.cuda.synchronize()
-        rel = {k: max_abs(a, b) / float(b.abs().max())
-               for k, a, b in (("uv", uv_k, uv_p), ("sig", sig_k, sig_p))}
-        bitwise = torch.equal(uv_k, uv_p) and torch.equal(sig_k, sig_p)
-        moved = float((uv_p - uv0).abs().max())
-        say(f"phase 3 mevp 8 subcycles {str(dtype).replace('torch.', '')}: "
-            f"kernels vs plain uv {rel['uv']:.3e} sig {rel['sig']:.3e} of "
-            f"max|plain|, bit-equal: {bitwise}; the velocities moved by "
-            f"{moved:.3e} m/s")
-        if not (max(rel.values()) <= tol and moved > 0.0
-                and torch.isfinite(uv_k).all() and torch.isfinite(sig_k).all()):
-            fail(f"phase 3: 8 mEVP subcycles, kernels vs plain {rel} "
-                 f"(tol {tol})")
+        Ns, Es, Ks = cap.n_nodes, cap.n_elems, cap.elem_slot.shape[0]
+        for n in (1, 8, 120):
+            uv_p, sig_p = evp.mevp_subcycles_plain(uv0, sig0, tab, cap, n)
+            uv_k, sig_k = evp.mevp_subcycles(uv0.clone(), sig0.clone(), tab,
+                                             cap, n)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(uv_k, uv_p) and torch.equal(sig_k, sig_p)
+            moved = float((uv_p - uv0).abs().max())
+            say(f"phase 3 mevp_subcycles {tag} {n} subcycles: bit-equal to "
+                f"the plain loop: {bitwise} (uv {max_abs(uv_k, uv_p):.3e}, "
+                f"sig {max_abs(sig_k, sig_p):.3e}); the velocities moved by "
+                f"{moved:.3e} m/s")
+            if not (bitwise and moved > 0.0):
+                fail(f"phase 3: mevp_subcycles {tag} after {n} subcycles is "
+                     f"not the plain loop")
+        n_sub = gm[dtype].cfg.ice.evp_rheol_steps
+        plan = evp.mevp_subcycles_plan(dev, dtype, Ns, Es, Ks)
+        nb = evp.mevp_subcycles_barriers(n_sub)
+        floor_us = device_us(lambda: evp.mevp_barrier_floor(
+            dev, dtype, Ns, Es, Ks, nb), calls=5)
+        say(f"phase 3 mevp_subcycles {tag} {n_sub} subcycles: plan {plan}, "
+            f"latency floor ({nb} grid barriers, an empty kernel on the same "
+            f"grid) device_us={us_text(floor_us)} ({card})")
+        summary["mevp_subcycles"].setdefault("plan", {})[tag] = plan
+        summary["mevp_subcycles"].setdefault("barrier_floor_ms", {})[tag] = (
+            floor_us and floor_us / 1e3)
 
     # the three gather kernels on both numberings of the level-7 globe:
     # held against plain on the subdivision numbering too, then timed in
@@ -1197,7 +1209,7 @@ def main():
                 fail(f"phase 11: {label} {name} card vs CPU {rel:.3e} > {tol}")
 
     # phase 12 -----------------------------------------------------------
-    ice_kernels = ("elem_contrib_to_nodes", "mevp_stress", "mevp_node")
+    ice_kernels = ("elem_contrib_to_nodes", "mevp_subcycles")
     coupled_kernels = ci_kernels + ice_kernels
     atm64 = gatm[torch.float64]
     sub64 = m64.ice_sub
@@ -1248,12 +1260,14 @@ def main():
         fail(f"phase 12: max|u_ice| {uice} outside (0, 3) m/s")
     if outside or ice_outside_subdomain(ice, m64):
         fail(f"phase 12: ice at {outside} nodes outside the EVP subdomain")
-    for k in ("mevp_stress", "mevp_node"):
-        if per_coupled_step[k] != m64.cfg.ice.evp_rheol_steps:
-            fail(f"phase 12: {k} launched {per_coupled_step[k]} times a "
-                 f"step, not {m64.cfg.ice.evp_rheol_steps}")
+    retired = [k for k in ("mevp_stress", "mevp_node")
+               if k in kernels.LAUNCHES]
+    say(f"phase 12 the retired pair mevp_stress, mevp_node: "
+        f"{retired or 'no longer kernels, never launched'}")
+    if retired:
+        fail(f"phase 12: the retired mEVP kernels are still kernels: {retired}")
     step_calls = {"pressure_bv": 1, "tridiag_solve": 4, "kpp_column": 1,
-                  "elem_contrib_to_nodes": 6}
+                  "elem_contrib_to_nodes": 6, "mevp_subcycles": 1}
     for k, want in step_calls.items():
         if per_coupled_step[k] != want:
             fail(f"phase 12: {k} launched {per_coupled_step[k]} times a "
@@ -1319,23 +1333,36 @@ def main():
                            if step_ms[tag][k] and launches_dtype[tag][k]}
                      for tag in step_ms}
     say(f"phase 12 device us a launch in the profiled steps: {per_launch_us}")
-    # the subcycle loop of one step: 120 subcycles with the kernels (as the
-    # step runs them) and with mevp_subcycle_plain called directly
+    # the subcycle loop of one step as the step runs it: one launch of
+    # mevp_subcycles, wall ms by the host clock (to the synchronise after
+    # it), ms between CUDA events around it and device ms by the profiler
     n_sub = m64.cfg.ice.evp_rheol_steps
+    loop_ms = {}
     for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
         tab, uv0, sig0, cap = ice_tables[dtype]
+        uv_t, sig_t = uv0.clone(), sig0.clone()
 
-        def loop(subcycle, uv=uv0, sig=sig0, tab=tab, cap=cap):
-            uv, sig = uv.clone(), sig.clone()
-            for _ in range(n_sub):
-                uv, sig = subcycle(uv, sig, tab, cap)
-            return uv
-        k_ms = timed(lambda: loop(evp.mevp_subcycle), reps=5, warmup=1)
-        p_ms = timed(lambda: loop(evp.mevp_subcycle_plain), reps=3, warmup=1)
-        say(f"phase 12 subcycle loop {str(dtype).replace('torch.', '')}: "
-            f"{n_sub} subcycles take {k_ms:.3f} ms a step with the kernels "
-            f"({2 * n_sub} launches) and {p_ms:.3f} ms with "
-            f"mevp_subcycle_plain ({card})")
+        def loop(uv=uv_t, sig=sig_t, tab=tab, cap=cap):
+            evp.mevp_subcycles(uv, sig, tab, cap, n_sub)
+        loop()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            loop()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = sorted(walls)[len(walls) // 2]
+        ev_ms = timed(loop, reps=10, warmup=2)
+        dev_us = device_us(loop, calls=5)
+        loop_ms[tag] = {"wall_ms": wall, "events_ms": ev_ms,
+                        "device_ms": dev_us and dev_us / 1e3}
+        say(f"phase 12 subcycle loop {tag}: {n_sub} subcycles in 1 launch of "
+            f"mevp_subcycles take {wall:.3f} ms a step by the host clock, "
+            f"{ev_ms:.3f} ms between CUDA events around the call, device "
+            f"{us_text(dev_us and dev_us / 1e3)} ms by the profiler ({card})")
+    summary["mevp_subcycles"]["loop_ms_a_step"] = loop_ms
 
     # phase 13 -----------------------------------------------------------
     for label, limit in (("dense", dense_max_saved), ("CG forced", 0)):
@@ -1347,15 +1374,15 @@ def main():
             port_model.DENSE_SSH_MAX_NODES = dense_max_saved
         kernels.reset_launches()
         s_gpu, i_gpu = run_pi(on_gpu, atm_gpu, *pi_initial_state(on_gpu), 3)
-        n_evp = kernels.LAUNCHES["mevp_node"]
+        n_evp = kernels.LAUNCHES["mevp_subcycles"]
         s_cpu, i_cpu = run_pi(on_cpu, atm_cpu, *pi_initial_state(on_cpu), 3)
         say(f"phase 13 level-3 globe ({on_cpu.mesh.n_nodes} nodes, subdomain "
             f"{on_cpu.ice_sub.n_nodes}), {label}: CG iterations of the 3rd "
             f"step card {on_gpu.ssh_iters}, cpu {on_cpu.ssh_iters}; nodes "
             f"with ice {int((i_cpu.a_ice > 0).sum())}, max|u_ice| "
-            f"{float(i_cpu.u_ice.abs().max()):.4e}, mevp_node launches on "
-            f"the card {n_evp}")
-        if kernels.LAUNCHES["mevp_node"] != n_evp or n_evp != 3 * n_sub:
+            f"{float(i_cpu.u_ice.abs().max()):.4e}, mevp_subcycles launches "
+            f"on the card {n_evp}")
+        if kernels.LAUNCHES["mevp_subcycles"] != n_evp or n_evp != 3:
             fail("phase 13: the CPU path launched a kernel, or the card's "
                  "path did not")
         if not (float(i_cpu.a_ice.max()) > 0.5
@@ -1390,8 +1417,7 @@ def main():
                "pressure_bv": "fesom2_tpu/core/eos.py:88",
                "kpp_column": "fesom2_tpu/core/mixing/kpp.py:157",
                "elem_contrib_to_nodes": "fesom2_tpu/core/ops.py:283",
-               "mevp_stress": "fesom2_tpu/ice/evp.py:85",
-               "mevp_node": "fesom2_tpu/ice/evp.py:106"}
+               "mevp_subcycles": "fesom2_tpu/ice/evp.py:83"}
     # tridiag_solve's four calls a coupled step priced at phase 3's times
     # of their shapes (momentum on elements, gm_redi's nl rows, the tracers'
     # two solves), beside the profile's time
@@ -1437,10 +1463,15 @@ def main():
          "launches_per_coupled_step": per_coupled_step.get(k),
          "launches_per_coupled_step_f32": launches_dtype["float32"].get(k),
          "launches_per_cg_iteration": per_cg_iteration.get(k),
+         "step_device_us_a_launch": per_launch_us["float64"].get(k),
+         "step_device_us_a_launch_f32": per_launch_us["float32"].get(k),
          "step_device_ms": step_ms["float64"].get(k),
          "step_device_ms_f32": step_ms["float32"].get(k),
          **({"shapes": summary[k]["shapes"]} if "shapes" in summary[k]
             else {}),
+         **{key: summary[k][key] for key in ("barrier_floor_ms", "plan",
+                                             "loop_ms_a_step")
+            if key in summary[k]},
          **({"shapes_step_device_ms": step_rows[k]} if k in step_rows
             else {})}
         for k in kernels.KERNELS]}))

@@ -188,6 +188,13 @@ def ring_spmv_work(kr: int, n_nodes: int, itemsize: int) -> tuple:
             2 * kr * n_nodes)
 
 
+# the ring widths with a kernel of their own (csrc/ring_spmv.cu: the zstar
+# channels' ALE ring and the level-7 globe's); any other Kr up to
+# RING_MAX_SLOTS takes the generic kernel
+RING_TEMPLATED = (8, 10)
+RING_MAX_SLOTS = 64
+
+
 def ring_spmv(cols: torch.Tensor, vals: torch.Tensor,
               x: torch.Tensor) -> torch.Tensor:
     """y[n] = sum_k vals[k, n] * x[cols[k, n]] over the [Kr, N] ring
@@ -197,6 +204,9 @@ def ring_spmv(cols: torch.Tensor, vals: torch.Tensor,
     kernels.cuda_only(x, "ring_spmv")
     dev, dt = x.device, x.dtype
     Kr, N = cols.shape
+    if not 1 <= Kr <= RING_MAX_SLOTS:
+        raise ValueError(f"ring_spmv: Kr = {Kr} slots, the kernel takes 1 "
+                         f"to {RING_MAX_SLOTS}")
     x = x.contiguous()
     kernels.require(cols, "cols", (Kr, N), torch.int32, dev)
     kernels.require(vals, "vals", (Kr, N), dt, dev)

@@ -8,21 +8,21 @@ coastal BC.
 
 ``mevp_setup`` computes what is constant over the subcycles once per step
 (plain torch ops) and packs it into two tables, ``node_c`` [13, N] and
-``elem_c`` [10, E].  One subcycle is then ``mevp_subcycle``, that is
-``mevp_stress`` and ``mevp_node``: on a CUDA tensor two hand-written
-kernels (``csrc/mevp_subcycle.cu``: a thread per element, and a thread per
-node, which also does the node assembly of the stress divergence in slot
-order) that update the velocities and stresses in place; on a CPU tensor
-``mevp_stress_plain`` and ``mevp_node_plain`` (together
-``mevp_subcycle_plain``), the loop body as torch ops in the same order of
-operations.  A CUDA tensor
-goes through the kernels or the call raises.
+``elem_c`` [10, E].  The subcycles are then ``mevp_subcycles``: on CUDA
+tensors one hand-written cooperative kernel (``csrc/mevp_subcycle.cu``)
+that runs all of them in one launch, grid barriers between the element
+half and the node half, and updates the velocities and stresses in place;
+on CPU tensors ``mevp_subcycles_plain``, the loop of
+``mevp_subcycle_plain`` (``mevp_stress_plain`` then ``mevp_node_plain``,
+the loop body as torch ops in the kernel's order of operations).  A CUDA
+tensor goes through the kernel or the call raises.
 
 Standard EVP (``whichEVP = 0``), adaptive EVP (2) and the icepack strength
 field are not ported: ``ice_dynamics`` raises for them.
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -30,7 +30,8 @@ import torch
 
 from .. import kernels
 from ..constants import g, density_0
-from ..core.ops import elem_contrib_to_nodes, elem_contrib_to_nodes_plain
+from ..core.ops import (elem_contrib_to_nodes, elem_contrib_to_nodes_plain,
+                        elem_slot_of)
 from .state import IceState, IceForcing, OceanSurface, rhoice, rhosno
 
 # rows of MevpTables.node_c and MevpTables.elem_c
@@ -47,14 +48,14 @@ class MevpTables:
     node_c: torch.Tensor     # [13, N], rows NODE_ROWS (has_ice as 1 or 0)
     elem_c: torch.Tensor     # [10, E], rows ELEM_ROWS
     en: torch.Tensor         # [3, E] int32 element nodes, vertex-major
-    fuv: Optional[torch.Tensor]  # [2, 3, E] scratch of the kernels, or None
+    fuv: Optional[torch.Tensor]  # [2, E, 3] the kernel's scratch, or None
     det1: float              # alpha / (1 + alpha)
     vale: float              # 1 / ellipse^2
     delta_min: float
     rdt: float               # the ice time step
     rdt_cd: float            # rdt * Cd_oce_ice
     beta: float
-    checked: bool = False    # the kernels' view of the tables was verified
+    checked: bool = False    # the kernel's view of the tables was verified
 
 
 def mevp_setup(ice: IceState, mesh, forcing: IceForcing,
@@ -113,7 +114,7 @@ def mevp_setup(ice: IceState, mesh, forcing: IceForcing,
     on_card = node_c.device.type == "cuda"
     return MevpTables(
         node_c=node_c, elem_c=elem_c, en=mesh.elem_nodes.T.contiguous(),
-        fuv=torch.empty((2, 3, mesh.n_elems), dtype=dt, device=node_c.device)
+        fuv=torch.empty((2, mesh.n_elems, 3), dtype=dt, device=node_c.device)
         if on_card else None,
         det1=det1, vale=1.0 / icfg.ellipse ** 2, delta_min=icfg.delta_min,
         rdt=ice_dt, rdt_cd=ice_dt * icfg.Cd_oce_ice, beta=icfg.beta_evp)
@@ -191,87 +192,98 @@ def mevp_subcycle_plain(uv: torch.Tensor, sig: torch.Tensor,
     return mevp_node_plain(uv, fuv, tab, mesh), sig
 
 
-def mevp_subcycle_work(n_nodes: int, n_elems: int, k_max: int,
-                       itemsize: int) -> dict:
-    """(bytes, flops) of the two kernels of one subcycle.  ``mevp_stress``:
-    uv, the element nodes, ``elem_c``, the stresses read and written, fuv
-    written; about 70 operations an element.  ``mevp_node``: fuv, the two
-    [N, K] tables, ``node_c``, uv read and written; 2 K adds and about 45
-    operations a node."""
-    stress = ((2 * n_nodes + (len(ELEM_ROWS) + 3 + 3 + 6) * n_elems)
-              * itemsize + 3 * n_elems * 4, 70 * n_elems)
-    node = ((6 * n_elems + (len(NODE_ROWS) + 2 + 2) * n_nodes) * itemsize
-            + 2 * n_nodes * k_max * 4, (2 * k_max + 45) * n_nodes)
-    return {"mevp_stress": stress, "mevp_node": node}
+def mevp_subcycles_plain(uv: torch.Tensor, sig: torch.Tensor,
+                         tab: MevpTables, mesh, n: int):
+    """``n`` subcycles of ``mevp_subcycle_plain``: new (uv, sig)."""
+    for _ in range(n):
+        uv, sig = mevp_subcycle_plain(uv, sig, tab, mesh)
+    return uv, sig
+
+
+def mevp_subcycles_work(n_nodes: int, n_elems: int, k_max: int,
+                        itemsize: int, n_sub: int) -> tuple:
+    """(bytes, flops) of ``n_sub`` subcycles in one call.  Bytes: each
+    input once (uv, sig, ``elem_c``, ``node_c``, the element nodes, the
+    slot words ``elem_slot`` [K, N]) and each output once (uv, sig).
+    Flops, each subcycle: about 70 an element (strain rates, delta, the
+    stress update, the divergence of its three vertices) and 2 K adds and
+    about 45 operations a node."""
+    nbytes = ((2 + len(NODE_ROWS) + 2) * n_nodes
+              + (3 + len(ELEM_ROWS) + 3) * n_elems) * itemsize \
+        + (3 * n_elems + k_max * n_nodes) * 4
+    return nbytes, n_sub * (70 * n_elems + (2 * k_max + 45) * n_nodes)
+
+
+def mevp_subcycles_barriers(n_sub: int) -> int:
+    """The grid barriers one launch of ``n_sub`` subcycles crosses: one
+    after each element phase and one after each node phase but the last."""
+    return max(2 * n_sub - 1, 0)
 
 
 def _check_tables(tab: MevpTables, mesh, dev, dt) -> None:
     N, E = mesh.n_nodes, mesh.n_elems
-    K = mesh.nod_in_elem.shape[1]
+    slot = elem_slot_of(mesh)
     kernels.require(tab.node_c, "node_c", (len(NODE_ROWS), N), dt, dev)
     kernels.require(tab.elem_c, "elem_c", (len(ELEM_ROWS), E), dt, dev)
     kernels.require(tab.en, "en", (3, E), torch.int32, dev)
     if tab.fuv is None:
-        raise ValueError("fuv: the kernels' scratch was not allocated "
+        raise ValueError("fuv: the kernel's scratch was not allocated "
                          "(tables made for the CPU)")
-    kernels.require(tab.fuv, "fuv", (2, 3, E), dt, dev)
-    kernels.require(mesh.nod_in_elem, "nod_in_elem", (N, K), torch.int32, dev)
-    kernels.require(mesh.nod_in_elem_slot, "nod_in_elem_slot", (N, K),
-                    torch.int32, dev)
+    kernels.require(tab.fuv, "fuv", (2, E, 3), dt, dev)
+    kernels.require(slot, "elem_slot", (slot.shape[0], N), torch.int32, dev)
     tab.checked = True
 
 
-def _check_call(uv, sig, tab: MevpTables, mesh) -> int:
-    """Raise unless the kernels can read these tensors through raw
-    pointers; returns the dtype's code.  The per-step tables are verified
-    once (``tab.checked``), uv and sig at every call."""
-    kernels.cuda_only(uv, "mevp_subcycle")
+def mevp_subcycles(uv: torch.Tensor, sig: torch.Tensor, tab: MevpTables,
+                   mesh, n: int):
+    """``n`` mEVP subcycles: (uv [2, N], sig [3, E]) -> (uv, sig).  On CUDA
+    tensors one launch of the cooperative kernel updates ``uv`` and ``sig``
+    IN PLACE and returns them; a launch the card refuses raises.  On CPU
+    tensors ``mevp_subcycles_plain`` returns new tensors."""
+    if uv.device.type == "cpu":
+        return mevp_subcycles_plain(uv, sig, tab, mesh, n)
+    kernels.cuda_only(uv, "mevp_subcycles")
     dev, dt = uv.device, uv.dtype
     kernels.require(uv, "uv", (2, mesh.n_nodes), dt, dev)
-    if sig is not None:
-        kernels.require(sig, "sig", (3, mesh.n_elems), dt, dev)
+    kernels.require(sig, "sig", (3, mesh.n_elems), dt, dev)
     if not tab.checked:
         _check_tables(tab, mesh, dev, dt)
-    return kernels.float_code(dt)
+    slot = elem_slot_of(mesh)
+    kernels.launch("mevp_subcycles", dev, uv, sig, tab.fuv, tab.en, slot,
+                   tab.elem_c, tab.node_c, mesh.n_nodes, mesh.n_elems,
+                   slot.shape[0], n, tab.det1, tab.vale, tab.delta_min,
+                   tab.rdt, tab.rdt_cd, density_0, tab.beta,
+                   kernels.float_code(dt))
+    return uv, sig
 
 
-def mevp_stress(uv: torch.Tensor, sig: torch.Tensor, tab: MevpTables, mesh):
-    """The element half of a subcycle: (sig, fuv).  On a CUDA tensor the
-    kernel updates ``sig`` IN PLACE and writes ``tab.fuv``; on a CPU tensor
-    ``mevp_stress_plain`` returns new tensors."""
-    if uv.device.type == "cpu":
-        return mevp_stress_plain(uv, sig, tab)
-    code = _check_call(uv, sig, tab, mesh)
-    kernels.launch("mevp_stress", uv.device, uv, mesh.n_nodes, tab.en,
-                   mesh.n_elems, tab.elem_c, sig, tab.fuv, tab.det1, tab.vale,
-                   tab.delta_min, code)
-    return sig, tab.fuv
+def mevp_subcycles_plan(device, dtype, n_nodes: int, n_elems: int,
+                        k_max: int) -> dict:
+    """The launch ``mevp_subcycles`` makes for these sizes on ``device``:
+    grid, block, shared bytes a block, and whether the constants are staged
+    in shared memory."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = kernels.library().fesom_mevp_subcycles_plan(
+            n_nodes, n_elems, k_max, kernels.float_code(dtype),
+            ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"mevp_subcycles_plan: CUDA error {err}")
+    return dict(zip(("grid", "block", "smem_bytes", "staged"), out))
 
 
-def mevp_node(uv: torch.Tensor, fuv: torch.Tensor, tab: MevpTables, mesh):
-    """The node half of a subcycle: uv.  On a CUDA tensor the kernel
-    updates ``uv`` IN PLACE (each thread its own node); on a CPU tensor
-    ``mevp_node_plain`` returns a new tensor."""
-    if uv.device.type == "cpu":
-        return mevp_node_plain(uv, fuv, tab, mesh)
-    code = _check_call(uv, None, tab, mesh)
-    kernels.require(fuv, "fuv", (2, 3, mesh.n_elems), uv.dtype, uv.device)
-    kernels.launch("mevp_node", uv.device, uv, mesh.n_nodes, fuv,
-                   mesh.n_elems, mesh.nod_in_elem, mesh.nod_in_elem_slot,
-                   mesh.nod_in_elem.shape[1], tab.node_c, tab.rdt, tab.rdt_cd,
-                   density_0, tab.beta, code)
-    return uv
-
-
-def mevp_subcycle(uv: torch.Tensor, sig: torch.Tensor, tab: MevpTables,
-                  mesh):
-    """One mEVP subcycle: (uv [2, N], sig [3, E]) -> (uv, sig).  On CUDA
-    tensors the two kernels update ``uv`` and ``sig`` IN PLACE and return
-    them; on CPU tensors the plain versions return new tensors.  The
-    element kernel reads the velocities of the previous subcycle only, and
-    the node kernel writes its own node only, so one buffer of each does."""
-    sig, fuv = mevp_stress(uv, sig, tab, mesh)
-    return mevp_node(uv, fuv, tab, mesh), sig
+def mevp_barrier_floor(device, dtype, n_nodes: int, n_elems: int,
+                       k_max: int, n_barriers: int) -> None:
+    """Launch an empty cooperative kernel on ``mevp_subcycles``' grid for
+    these sizes that only crosses ``n_barriers`` grid barriers: the latency
+    floor of the barriers, for timing (never on the path)."""
+    lib = kernels.library()
+    with torch.cuda.device(device):
+        err = lib.fesom_mevp_barrier_floor(
+            n_nodes, n_elems, k_max, n_barriers, kernels.float_code(dtype),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"mevp_barrier_floor: CUDA error {err}")
 
 
 def mevp_dynamics(ice: IceState, mesh, forcing: IceForcing,
@@ -281,8 +293,7 @@ def mevp_dynamics(ice: IceState, mesh, forcing: IceForcing,
     tab = mevp_setup(ice, mesh, forcing, ocean, cfg)
     uv = torch.stack([ice.u_ice, ice.v_ice])
     sig = torch.stack([ice.sigma11, ice.sigma12, ice.sigma22])
-    for _ in range(cfg.ice.evp_rheol_steps):
-        uv, sig = mevp_subcycle(uv, sig, tab, mesh)
+    uv, sig = mevp_subcycles(uv, sig, tab, mesh, cfg.ice.evp_rheol_steps)
     return replace(ice, u_ice=uv[0], v_ice=uv[1], sigma11=sig[0],
                    sigma12=sig[1], sigma22=sig[2])
 

@@ -3,8 +3,10 @@
 ``LAUNCHES`` counts, per kernel, the launches made by its wrapper (the
 wrappers live beside their plain torch versions, in ``core/ops.py``,
 ``core/tracers.py``, ``core/ssh.py``, ``core/eos.py``,
-``core/mixing/kpp.py`` and ``scripts/gather_cost_model.py``).  The library is built and loaded on the first
-launch, never at import: the CPU path needs neither ``nvcc`` nor a card.
+``core/mixing/kpp.py``, ``ice/evp.py`` and
+``scripts/gather_cost_model.py``).  The library is built and loaded on the
+first launch, never at import: the CPU path needs neither ``nvcc`` nor a
+card.
 
 Beside each wrapper a ``*_work`` function counts, from shapes alone, the
 bytes the function must move and the operations it does; ``bound_ms``
@@ -19,9 +21,9 @@ import torch
 KERNELS = ("node_edge_reduce", "elem_to_node_mean", "tridiag_solve",
            "fct_bounds", "ring_spmv", "block_schwarz", "window_gather",
            "onehot_gather", "pressure_bv", "kpp_column",
-           "elem_contrib_to_nodes", "mevp_stress", "mevp_node")
+           "elem_contrib_to_nodes", "mevp_subcycles")
 # the source of each kernel under csrc/, where it is not <name>.cu
-SOURCES = {"mevp_stress": "mevp_subcycle.cu", "mevp_node": "mevp_subcycle.cu"}
+SOURCES = {"mevp_subcycles": "mevp_subcycle.cu"}
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -43,8 +45,10 @@ _ARGTYPES = {
     "pressure_bv": [_P] * 7 + [_I, _I, _I, _D, _D] + [_P] * 5 + [_I, _P],
     "kpp_column": [_P] * 15 + [_I] * 3 + [_D] * 8 + [_P] * 4 + [_I, _P],
     "elem_contrib_to_nodes": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P],
-    "mevp_stress": [_P, _I, _P, _I, _P, _P, _P, _D, _D, _D, _I, _P],
-    "mevp_node": [_P, _I, _P, _I, _P, _P, _I, _P, _D, _D, _D, _D, _I, _P],
+    "mevp_subcycles": [_P] * 7 + [_I] * 4 + [_D] * 7 + [_I, _P],
+    # no stream: the launch mevp_subcycles would make, into a host int32 [4]
+    "mevp_subcycles_plan": [_I] * 4 + [_P],
+    "mevp_barrier_floor": [_I] * 5 + [_P],
 }
 _LIB = None
 BLOCK_THREADS = 256     # threads per block of the one-thread-per-item kernels

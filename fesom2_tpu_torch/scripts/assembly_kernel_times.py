@@ -42,15 +42,14 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import importlib.util
 import json
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from .timing import batch_ms, card_name, digest, same_bits
+from .timing import (batch_ms, card_name, digest, kernel_us,
+                     load_checkout_library, same_bits)
 
 MESH = dict(force_rotation=True, cyclic_length_deg=360.0,
             use_partial_cell=True)
@@ -64,12 +63,7 @@ EARLIER = (("subdomain", (), False, 2), ("globe", (3,), True, 2),
 
 def load_parent_library(root: str) -> ctypes.CDLL:
     """Build and load the kernel library of the checkout at ``root``."""
-    spec = importlib.util.spec_from_file_location(
-        "parent_kernels_build",
-        Path(root) / "fesom2_tpu_torch" / "kernels" / "build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    lib = ctypes.CDLL(str(mod.build()))
+    lib = load_checkout_library(root)
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.fesom_elem_contrib_to_nodes.argtypes = [P, I, I, P, P, I, I, I, P, I,
                                                 P]
@@ -92,28 +86,6 @@ def parent_assembly(lib, x, tables, vertex_major: bool):
     if err:
         raise RuntimeError(f"parent elem_contrib_to_nodes: CUDA error {err}")
     return out.reshape(x.shape[:-2] + (N,))
-
-
-def kernel_us(fn, name: str, calls: int = 20, flush=None) -> float:
-    """Device microseconds per call of the CUDA kernels of fn() whose name
-    holds ``name``, from torch.profiler; ``flush`` (a large tensor) is
-    overwritten before every call, so each call finds a cold L2."""
-    from torch.autograd import DeviceType
-    from torch.profiler import profile, ProfilerActivity
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):                  # a dropped trace is taken again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                if flush is not None:
-                    flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and name in e.key) / calls
-        if us > 0:
-            return us
-    return float("nan")
 
 
 def main(argv=None) -> int:

@@ -64,6 +64,43 @@ def batch_ms(fn, calls: int = 20, batches: int = 1) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def kernel_us(fn, name: str, calls: int = 20, flush=None) -> float:
+    """Device microseconds per call of the CUDA kernels of fn() whose name
+    holds ``name``, from torch.profiler; ``flush`` (a large tensor) is
+    overwritten before every call, so each call finds a cold L2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):                  # a dropped trace is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and name in e.key) / calls
+        if us > 0:
+            return us
+    return float("nan")
+
+
+def load_checkout_library(root: str):
+    """Build (if needed) and load the kernel library of the checkout at
+    ``root`` from its own sources, beside this checkout's; the caller sets
+    the argument types of the entries it calls."""
+    import ctypes
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "checkout_kernels_build",
+        Path(root) / "fesom2_tpu_torch" / "kernels" / "build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return ctypes.CDLL(str(mod.build()))
+
+
 def device_kernels_us(fn, calls: int = 10) -> dict:
     """Device microseconds per call of each CUDA kernel fn() launches."""
     from torch.autograd import DeviceType

@@ -3,8 +3,10 @@ card, at a small size (the channel of 8 x 24 nodes, 10 layers; the gather
 probe at G=16, W=64, T=32, NL=8; the column kernels pressure_bv and
 kpp_column on the level-3 globe with 20 layers, partial cells; the cluster
 kernels elem_to_node_mean and fct_bounds there too, with 19 layers; the
-sea ice's elem_contrib_to_nodes, mevp_stress and mevp_node on the level-3
-globe and its ice subdomain).
+sea ice's elem_contrib_to_nodes and mevp_subcycles on the level-3 globe
+and its ice subdomain, mevp_subcycles also on the whole level-7 globe, more
+elements than the resident grid has threads; ring_spmv at every ring width
+with a kernel of its own and at two the generic kernel takes).
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run on a machine that has only torch:
@@ -12,11 +14,14 @@ so they run on a machine that has only torch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerance: 1e-12 (float64) and 1e-5 (float32) of max|plain|; fct_bounds,
-tridiag_solve, the two probe kernels and the three ice kernels bitwise;
+tridiag_solve, the two probe kernels, the two ice kernels and the
+ring_spmv width cases bitwise;
 pressure_bv's mld2 equal in float64.  ``chip_smoke.py`` makes the same
 comparison at full size.
 """
+import contextlib
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -314,9 +319,9 @@ def test_column_kernels_match_plain_on_card(tmp_path, rng, dtype, tol):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_ice_kernels_equal_plain_on_card(tmp_path, rng, dtype):
     """elem_contrib_to_nodes in both layouts, on the mesh and on the ice
-    subdomain's tables, and eight mEVP subcycles of mevp_stress and
-    mevp_node, each bit-equal to its plain version (the same slot order
-    and order of operations); a CUDA tensor never takes the plain path."""
+    subdomain's tables, and one launch of mevp_subcycles after 1, 8 and
+    120 subcycles, each bit-equal to its plain version (the same slot order and order of operations); a CUDA tensor
+    never takes the plain path."""
     _need_card()
     from fesom2_tpu_torch.ice import evp
     from fesom2_tpu_torch.ice.state import (OceanSurface, allocate_ice,
@@ -355,13 +360,12 @@ def test_ice_kernels_equal_plain_on_card(tmp_path, rng, dtype):
     tab = evp.mevp_setup(ice, sub, forcing, surf, pi_config())
     uv0 = torch.stack([ice.u_ice, ice.v_ice])
     sig0 = torch.stack([ice.sigma11, ice.sigma12, ice.sigma22])
-    uv_k, sig_k, uv_p, sig_p = uv0.clone(), sig0.clone(), uv0, sig0
-    for _ in range(8):
-        uv_k, sig_k = evp.mevp_subcycle(uv_k, sig_k, tab, sub)
-        uv_p, sig_p = evp.mevp_subcycle_plain(uv_p, sig_p, tab, sub)
-    assert torch.equal(uv_k, uv_p) and torch.equal(sig_k, sig_p)
-    assert float((uv_p - uv0).abs().max()) > 0.0
-    assert kernels.LAUNCHES["mevp_stress"] == kernels.LAUNCHES["mevp_node"] == 8
+    for n in (1, 8, 120):
+        want = evp.mevp_subcycles_plain(uv0, sig0, tab, sub, n)
+        got = evp.mevp_subcycles(uv0.clone(), sig0.clone(), tab, sub, n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert float((want[0] - uv0).abs().max()) > 0.0
+    assert kernels.LAUNCHES["mevp_subcycles"] == 3
     assert N > sub.n_nodes
 
 
@@ -439,3 +443,153 @@ def test_column_kernel_cases_on_card(tmp_path, rng, dtype, tol):
         x = ops.tridiag_solve(a, b, c, d[0])        # d [L, X]: one rhs
         assert torch.equal(x, ops.tridiag_solve_plain(a, b, c, d[0]))
     assert kernels.LAUNCHES["tridiag_solve"] == 16
+
+
+# --------------------------------------------------------------------------
+# ring_spmv's slot order and mevp_subcycles' refused launch (CPU)
+# --------------------------------------------------------------------------
+def random_ring(rng, kr, n, dtype):
+    """A ring [kr, n]: random columns, a third of the slots padded (the
+    node itself, value 0), as ``build_ssh_ring`` pads."""
+    cols = rng.integers(0, n, (kr, n))
+    vals = rng.uniform(-1.0, 1.0, (kr, n))
+    pad = rng.uniform(size=(kr, n)) < 0.3
+    cols = np.where(pad, np.arange(n), cols).astype(np.int32)
+    vals = np.where(pad, 0.0, vals).astype(dtype)
+    return cols, vals, rng.uniform(-1.0, 1.0, n).astype(dtype)
+
+
+def emulate_ring_spmv(cols, vals, x):
+    """The kernels' data flow, a numpy lane per thread: a templated width
+    (8, 10) loads all its 2 Kr table words, then gathers all Kr values,
+    then adds in the order k = 0..Kr-1 from 0; the generic kernel does the
+    same eight slots at a time, then one at a time."""
+    kr = cols.shape[0]
+    chunks = [(0, kr)] if kr in ssh.RING_TEMPLATED else \
+        [(k, k + 8) for k in range(0, kr - kr % 8, 8)] \
+        + [(k, k + 1) for k in range(kr - kr % 8, kr)]
+    acc = np.zeros_like(x)
+    for k0, k1 in chunks:
+        c, v = cols[k0:k1].copy(), vals[k0:k1].copy()
+        g = x[c]
+        for k in range(k1 - k0):
+            acc = acc + v[k] * g[k]
+    return acc
+
+
+@pytest.mark.parametrize("kr", [8, 10, 13])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_ring_spmv_slot_order_equals_plain(rng, kr, dtype):
+    cols, vals, x = random_ring(rng, kr, 5000, dtype)
+    want = ssh.ring_spmv_plain(torch.from_numpy(cols).long(),
+                               torch.from_numpy(vals), torch.from_numpy(x))
+    assert np.array_equal(emulate_ring_spmv(cols, vals, x), want.numpy())
+    assert (kr in ssh.RING_TEMPLATED) == (kr != 13)
+
+
+def test_refused_cooperative_launch_raises(monkeypatch):
+    """A cooperative launch the card refuses (too many blocks) raises
+    through ``kernels.launch``, counts no launch, and nothing falls back to
+    the plain loop: traced on the CPU with tensors that are not on it and
+    a library that refuses."""
+    class Refusing:
+        def fesom_mevp_subcycles(self, *args):
+            return 82            # cudaErrorCooperativeLaunchTooLarge
+
+        def fesom_error_string(self, err):
+            return b"too many blocks in cooperative launch"
+
+    from fesom2_tpu_torch.ice import evp
+    monkeypatch.setattr(kernels, "_LIB", Refusing())
+    monkeypatch.setattr(kernels, "cuda_only", lambda x, what: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(evp, "mevp_subcycles_plain", None)
+    N, E, K = 40, 60, 6
+    meta = lambda *shape, dtype=torch.float64: torch.empty(
+        shape, dtype=dtype, device="meta")
+    mesh = types.SimpleNamespace(n_nodes=N, n_elems=E,
+                                 elem_slot=meta(K, N, dtype=torch.int32))
+    tab = evp.MevpTables(
+        node_c=meta(13, N), elem_c=meta(10, E),
+        en=meta(3, E, dtype=torch.int32), fuv=meta(2, E, 3),
+        det1=0.5, vale=0.25, delta_min=1e-11, rdt=1800.0, rdt_cd=9.9,
+        beta=500.0)
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="cooperative launch"):
+        evp.mevp_subcycles(meta(2, N), meta(3, E), tab, mesh, 120)
+    assert kernels.LAUNCHES["mevp_subcycles"] == 0
+
+
+# --------------------------------------------------------------------------
+# on the card
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ring_spmv_every_width_bitwise_on_card(rng, dtype):
+    """ring_spmv bit-equal to ring_spmv_plain at the templated widths (8,
+    10) and at two the generic kernel takes (7, 13); a column outside [0,
+    N) makes its node NaN and no other."""
+    _need_card()
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    kernels.reset_launches()
+    for kr in (8, 10, 7, 13):
+        cols, vals, x = (torch.as_tensor(a, device="cuda")
+                         for a in random_ring(rng, kr, 46000, npd))
+        assert torch.equal(ssh.ring_spmv(cols, vals, x),
+                           ssh.ring_spmv_plain(cols, vals, x))
+        bad = cols.clone()
+        bad[kr - 1, 5] = 46000
+        y = ssh.ring_spmv(bad, vals, x)
+        assert bool(y[5].isnan()) and int(y.isnan().sum()) == 1
+    assert kernels.LAUNCHES["ring_spmv"] == 8
+    with pytest.raises(ValueError, match="Kr"):
+        ssh.ring_spmv(torch.zeros((65, 10), dtype=torch.int32, device="cuda"),
+                      torch.zeros((65, 10), dtype=dtype, device="cuda"),
+                      torch.zeros(10, dtype=dtype, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_mevp_subcycles_whole_globe_on_card(tmp_path, rng, dtype):
+    """mevp_subcycles on the whole level-7 globe (225,854 elements, more
+    than the resident grid has threads: items walked grid-stride, or
+    staged per block where they fit) after 1, 8 and 120 subcycles,
+    bit-equal to the plain loop."""
+    _need_card()
+    from fesom2_tpu_torch.ice import evp
+    from fesom2_tpu_torch.ice.state import (OceanSurface, allocate_ice,
+                                            zero_ice_forcing)
+    path = globe.write_globe(str(tmp_path), level=7)
+    m = build_mesh(path, force_rotation=True, use_partial_cell=True,
+                   device="cuda", dtype=dtype)
+    N, E = m.n_nodes, m.n_elems
+    assert E == 225854
+    put = lambda a: torch.as_tensor(a, device="cuda").to(dtype)
+    u = lambda lo, hi, n=N: put(rng.uniform(lo, hi, n))
+    ice = dataclasses.replace(
+        allocate_ice(m, dtype), u_ice=u(-0.1, 0.1), v_ice=u(-0.1, 0.1),
+        m_ice=u(0.0, 2.0), a_ice=u(0.0, 1.0), m_snow=u(0.0, 0.3),
+        sigma11=u(-100.0, 100.0, E), sigma12=u(-100.0, 100.0, E),
+        sigma22=u(-100.0, 100.0, E))
+    forcing = dataclasses.replace(zero_ice_forcing(m, dtype),
+                                  stress_atmice_x=u(-0.2, 0.2),
+                                  stress_atmice_y=u(-0.2, 0.2))
+    surf = OceanSurface(T_oc=u(-1.0, 1.0), S_oc=u(33.0, 35.0),
+                        u_w=u(-0.05, 0.05), v_w=u(-0.05, 0.05),
+                        elevation=u(-0.3, 0.3))
+    tab = evp.mevp_setup(ice, m, forcing, surf, pi_config())
+    uv0 = torch.stack([ice.u_ice, ice.v_ice])
+    sig0 = torch.stack([ice.sigma11, ice.sigma12, ice.sigma22])
+    K = m.cluster.elem_slot.shape[0]
+    plan = evp.mevp_subcycles_plan("cuda", dtype, N, E, K)
+    print(f"whole globe {dtype}: {plan}")
+    assert plan["grid"] * plan["block"] < E
+    kernels.reset_launches()
+    for n in (1, 8, 120):
+        want = evp.mevp_subcycles_plain(uv0, sig0, tab, m, n)
+        got = evp.mevp_subcycles(uv0.clone(), sig0.clone(), tab, m, n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kernels.LAUNCHES["mevp_subcycles"] == 3
