@@ -40,7 +40,7 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    through ``node_edges``, ``nod_in_elem`` and ``node_neighbors``; then
    ``node_edge_reduce``, ``elem_to_node_mean`` and ``fct_bounds`` are held
    against their plain versions on the subdivision-numbered globe and
-   timed on both numberings in turns; ``onehot_gather``'s method bound is
+   timed once on each numbering; ``onehot_gather``'s method bound is
    that of three bf16 products on the tensor cores, and ``torch.bmm`` is
    also timed over 50 calls between one pair of events; the sea ice's
    two kernels on the level-7 globe after one coupled step:
@@ -55,6 +55,12 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    with its launch plan and its latency floor (an empty cooperative kernel
    on the same grid crossing the same grid barriers); ``ring_spmv``
    bitwise at both rings (the channel's [8, N], the globe's [10, N]);
+   the shapes the ocean dynamics menus add on the level-7 globe:
+   ``ring_spmv`` bitwise on the fast configuration's static linfs ring,
+   ``elem_contrib_to_nodes`` bitwise at [L, E, 3] (the vector-invariant
+   momentum's kinetic energy) and ``elem_to_node_mean`` on one [L, E]
+   field with and without the level mask (the viscosity menu's
+   smoothing), each with its bound and library call;
 4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
    linfs, dense SSH) through ``run.run_soufflet``, with sanity bounds,
    linfs volume conservation and a launch count above 0 for every kernel
@@ -62,7 +68,7 @@ Run from the root of a checkout.  Phases, each reported on its own line:
 5. 5 float64 steps on the card (kernels) against 5 on the CPU (plain
    versions) from the same state, within 1e-9 of max|CPU|;
 6. setup seconds, then throughput of 30 float32 and 30 float64 steps
-   after 2 warm-up steps, alternately and twice each, and a profile of 5
+   after 2 warm-up steps, one dtype after the other, and a profile of 5
    float32 steps (information, not a gate);
 7. the gather probe (``python -m fesom2_tpu_torch.scripts.
    gather_cost_model``): ``gather_probe()``, whose two kernels must equal
@@ -73,7 +79,7 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    ``run.run_soufflet`` with the sanity bounds, area-mean hbar below 1e-6
    and every kernel of the path launched; CG iterations per step, setup
    seconds, then throughput in float32 and float64 (20 steps each,
-   alternately and twice each);
+   one after the other);
 9. the CG path card against CPU: the 2,875-node channel, zstar, with CG
    forced (``DENSE_SSH_MAX_NODES = 0``), 5 float64 steps, within 1e-8 of
    max|CPU|;
@@ -85,7 +91,7 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     float64 steps gated on finite fields, |u| < 3 m/s, T in [-3, 35] C,
     area-mean hbar below 1e-6 m and every kernel of the path launched;
     CG iterations per step, setup seconds, throughput in float32 and
-    float64 (20 steps each, alternately and twice each), the launches of
+    float64 (20 steps each, one after the other), the launches of
     each kernel per step (the CG kernels also per iteration) and a 3-step
     profile per dtype (information);
 11. the CI ocean card against CPU on the level-3 globe, 5 float64 steps:
@@ -107,27 +113,52 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     the retired pair ``mevp_stress`` and ``mevp_node`` no longer a kernel);
     then throughput in float32 and float64, a 3-step profile per dtype
     with the launches a step of each kernel counted in it (the same gates,
-    ``mevp_subcycles`` once a step in both dtypes) and the CG kernels'
-    device us a launch in the step (``ring_spmv``, ``block_schwarz``), and
-    the subcycle loop's wall and device milliseconds a step (one launch;
-    information);
+    ``mevp_subcycles`` once a step in both dtypes), the device ms a step
+    under each ``record_function`` span (``span_device_ms``) and the CG
+    kernels' device us a launch in the step (``ring_spmv``,
+    ``block_schwarz``), and the subcycle loop's wall and device
+    milliseconds a step (one launch; information);
 13. the coupled step card against CPU on the level-3 globe, 3 float64
     steps, dense and CG forced: every ocean and ice field within 1e-8 of
     max|CPU| (the card's exp, pow and log differ from the CPU's in the
     last bits, and 120 subcycles, the Newton iterations of the ice
-    surface temperature and three ocean steps carry them on).
+    surface temperature and three ocean steps carry them on);
+14. the fast configuration's coupled step at full width
+    (``setup_pi_model(parity="fast")``: ``bench.py``'s
+    ``BENCH_PARITY=fast``, linfs + PP on full cells, no GM/Redi, the same
+    ice) on the level-7 globe: 20 float64 steps gated on the ocean bounds
+    of phase 10 with the area-mean hbar within 1e-6 m of 0 (under linfs
+    the freshwater flux is a virtual salt flux), the ice bounds of phase
+    12, every kernel of the path launched and ``kpp_column`` never
+    (``pressure_bv`` and ``mevp_subcycles`` once a step,
+    ``elem_contrib_to_nodes`` six times); throughput in float32 and
+    float64 with CG iterations a step, a 3-step profile per dtype with its
+    launches a step of each kernel (the same gates), its device ms a step
+    per kernel and per span;
+15. the ocean dynamics menus card against CPU, 3 float64 steps each,
+    every field within 1e-8 of max|CPU| and no kernel launched on the
+    CPU path: on the level-3 globe the fast coupled step (dense and CG
+    forced), zlevel, ``use_floatice`` under zstar (coupled),
+    ``mom_adv=3``, ``visc_option`` 1-4 and 6-8 and the PGF forms
+    (cubicspline, easypgf under zstar; nemo, shchepetkin, cubicspline,
+    easypgf under linfs with partial cells), the CI ocean where the ice
+    is not needed; nemo and cubicspline on the linfs channel (full cells).
 
 Any failure exits non-zero before the last line.  Before it come one
 JSON line with the gather kernels' device times on both numberings, one
+with the device ms a step per span of both coupled steps and each menu
+case's worst field, one
 with every kernel's launches, error, times, bound and library time (with
-the device ms a coupled step spends in it, from phase 12's profiles, its
-launches a float64 and a float32 coupled step, and the times of every
+the device ms a coupled step spends in it, from phase 12's and phase 14's
+profiles, its launches a float64 and a float32 coupled step of both
+configurations, and the times of every
 shape of tridiag_solve, elem_contrib_to_nodes, block_schwarz, ring_spmv
 and kpp_column, the first two's calls a step also priced at those times), the
 seconds the run took and the card; the last line is
 ``{"ok": true, "device": {...}}``.  It needs one card and exits non-zero
 where CUDA is not available.
 """
+import bisect
 import json
 import subprocess
 import sys
@@ -219,14 +250,39 @@ def csr(rows, cols, vals, shape):
                                    shape).coalesce().to_sparse_csr()
 
 
+def span_device_ms(prof, n: int) -> dict:
+    """Device ms a step of the CUDA kernels under each ``step.*`` span: a
+    kernel belongs to the span whose device-side range (the profiler's
+    copy of the ``record_function`` span on the card's timeline) holds its
+    start; kernels outside every span count as "outside spans"."""
+    from torch.autograd import DeviceType
+    spans, kern = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        (spans if e.name.startswith("step.") else kern).append(e)
+    spans.sort(key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in spans]
+    out = {}
+    for k in kern:
+        i = bisect.bisect_right(starts, k.time_range.start) - 1
+        name = "outside spans"
+        if i >= 0 and k.time_range.start < spans[i].time_range.end:
+            name = spans[i].name
+        out[name] = out.get(name, 0.0) + k.time_range.elapsed_us()
+    return {k: v / 1e3 / n for k, v in sorted(out.items(),
+                                              key=lambda kv: -kv[1])}
+
+
 def profile_steps(phase: str, model, state, n: int, card: str, run=None,
-                  also=()):
+                  also=(), spans=None):
     """Profile n steps (``run(model, state, n)``, by default
     ``run_soufflet``): wall and device kernel time, the busy share, the
     kernels per step, the 12 costliest kernels, every kernel whose name
     holds one of ``also``, and the host time of each ``step.*`` span
     (information, not a gate).  Returns the device us per step of each
-    CUDA kernel by name."""
+    CUDA kernel by name; with a dict ``spans``, also fills it with the
+    device ms a step under each span (``span_device_ms``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
@@ -257,6 +313,13 @@ def profile_steps(phase: str, model, state, n: int, card: str, run=None,
                      and e.device_type == DeviceType.CPU), key=lambda e: e.key):
         say(f"{phase} span {e.key:14s} host {e.cpu_time_total / 1e3 / n:8.3f} "
             f"ms/step")
+    if spans is not None:
+        spans.update(span_device_ms(prof, n))
+        total = sum(spans.values())
+        say(f"{phase} device ms a step per span "
+            f"{str(model.dtype).replace('torch.', '')} (kernels {total:.3f} "
+            f"ms a step; {card}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
     return {e.key: e.self_device_time_total / n for e in kern}
 
 
@@ -319,6 +382,40 @@ def check_globe(phase: str, model, state, launches: dict,
         fail(f"{phase}: kernels never launched on the path: {idle}")
 
 
+def check_ice(phase: str, model, state, ice, ice0):
+    """The coupled step's ice bounds after its 20 steps: every ice field
+    finite, 0 <= a_ice <= 1, m_ice and m_snow >= 0, some a_ice > 0.5,
+    0 < max|u_ice| < 3 m/s and no ice outside the EVP subdomain."""
+    import torch
+    from fesom2_tpu_torch.run import ice_outside_subdomain, step_info
+    for name in ("u_ice", "v_ice", "m_ice", "a_ice", "m_snow", "sigma11",
+                 "sigma12", "sigma22", "t_skin", "net_heat_flux",
+                 "fresh_wa_flux"):
+        if not torch.isfinite(getattr(ice, name)).all():
+            fail(f"{phase}: ice.{name} is not finite")
+    info = step_info(state, model.mesh, ice)
+    outside = int(((ice.a_ice > 0) & ~model.ice_sub.node_mask).sum())
+    say(f"{phase} ice after 20 steps: a_ice in [{float(ice.a_ice.min()):.4f}, "
+        f"{info['aice_max']:.4f}], nodes with ice {int((ice.a_ice > 0).sum())} "
+        f"(at the start {int((ice0.a_ice > 0).sum())}), area "
+        f"{info['ice_area']:.6e} m^2, volume {info['ice_volume']:.6e} m^3, "
+        f"max m_ice {info['hice_max']:.4f} m, min m_snow "
+        f"{float(ice.m_snow.min()):.3e}, max|u_ice| {info['uice_max']:.4f} "
+        f"m/s, max|sigma| {float(ice.sigma11.abs().max()):.3e}, nodes with "
+        f"ice outside the subdomain {outside}")
+    if not (float(ice.a_ice.min()) >= 0.0 and info["aice_max"] <= 1.0
+            and float(ice.m_ice.min()) >= 0.0
+            and float(ice.m_snow.min()) >= 0.0):
+        fail(f"{phase}: ice concentration, thickness or snow out of range")
+    if not info["aice_max"] > 0.5:
+        fail(f"{phase}: no node with a_ice > 0.5")
+    uice = max(info["uice_max"], float(ice.v_ice.abs().max()))
+    if not 0.0 < uice < 3.0:
+        fail(f"{phase}: max|u_ice| {uice} outside (0, 3) m/s")
+    if outside or ice_outside_subdomain(ice, model):
+        fail(f"{phase}: ice at {outside} nodes outside the EVP subdomain")
+
+
 def kpp_flips(got, want, nlevels, tol):
     """Columns where kpp_column and its plain version differ beyond the
     tolerance, and among them those whose boundary layer ends at another
@@ -355,9 +452,8 @@ def main():
     from fesom2_tpu_torch.mesh.channel import channel_raw_mesh, write_mesh
     from fesom2_tpu_torch.model import (pi_coupled_step_fn, pi_initial_state,
                                         setup_pi_model, setup_soufflet_model)
-    from fesom2_tpu_torch.run import (globe_ocean_inputs,
-                                      ice_outside_subdomain, run_pi,
-                                      run_pi_ocean, run_soufflet, step_info)
+    from fesom2_tpu_torch.run import (globe_ocean_inputs, run_pi,
+                                      run_pi_ocean, run_soufflet)
     from fesom2_tpu_torch.scripts import gather_cost_model as probe
 
     # phase 1 ------------------------------------------------------------
@@ -383,6 +479,7 @@ def main():
         say(f"  {line.strip()}")
 
     # phase 3 ------------------------------------------------------------
+    say(f"phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     model64 = setup_soufflet_model(device=dev, dtype=torch.float64)
     mesh64 = model64.mesh
     N, E, Ed, L = mesh64.n_nodes, mesh64.n_elems, mesh64.n_edges, mesh64.nl - 1
@@ -442,6 +539,17 @@ def main():
         gm_setup[dtype] = time.perf_counter() - t0
         gin[dtype] = globe_ocean_inputs(gm[dtype], seed=0)
         g1[dtype] = run_pi_ocean(gm[dtype], *gin[dtype], 1)
+    # the fast configuration (bench.py's BENCH_PARITY=fast: linfs + PP,
+    # full cells, no GM/Redi) on the same globe: its static linfs ring
+    # feeds phase 3, its models phase 14
+    gf, gfatm, gf_setup = {}, {}, {}
+    for dtype in (torch.float64, torch.float32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gf[dtype], gfatm[dtype] = setup_pi_model(globe_path, device=dev,
+                                                 dtype=dtype, parity="fast")
+        torch.cuda.synchronize()
+        gf_setup[dtype] = time.perf_counter() - t0
     gmesh = gm[torch.float64].mesh
     say(f"phase 3 globe: N={gmesh.n_nodes} E={gmesh.n_elems} "
         f"Ed={gmesh.n_edges} layers={gmesh.nl - 1} levels per column "
@@ -598,12 +706,13 @@ def main():
         return out
 
     def ring_case(label, m, dtype):
-        """ring_spmv with model m's ALE ring, its values rebuilt from a
-        0.5 m hbar perturbation as a step does; library call: a CSR
-        product."""
+        """ring_spmv with model m's ring: an ALE ring's values rebuilt from
+        a 0.5 m hbar perturbation as a step does, a linfs ring as it is;
+        library call: a CSR product."""
         size = torch.empty((), dtype=dtype).element_size()
         hbar_e = rand(m.mesh.n_elems, lo=-0.5, hi=0.5, dtype=dtype)
-        op = m.ssh_ring.materialize(hbar_e)
+        op = m.ssh_ring.materialize(hbar_e) \
+            if isinstance(m.ssh_ring, ssh.RingALE) else m.ssh_ring
         N = m.mesh.n_nodes
         x = rand(N, dtype=dtype)
         Kr = op.cols.shape[0]
@@ -644,6 +753,71 @@ def main():
     ice_tables = {}
     ecn_calls = {}      # elem_contrib_to_nodes: calls a coupled step by shape
 
+    def ecn_case(label, tables, lead, vertex_major, dtype, calls, site):
+        """elem_contrib_to_nodes on contrib [*lead, 3, E] (vertex-major) or
+        [*lead, E, 3] of ``tables`` (the mesh or the ice subdomain), with
+        its calls a CI coupled step and the call site that gives it;
+        library call: a CSR product over the same incidence."""
+        size = torch.empty((), dtype=dtype).element_size()
+        n_e, n_n = tables.n_elems, tables.n_nodes
+        x = rand(*lead, *((3, n_e) if vertex_major else (n_e, 3)),
+                 dtype=dtype)
+        rows = x.numel() // (3 * n_e)
+        ecn_calls[f"{label} {list(x.shape)}"] = {
+            "launches_per_coupled_step": calls, "site": site}
+        idx, valid = ops._contrib_index(tables, vertex_major)
+        inc = csr(torch.arange(n_n, device=dev)[:, None].expand_as(idx)[
+            valid], idx[valid], torch.ones(int(valid.sum()), dtype=dtype,
+                                           device=dev), (n_n, 3 * n_e))
+        xt = x.reshape(rows, -1).T.contiguous()
+        fn = ops.elem_contrib_to_nodes_3e if vertex_major \
+            else ops.elem_contrib_to_nodes
+        return ("elem_contrib_to_nodes", f"{label} {list(x.shape)}",
+                lambda: fn(x, tables),
+                lambda: ops.elem_contrib_to_nodes_plain(x, tables,
+                                                        vertex_major), True,
+                ops.elem_contrib_to_nodes_work(
+                    rows, n_e, n_n, tables.nod_in_elem.shape[1], size),
+                lambda: inc @ xt)
+
+    def menu_cases(dtype):
+        """The shapes the ocean dynamics menus add, on the level-7 globe:
+        ring_spmv on the fast configuration's static linfs ring (phase 14
+        launches it); elem_contrib_to_nodes at [L, E, 3], every layer
+        element-major (the vector-invariant momentum's kinetic energy);
+        elem_to_node_mean on one [L, E] field with the level mask (the
+        Leith viscosity's smoothing) and without (the backscatter's and
+        the UKE's; library call: a CSR product with the area weights)."""
+        m = gf[dtype]
+        mesh = m.mesh
+        L, N, E = mesh.nl - 1, mesh.n_nodes, mesh.n_elems
+        K = mesh.nod_in_elem.shape[1]
+        size = torch.empty((), dtype=dtype).element_size()
+        ct = mesh.cluster
+        out = [ring_case("globe linfs (fast)", m, dtype),
+               ecn_case("globe", mesh, (L,), False, dtype, 0,
+                        "core/dynamics.py compute_vel_rhs_vinv (mom_adv=3; "
+                        "not in the CI or the fast step)")]
+        nie = mesh.nod_in_elem.long()
+        w = mesh.elem_area[nie.clamp_min(0)] * (nie >= 0)
+        mean = csr(torch.arange(N, device=dev)[:, None].expand_as(nie)[
+            nie >= 0], nie[nie >= 0], (w / w.sum(1, keepdim=True))[nie >= 0],
+            (N, E))
+        for lev in (True, False):
+            x = rand(L, E, dtype=dtype)
+            xt = x.T.contiguous()
+            out.append(("elem_to_node_mean", f"globe visc levels={lev} "
+                        f"{[L, E]}",
+                        lambda x=x, lev=lev: ops.elem_to_node_mean(x, mesh,
+                                                                   lev),
+                        lambda x=x, lev=lev: ops.elem_to_node_mean_plain(
+                            x, mesh, lev), False,
+                        ops.elem_to_node_mean_work(
+                            1, L, E, N, K, size, ct.mean_tile_elems.numel(),
+                            ct.tile_nodes),
+                        None if lev else (lambda xt=xt: mean @ xt)))
+        return out
+
     def ice_cases(dtype):
         """The sea ice's kernels on the level-7 globe, at its state after
         one coupled step: elem_contrib_to_nodes at the six shapes of the
@@ -675,40 +849,19 @@ def main():
                 f"{int(tab.node_c[12].sum())}, elements with ice "
                 f"{int(tab.elem_c[9].sum())}, max|u_ice| "
                 f"{float(uv0.abs().max()):.4f} m/s after one coupled step")
-        out = []
         # the six calls of the coupled step, each with the call site that
         # gives it (the last, the largest: the row of the result)
-        for label, tables, lead, vertex_major, calls, site in (
-                ("subdomain", cap, (2,), False, 1, "ice/evp.py mevp_setup"),
-                ("globe", mesh, (6,), True, 1, "ice/fct.py ice_tg_rhs_div"),
-                ("globe", mesh, (6,), False, 1,
-                 "ice/fct.py _lumped_iterate, second product"),
-                ("globe", mesh, (2, 3), False, 1, "ice/fct.py ppair"),
-                ("globe", mesh, (3,), False, 1, "ice/fct.py out"),
-                ("globe", mesh, (9,), False, 1,
-                 "ice/fct.py _lumped_iterate, first product with the "
-                 "low-order fields")):
-            n_e, n_n = tables.n_elems, tables.n_nodes
-            x = rand(*lead, *((3, n_e) if vertex_major else (n_e, 3)),
-                     dtype=dtype)
-            rows = x.numel() // (3 * n_e)
-            ecn_calls[f"{label} {list(x.shape)}"] = {
-                "launches_per_coupled_step": calls, "site": site}
-            idx, valid = ops._contrib_index(tables, vertex_major)
-            inc = csr(torch.arange(n_n, device=dev)[:, None].expand_as(idx)[
-                valid], idx[valid], torch.ones(int(valid.sum()), dtype=dtype,
-                                               device=dev), (n_n, 3 * n_e))
-            xt = x.reshape(rows, -1).T.contiguous()
-            fn = ops.elem_contrib_to_nodes_3e if vertex_major \
-                else ops.elem_contrib_to_nodes
-            out.append((
-                "elem_contrib_to_nodes", f"{label} {list(x.shape)}",
-                lambda x=x, t=tables, fn=fn: fn(x, t),
-                lambda x=x, t=tables, vm=vertex_major:
-                ops.elem_contrib_to_nodes_plain(x, t, vm), True,
-                ops.elem_contrib_to_nodes_work(
-                    rows, n_e, n_n, tables.nod_in_elem.shape[1], size),
-                lambda inc=inc, xt=xt: inc @ xt))
+        out = [ecn_case(label, tables, lead, vertex_major, dtype, 1, site)
+               for label, tables, lead, vertex_major, site in (
+                   ("subdomain", cap, (2,), False, "ice/evp.py mevp_setup"),
+                   ("globe", mesh, (6,), True, "ice/fct.py ice_tg_rhs_div"),
+                   ("globe", mesh, (6,), False,
+                    "ice/fct.py _lumped_iterate, second product"),
+                   ("globe", mesh, (2, 3), False, "ice/fct.py ppair"),
+                   ("globe", mesh, (3,), False, "ice/fct.py out"),
+                   ("globe", mesh, (9,), False,
+                    "ice/fct.py _lumped_iterate, first product with the "
+                    "low-order fields"))]
         n_sub = m.cfg.ice.evp_rheol_steps
         sig_t, uv_t = sig0.clone(), uv0.clone()
         out.append(("mevp_subcycles", f"subdomain uv {[2, Ns]} sig {[3, Es]} "
@@ -770,7 +923,7 @@ def main():
                 cases(dtype, "channel", chan[dtype], chan1[dtype])
                 + cg_cases(dtype)
                 + (probe_cases() if dtype == torch.float32 else [])
-                + globe_cases(dtype) + ice_cases(dtype)):
+                + menu_cases(dtype) + globe_cases(dtype) + ice_cases(dtype)):
             # an in-place kernel is timed on buffers of its own
             kern_t = own[0] if own else kern
             got, want = kern(), plain()
@@ -825,7 +978,8 @@ def main():
                 f"plain_us={us_text(device_us(plain))} library_us="
                 f"{'none' if library is None else us_text(l_dev)}")
             # every shape of the kernels whose step calls take several
-            if (name == "tridiag_solve" and label.startswith("globe")) \
+            if (name in ("tridiag_solve", "elem_to_node_mean")
+                    and label.startswith("globe")) \
                     or name in ("block_schwarz", "elem_contrib_to_nodes",
                                 "kpp_column", "ring_spmv"):
                 summary[name].setdefault("shapes", {})[f"{tag} {label}"] = {
@@ -891,15 +1045,15 @@ def main():
             floor_us and floor_us / 1e3)
 
     # the three gather kernels on both numberings of the level-7 globe:
-    # held against plain on the subdivision numbering too, then timed in
-    # turns (curve, subdivision, subdivision, curve): the profiler's device
-    # us, and us per call of 20 calls between one pair of events
+    # held against plain on the subdivision numbering too, then timed once
+    # on each (a comparison of the two needs turns: curve, subdivision,
+    # subdivision, curve): the profiler's device us, and us per call of 20
+    # calls between one pair of events
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         tag = str(dtype).replace("torch.", "")
         timings = {}
         for turn, (label, mesh) in enumerate((
-                ("curve", gm[dtype].mesh), ("subdivision", sub[dtype]),
-                ("subdivision", sub[dtype]), ("curve", gm[dtype].mesh))):
+                ("curve", gm[dtype].mesh), ("subdivision", sub[dtype]))):
             L_, N_, E_, Ed_ = (mesh.nl - 1, mesh.n_nodes, mesh.n_elems,
                                mesh.n_edges)
             f = rand(2, L_, Ed_, dtype=dtype)
@@ -979,6 +1133,7 @@ def main():
              "the plain versions do")
 
     # phase 4 ------------------------------------------------------------
+    say(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     step_kernels = ("node_edge_reduce", "elem_to_node_mean", "tridiag_solve",
                     "fct_bounds", "pressure_bv")
     kernels.reset_launches()
@@ -991,6 +1146,7 @@ def main():
     path_launches = dict(launches)
 
     # phase 5 ------------------------------------------------------------
+    say(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     model_cpu = setup_soufflet_model(device="cpu", dtype=torch.float64)
     s_gpu = model64.initial_state()
     s_cpu = model_cpu.initial_state()
@@ -1004,8 +1160,9 @@ def main():
             fail(f"phase 5: {name} card vs CPU {rel:.3e} > 1e-9")
 
     # phase 6 ------------------------------------------------------------
+    say(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     # the step is host-bound, so its rate drifts with the shared host: the
-    # two dtypes are measured alternately, twice each
+    # two dtypes are measured one after the other
     runs = {}
     for dtype in (torch.float32, torch.float64):
         torch.cuda.synchronize()
@@ -1018,26 +1175,26 @@ def main():
         runs[dtype] = [mdl, st]
         say(f"phase 6 setup {str(dtype).replace('torch.', '')}: {setup_s:.3f} s "
             f"(mesh tables, tracer statics, dense SSH inverse)")
-    for _ in range(2):
-        for dtype, run in runs.items():
-            mdl, st = run
-            torch.cuda.synchronize()
-            n = 30
-            t0 = time.perf_counter()
-            _, st, _ = run_soufflet(n, model=mdl, state=st, verbose=False)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            run[1] = st
-            if not torch.isfinite(st.eta).all():
-                fail("phase 6: eta is not finite")
-            wet = int(mdl.mesh.node_layer_mask.sum())
-            say(f"phase 6 throughput {str(dtype).replace('torch.', '')}: "
-                f"{n / wall:.3f} steps/s, {wet * n / wall:.6e} wet "
-                f"node-levels/s ({wet} wet node-levels; {card})")
+    for dtype, run in runs.items():
+        mdl, st = run
+        torch.cuda.synchronize()
+        n = 30
+        t0 = time.perf_counter()
+        _, st, _ = run_soufflet(n, model=mdl, state=st, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run[1] = st
+        if not torch.isfinite(st.eta).all():
+            fail("phase 6: eta is not finite")
+        wet = int(mdl.mesh.node_layer_mask.sum())
+        say(f"phase 6 throughput {str(dtype).replace('torch.', '')}: "
+            f"{n / wall:.3f} steps/s, {wet * n / wall:.6e} wet "
+            f"node-levels/s ({wet} wet node-levels; {card})")
     mdl, st = runs[torch.float32]
     profile_steps("phase 6", mdl, st, 5, card)
 
     # phase 7 ------------------------------------------------------------
+    say(f"phase 7 starts at {time.perf_counter() - t_start:.1f} s")
     kernels.reset_launches()
     probe_res = probe.gather_probe()
     torch.cuda.synchronize()
@@ -1050,6 +1207,7 @@ def main():
     probe.main()
 
     # phase 8 ------------------------------------------------------------
+    say(f"phase 8 starts at {time.perf_counter() - t_start:.1f} s")
     big_wet = int(bm.mesh.node_layer_mask.sum())
     for dtype, sec in big_setup.items():
         say(f"phase 8 setup {str(dtype).replace('torch.', '')}: {sec:.3f} s "
@@ -1075,29 +1233,29 @@ def main():
     for dtype, run in runs.items():
         _, run[1], _ = run_soufflet(2, model=run[0], state=run[1],
                                     verbose=False)
-    for _ in range(2):
-        for dtype, run in runs.items():
-            mdl, st = run
-            n, its = 20, 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                _, st, _ = run_soufflet(1, model=mdl, state=st, verbose=False)
-                its += mdl.ssh_iters
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            run[1] = st
-            if not torch.isfinite(st.eta).all():
-                fail("phase 8: eta is not finite")
-            say(f"phase 8 throughput {str(dtype).replace('torch.', '')}: "
-                f"{n / wall:.3f} steps/s, {big_wet * n / wall:.6e} wet "
-                f"node-levels/s ({big_wet} wet node-levels; "
-                f"{its / n:.1f} CG iterations/step; {card})")
+    for dtype, run in runs.items():
+        mdl, st = run
+        n, its = 20, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            _, st, _ = run_soufflet(1, model=mdl, state=st, verbose=False)
+            its += mdl.ssh_iters
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run[1] = st
+        if not torch.isfinite(st.eta).all():
+            fail("phase 8: eta is not finite")
+        say(f"phase 8 throughput {str(dtype).replace('torch.', '')}: "
+            f"{n / wall:.3f} steps/s, {big_wet * n / wall:.6e} wet "
+            f"node-levels/s ({big_wet} wet node-levels; "
+            f"{its / n:.1f} CG iterations/step; {card})")
 
     for dtype, run in runs.items():
         profile_steps("phase 8", run[0], run[1], 3, card)
 
     # phase 9 ------------------------------------------------------------
+    say(f"phase 9 starts at {time.perf_counter() - t_start:.1f} s")
     dense_max = dense_max_saved = port_model.DENSE_SSH_MAX_NODES
     port_model.DENSE_SSH_MAX_NODES = 0
     try:
@@ -1117,6 +1275,7 @@ def main():
             fail(f"phase 9: {name} card vs CPU {rel:.3e} > 1e-8")
 
     # phase 10 -----------------------------------------------------------
+    say(f"phase 10 starts at {time.perf_counter() - t_start:.1f} s")
     ci_kernels = cg_kernels + ("kpp_column",)
     wet = int(gmesh.node_layer_mask.sum())
     for dtype, sec in gm_setup.items():
@@ -1147,25 +1306,24 @@ def main():
         f"{per_cg_iteration}")
     runs = {dtype: [m, run_pi_ocean(m, *gin[dtype], 2)]
             for dtype, m in gm.items()}
-    for _ in range(2):
-        for dtype in (torch.float32, torch.float64):
-            run = runs[dtype]
-            mdl, st = run
-            n, its = 20, 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                st = run_pi_ocean(mdl, st, gin[dtype][1], gin[dtype][2], 1)
-                its += mdl.ssh_iters
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            run[1] = st
-            if not torch.isfinite(st.eta).all():
-                fail("phase 10: eta is not finite")
-            say(f"phase 10 throughput {str(dtype).replace('torch.', '')}: "
-                f"{n / wall:.3f} steps/s, {wet * n / wall:.6e} wet "
-                f"node-levels/s ({wet} wet node-levels; "
-                f"{its / n:.1f} CG iterations/step; {card})")
+    for dtype in (torch.float32, torch.float64):
+        run = runs[dtype]
+        mdl, st = run
+        n, its = 20, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            st = run_pi_ocean(mdl, st, gin[dtype][1], gin[dtype][2], 1)
+            its += mdl.ssh_iters
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run[1] = st
+        if not torch.isfinite(st.eta).all():
+            fail("phase 10: eta is not finite")
+        say(f"phase 10 throughput {str(dtype).replace('torch.', '')}: "
+            f"{n / wall:.3f} steps/s, {wet * n / wall:.6e} wet "
+            f"node-levels/s ({wet} wet node-levels; "
+            f"{its / n:.1f} CG iterations/step; {card})")
     for dtype, (mdl, st) in runs.items():
         _, frc, sw = gin[dtype]
         profile_steps("phase 10", mdl, st, 3, card,
@@ -1175,6 +1333,7 @@ def main():
                             "node_edge_reduce", "index"))
 
     # phase 11 -----------------------------------------------------------
+    say(f"phase 11 starts at {time.perf_counter() - t_start:.1f} s")
     small = globe.write_globe(str(Path(__file__).resolve().parent / "build"
                                   / "chip_smoke" / "globe_l3"), level=3)
     for label, limit, w_max_cfl, tol in (
@@ -1209,10 +1368,10 @@ def main():
                 fail(f"phase 11: {label} {name} card vs CPU {rel:.3e} > {tol}")
 
     # phase 12 -----------------------------------------------------------
+    say(f"phase 12 starts at {time.perf_counter() - t_start:.1f} s")
     ice_kernels = ("elem_contrib_to_nodes", "mevp_subcycles")
     coupled_kernels = ci_kernels + ice_kernels
     atm64 = gatm[torch.float64]
-    sub64 = m64.ice_sub
     step64 = pi_coupled_step_fn(m64, atm64)
     st, ice = pi_initial_state(m64)
     ice0 = ice
@@ -1234,32 +1393,7 @@ def main():
     per_coupled_step = {k: v / 20 for k, v in launches.items()}
     say(f"phase 12 launches per coupled step {per_coupled_step}")
     check_globe("phase 12", m64, st, launches, float(hbar_expected))
-    for name in ("u_ice", "v_ice", "m_ice", "a_ice", "m_snow", "sigma11",
-                 "sigma12", "sigma22", "t_skin", "net_heat_flux",
-                 "fresh_wa_flux"):
-        if not torch.isfinite(getattr(ice, name)).all():
-            fail(f"phase 12: ice.{name} is not finite")
-    info = step_info(st, gmesh, ice)
-    outside = int(((ice.a_ice > 0) & ~sub64.node_mask).sum())
-    say(f"phase 12 ice after 20 steps: a_ice in [{float(ice.a_ice.min()):.4f}, "
-        f"{info['aice_max']:.4f}], nodes with ice {int((ice.a_ice > 0).sum())} "
-        f"(at the start {int((ice0.a_ice > 0).sum())}), area "
-        f"{info['ice_area']:.6e} m^2, volume {info['ice_volume']:.6e} m^3, "
-        f"max m_ice {info['hice_max']:.4f} m, min m_snow "
-        f"{float(ice.m_snow.min()):.3e}, max|u_ice| {info['uice_max']:.4f} "
-        f"m/s, max|sigma| {float(ice.sigma11.abs().max()):.3e}, nodes with "
-        f"ice outside the subdomain {outside}")
-    if not (float(ice.a_ice.min()) >= 0.0 and info["aice_max"] <= 1.0
-            and float(ice.m_ice.min()) >= 0.0
-            and float(ice.m_snow.min()) >= 0.0):
-        fail("phase 12: ice concentration, thickness or snow out of range")
-    if not info["aice_max"] > 0.5:
-        fail("phase 12: no node with a_ice > 0.5")
-    uice = max(info["uice_max"], float(ice.v_ice.abs().max()))
-    if not 0.0 < uice < 3.0:
-        fail(f"phase 12: max|u_ice| {uice} outside (0, 3) m/s")
-    if outside or ice_outside_subdomain(ice, m64):
-        fail(f"phase 12: ice at {outside} nodes outside the EVP subdomain")
+    check_ice("phase 12", m64, st, ice, ice0)
     retired = [k for k in ("mevp_stress", "mevp_node")
                if k in kernels.LAUNCHES]
     say(f"phase 12 the retired pair mevp_stress, mevp_node: "
@@ -1299,6 +1433,7 @@ def main():
     # the 3-step profiles, each dtype's launches a coupled step counted in
     # them (the CG kernels' with the CG iterations of each dtype's steps)
     step_us, launches_dtype = {}, {}
+    span_ms = {"ci": {}, "fast": {}}    # device ms a step per span, by dtype
     for dtype, (mdl, s_, i_, k0) in cruns.items():
         tag = str(dtype).replace("torch.", "")
         kernels.reset_launches()
@@ -1307,7 +1442,7 @@ def main():
             run=lambda m, st_, k, a=gatm[dtype], i=i_, k0=k0:
             run_pi(m, a, st_, i, k, first_step=k0),
             also=("mevp", "elem_contrib", "elem_to_node_mean", "pressure_bv",
-                  "tridiag_solve"))
+                  "tridiag_solve"), spans=span_ms["ci"].setdefault(tag, {}))
         launches_dtype[tag] = {k: kernels.LAUNCHES[k] / 3
                                for k in coupled_kernels}
         say(f"phase 12 launches per coupled step {tag} (the profiled 3 "
@@ -1365,6 +1500,7 @@ def main():
     summary["mevp_subcycles"]["loop_ms_a_step"] = loop_ms
 
     # phase 13 -----------------------------------------------------------
+    say(f"phase 13 starts at {time.perf_counter() - t_start:.1f} s")
     for label, limit in (("dense", dense_max_saved), ("CG forced", 0)):
         port_model.DENSE_SSH_MAX_NODES = limit
         try:
@@ -1404,6 +1540,195 @@ def main():
                 if not rel <= 1e-8:
                     fail(f"phase 13: {label} {name} card vs CPU {rel:.3e} "
                          f"> 1e-8")
+
+    # phase 14 -----------------------------------------------------------
+    say(f"phase 14 starts at {time.perf_counter() - t_start:.1f} s")
+    # the fast configuration's coupled step at full width: linfs + PP, full
+    # cells, no GM/Redi, the same ice; no kpp_column, and tridiag_solve
+    # without the GM streamfunction's solve
+    fast_kernels = tuple(k for k in coupled_kernels if k != "kpp_column")
+    fwet = int(gf[torch.float64].mesh.node_layer_mask.sum())
+    for dtype, sec in gf_setup.items():
+        say(f"phase 14 setup {str(dtype).replace('torch.', '')}: {sec:.3f} s "
+            f"(N={gmesh.n_nodes} ocean nodes, {fwet} wet node-levels, full "
+            f"cells: mesh tables, tracer statics, reference density, block "
+            f"preconditioner, linfs ring "
+            f"{list(gf[dtype].ssh_ring.cols.shape)}, ice subdomain)")
+    fm64 = gf[torch.float64]
+    stepf = pi_coupled_step_fn(fm64, gfatm[torch.float64])
+    st, ice = pi_initial_state(fm64)
+    ice0 = ice
+    kernels.reset_launches()
+    iters = []
+    t0 = time.perf_counter()
+    for k in range(20):
+        st, ice, oforc = stepf(st, ice, k)
+        iters.append(fm64.ssh_iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    per_fast_step = {k: v / 20 for k, v in launches.items()}
+    say(f"phase 14 fast coupled step, 20 steps float64: {wall:.3f} s, CG "
+        f"iterations per step {iters}, launches per step {per_fast_step}; "
+        f"max|virtual_salt| {float(oforc.virtual_salt.abs().max()):.3e}")
+    # linfs: the freshwater flux is a virtual salt flux, the volume stays
+    check_globe("phase 14", fm64, st, {k: launches[k] for k in fast_kernels})
+    check_ice("phase 14", fm64, st, ice, ice0)
+    if launches["kpp_column"]:
+        fail("phase 14: kpp_column launched under PP")
+    fast_calls = {"pressure_bv": 1, "mevp_subcycles": 1,
+                  "elem_contrib_to_nodes": 6}
+    for k, want in fast_calls.items():
+        if per_fast_step[k] != want:
+            fail(f"phase 14: {k} launched {per_fast_step[k]} times a step, "
+                 f"not {want}")
+    fruns = {}
+    for dtype, m in gf.items():
+        s_, i_ = pi_initial_state(m)
+        s_, i_ = run_pi(m, gfatm[dtype], s_, i_, 2)
+        fruns[dtype] = [m, s_, i_, 2]
+    for _ in range(2):
+        for dtype in (torch.float32, torch.float64):
+            mdl, s_, i_, k0 = fruns[dtype]
+            n, its = 10, 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in range(n):
+                s_, i_ = run_pi(mdl, gfatm[dtype], s_, i_, 1,
+                                first_step=k0 + k)
+                its += mdl.ssh_iters
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            fruns[dtype][1:] = [s_, i_, k0 + n]
+            if not (torch.isfinite(s_.eta).all()
+                    and torch.isfinite(i_.u_ice).all()):
+                fail("phase 14: eta or u_ice is not finite")
+            say(f"phase 14 throughput {str(dtype).replace('torch.', '')}: "
+                f"{n / wall:.3f} coupled steps/s, {fwet * n / wall:.6e} wet "
+                f"node-levels/s ({fwet} wet node-levels; {its / n:.1f} CG "
+                f"iterations/step; {card})")
+    fast_us, fast_launches = {}, {}
+    for dtype, (mdl, s_, i_, k0) in fruns.items():
+        tag = str(dtype).replace("torch.", "")
+        kernels.reset_launches()
+        fast_us[tag] = profile_steps(
+            "phase 14", mdl, s_, 3, card,
+            run=lambda m, st_, k, a=gfatm[dtype], i=i_, k0=k0:
+            run_pi(m, a, st_, i, k, first_step=k0),
+            also=("elem_to_node_mean", "pressure_bv", "tridiag_solve",
+                  "ring_spmv", "block_schwarz"),
+            spans=span_ms["fast"].setdefault(tag, {}))
+        fast_launches[tag] = {k: kernels.LAUNCHES[k] / 3 for k in kernels.KERNELS}
+        say(f"phase 14 launches per coupled step {tag} (the profiled 3 "
+            f"steps; CG iterations of the last {mdl.ssh_iters}): "
+            f"{fast_launches[tag]}")
+        idle = [k for k in fast_kernels if fast_launches[tag][k] <= 0]
+        if idle or fast_launches[tag]["kpp_column"]:
+            fail(f"phase 14 {tag}: kernels of the path never launched {idle}"
+                 f", or kpp_column launched")
+    fast_ms = {tag: {k: sum(v for key, v in us.items()
+                            if any(f in key for f in functions[k])) / 1e3
+                     or None for k in fast_kernels}
+               for tag, us in fast_us.items()}
+    say(f"phase 14 device ms a coupled step per kernel (profile): {fast_ms}")
+    for path_name, by_tag in span_ms.items():
+        for tag, spans in by_tag.items():
+            say(f"device ms a step per span, {path_name} coupled step, {tag}"
+                f" ({card}): {json.dumps(spans)}")
+
+    # phase 15 -----------------------------------------------------------
+    say(f"phase 15 starts at {time.perf_counter() - t_start:.1f} s")
+    # the menus, card against CPU on the level-3 globe (the channel for the
+    # forms that need full-cell linfs), 3 float64 steps each
+    def menu_cfg(parity, ocean_only, **knobs):
+        cfg = port_model.pi_config(parity)
+        cfg.run.use_ice = not ocean_only
+        for k, v in knobs.items():
+            sec = "ale" if k in ("which_ALE", "use_partial_cell") else \
+                "run" if k == "use_floatice" else "dyn"
+            setattr(getattr(cfg, sec), k, v)
+        return cfg
+
+    menus = [("fast parity, dense", menu_cfg("fast", False), dense_max_saved),
+             ("fast parity, CG forced", menu_cfg("fast", False), 0),
+             ("zlevel (CI ocean)", menu_cfg("ci", True, which_ALE="zlevel"),
+              dense_max_saved),
+             ("use_floatice under zstar (CI coupled)",
+              menu_cfg("ci", False, use_floatice=True), dense_max_saved),
+             ("mom_adv=3 (CI ocean)", menu_cfg("ci", True, mom_adv=3),
+              dense_max_saved)]
+    menus += [(f"visc_option={o} (CI ocean)",
+               menu_cfg("ci", True, visc_option=o), dense_max_saved)
+              for o in (1, 2, 3, 4, 6, 7, 8)]
+    menus += [(f"which_pgf={w} (CI ocean, zstar)",
+               menu_cfg("ci", True, which_pgf=w), dense_max_saved)
+              for w in ("cubicspline", "easypgf")]
+    menus += [(f"which_pgf={w} (linfs, partial cells, ocean)",
+               menu_cfg("fast", True, use_partial_cell=True, which_pgf=w),
+               dense_max_saved)
+              for w in ("nemo", "shchepetkin", "cubicspline", "easypgf")]
+    menus += [(f"which_pgf={w} (soufflet channel, linfs full cells)",
+               ("soufflet", w), dense_max_saved)
+              for w in ("nemo", "cubicspline")]
+    menu_report = {}
+    t15 = time.perf_counter()
+    for label, cfg, limit in menus:
+        port_model.DENSE_SSH_MAX_NODES = limit
+        try:
+            if isinstance(cfg, tuple):
+                scfg = port_model.soufflet_config()
+                scfg.dyn.which_pgf = cfg[1]
+                pair = [setup_soufflet_model(device=d, cfg=scfg)
+                        for d in (dev, "cpu")]
+            else:
+                pair = [setup_pi_model(small, device=d, cfg=cfg)
+                        for d in (dev, "cpu")]
+        finally:
+            port_model.DENSE_SSH_MAX_NODES = dense_max_saved
+        kernels.reset_launches()
+        outs = []
+        for i, obj in enumerate(pair):
+            if isinstance(cfg, tuple):
+                _, s_, _ = run_soufflet(3, model=obj, verbose=False)
+                outs.append((s_, None))
+            elif cfg.run.use_ice:
+                m, atm = obj
+                outs.append(run_pi(m, atm, *pi_initial_state(m), 3))
+            else:
+                m = obj[0]
+                outs.append((run_pi_ocean(m, *globe_ocean_inputs(m), 3), None))
+            if i == 0:
+                n_card = sum(kernels.LAUNCHES.values())
+        if n_card <= 0 or sum(kernels.LAUNCHES.values()) != n_card:
+            fail(f"phase 15: {label}: the card's path launched no kernel, or "
+                 f"the CPU path launched one")
+        (s_gpu, i_gpu), (s_cpu, i_cpu) = outs
+        names = ["u", "v", "eta", "hbar", "tr", "w", "hnode", "pgf_x"]
+        if "visc_option=8" in label:
+            names.append("uke")
+        checks = [(s_gpu, s_cpu, names)]
+        if i_cpu is not None:
+            checks.append((i_gpu, i_cpu, ("u_ice", "v_ice", "m_ice", "a_ice",
+                                          "sigma11")))
+        worst = 0.0
+        for obj_gpu, obj_cpu, fields in checks:
+            for name in fields:
+                ref = getattr(obj_cpu, name)
+                rel = max_abs(getattr(obj_gpu, name).cpu(), ref) \
+                    / max(float(ref.abs().max()), 1e-300)
+                if not rel <= 1e-8:
+                    fail(f"phase 15: {label} {name} card vs CPU {rel:.3e} "
+                         f"> 1e-8")
+                worst = max(worst, rel)
+        iters = pair[0][0].ssh_iters if isinstance(pair[0], tuple) \
+            else pair[0].ssh_iters
+        menu_report[label] = worst
+        say(f"phase 15 {label}: worst field card vs cpu {worst:.3e} of "
+            f"max|cpu| over {names}{' and the ice' if i_cpu is not None else ''}"
+            f"; {n_card} kernel launches on the card; CG iterations of the "
+            f"3rd step {iters}")
+    say(f"phase 15 {len(menus)} menu cases in "
+        f"{time.perf_counter() - t15:.1f} s")
 
     # result -------------------------------------------------------------
     sources = {"node_edge_reduce": "fesom2_tpu/core/ops.py:154",
@@ -1445,6 +1770,8 @@ def main():
         f"shapes: {ecn_step}")
     step_rows = {"tridiag_solve": tri_step, "elem_contrib_to_nodes": ecn_step}
     say(json.dumps({"numbering_device_us": numbering_us}))
+    say(json.dumps({"span_device_ms_a_step": span_ms,
+                    "menus_card_vs_cpu": menu_report}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "fesom2_tpu_torch/csrc/"
@@ -1467,6 +1794,11 @@ def main():
          "step_device_us_a_launch_f32": per_launch_us["float32"].get(k),
          "step_device_ms": step_ms["float64"].get(k),
          "step_device_ms_f32": step_ms["float32"].get(k),
+         "launches_per_fast_coupled_step": per_fast_step.get(k),
+         "launches_per_fast_coupled_step_f32":
+             fast_launches["float32"].get(k),
+         "fast_step_device_ms": fast_ms["float64"].get(k),
+         "fast_step_device_ms_f32": fast_ms["float32"].get(k),
          **({"shapes": summary[k]["shapes"]} if "shapes" in summary[k]
             else {}),
          **{key: summary[k][key] for key in ("barrier_floor_ms", "plan",

@@ -1,10 +1,10 @@
-"""ALE vertical machinery, linfs and zstar: vertical velocity and the
-layer-thickness update.
+"""ALE vertical machinery, linfs, zlevel and zstar: vertical velocity and
+the layer-thickness update.
 
-The port of the linfs and zstar paths of ``fesom2_tpu/core/ale.py`` (ref
-``src/oce_ale.F90`` vert_vel_ale :1692-2204 with the explicit/implicit w
-split, update_thickness_ale :800-993) and of the GM bolus vertical
-velocity ``bolus_wvel``.  zlevel raises.
+The port of ``fesom2_tpu/core/ale.py`` (ref ``src/oce_ale.F90``
+vert_vel_ale :1692-2204 with the explicit/implicit w split and zlevel's
+local-zstar fallback, update_thickness_ale :800-993) and of the GM bolus
+vertical velocity ``bolus_wvel``.
 """
 from __future__ import annotations
 
@@ -15,12 +15,6 @@ import torch
 from ..mesh import MeshTables
 from .ops import cumsum_bottom_up, edge_divergence, edge_transport, take_row
 from .state import OceanState, Forcing
-
-
-def _check_ale(cfg):
-    if cfg.ale.which_ALE not in ("linfs", "zstar"):
-        raise NotImplementedError(f"which_ALE='{cfg.ale.which_ALE}' is not "
-                                  "ported yet: ROADMAP queue 1 item 8")
 
 
 def _nlevels_node_min(mesh: MeshTables) -> torch.Tensor:
@@ -35,15 +29,23 @@ def vert_vel_ale(state: OceanState, mesh: MeshTables, cfg,
                  forcing: Forcing) -> OceanState:
     """Vertical velocity from the horizontal divergence, bottom up (ref
     :1724-1815); under zstar the hbar change is spread over the column in
-    proportion to the unperturbed thickness (ref :2028-2092); then the
+    proportion to the unperturbed thickness (ref :2028-2092), under zlevel
+    by ``_zlevel_distribution``; then the
     vertical CFL number (ref :2141-2154) and, with ``w_split``, the split
     of w into an explicit part w_e and an implicit part w_i above the CFL
     limit w_max_cfl (ref :2189-2203)."""
-    _check_ale(cfg)
     w = _divergence_wvel(state.u, state.v, state, mesh)
 
     hnode_new = state.hnode
-    if cfg.ale.which_ALE == "zstar":
+    if cfg.ale.which_ALE == "zlevel":
+        dist = _zlevel_distribution(state, mesh, cfg)
+        # W at interface k takes all that is distributed at or below k
+        w = torch.cat([w[:-1] - cumsum_bottom_up(dist) / cfg.dt, w[-1:]])
+        hnode_new = hnode_new + dist
+        lev = torch.arange(mesh.nl, device=w.device)[:, None]
+        w = w + torch.where(lev == (mesh.ulevels_node - 1)[None, :],
+                            -forcing.water_flux[None, :], 0.0)
+    elif cfg.ale.which_ALE == "zstar":
         dev = w.device
         nln_min = _nlevels_node_min(mesh)
         dd1 = take_row(state.zbar_3d, nln_min - 1)
@@ -79,6 +81,54 @@ def vert_vel_ale(state: OceanState, mesh: MeshTables, cfg,
                    hnode_new=hnode_new)
 
 
+def _zlevel_distribution(state: OceanState, mesh: MeshTables, cfg):
+    """[nl-1, N]: where zlevel puts each column's hbar change (ref
+    oce_ale.F90:1836-2016).  (C) the surface layer takes it all; (A) a
+    drop that would thin the surface layer below min_hnode of its nominal
+    thickness is spread greedily down the first lzstar_lev layers, each
+    to its min_hnode capacity (none where cfl_z >= 0.95, read from the
+    state as it enters); (B) a rise where a subsurface layer has a deficit
+    refills the deficits bottom up, the rest to the surface.  The greedy
+    spread is the one intended; the reference's capacity sum (:1891) is a
+    pairwise sum used as a loop bound, as ``fesom2_tpu/core/ale.py`` notes.
+    The two scans run over the layers in JAX's order."""
+    dhbar = state.hbar - state.hbar_old
+    K = int(cfg.ale.lzstar_lev)
+    nominal = (mesh.zbar[:-1] - mesh.zbar[1:])[:, None]          # [nl-1, 1]
+    lay = torch.arange(mesh.nl - 1, device=dhbar.device)[:, None]
+    allowed = lay < torch.clamp_max(_nlevels_node_min(mesh) - 2, K)[None, :]
+    hnode = state.hnode
+    min_h = cfg.ale.min_hnode
+    go_zstar = (dhbar < 0.0) & (hnode[0] + dhbar <= nominal[0] * min_h)
+    deficit = nominal - hnode
+    has_deficit = torch.where((lay >= 1) & (lay < K), deficit.abs(),
+                              0.0).amax(0) > 0.0
+    go_refill = (dhbar > 0.0) & has_deficit
+
+    # (A) spread a drop top down, each layer to its capacity (<= 0)
+    capA = torch.clamp_max(nominal * min_h - hnode, 0.0)
+    capA = torch.where((state.cfl_z[:-1] >= 0.95) | ~allowed, 0.0, capA)
+    distA, rest = [], dhbar
+    for k in range(mesh.nl - 1):
+        d = torch.maximum(rest, capA[k])
+        rest = torch.clamp_max(rest - d, 0.0)
+        distA.append(d)
+    # (B) refill the deficits bottom up, the surface without limit
+    capB = torch.where(allowed, torch.clamp_min(deficit, 0.0), 0.0)
+    capB[0] = torch.where(allowed[0], 1000.0, 0.0)
+    distB, rest = [None] * (mesh.nl - 1), dhbar
+    for k in reversed(range(mesh.nl - 1)):
+        d = torch.minimum(rest, capB[k])
+        rest = torch.clamp_min(rest - d, 0.0)
+        distB[k] = d
+    # (C) all to the surface layer
+    distC = torch.zeros_like(hnode)
+    distC[0] = dhbar
+    return torch.where(go_zstar[None, :], torch.stack(distA),
+                       torch.where(go_refill[None, :], torch.stack(distB),
+                                   distC))
+
+
 def _divergence_wvel(u, v, state: OceanState, mesh: MeshTables):
     """Vertical velocity [nl, N] of the horizontal flow (u, v) on elements:
     edge transports, their divergence, summed bottom up, over the area
@@ -99,9 +149,8 @@ def bolus_wvel(fer_u, fer_v, state: OceanState, mesh: MeshTables):
 
 
 def update_thickness(state: OceanState, mesh: MeshTables, cfg) -> OceanState:
-    """hnode <- hnode_new; helem, zbar_3d and Z_3d follow (ref :800-993).
-    Nothing moves under linfs."""
-    _check_ale(cfg)
+    """hnode <- hnode_new; helem, zbar_3d and Z_3d follow (ref :800-993),
+    under zlevel and zstar alike.  Nothing moves under linfs."""
     if cfg.ale.which_ALE == "linfs":
         return state
     dev = state.hnode.device

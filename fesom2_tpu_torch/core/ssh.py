@@ -6,11 +6,11 @@ init_stiff_mat_ale, ``src/oce_ale.F90:1088-1354``) is
     A(eta) = eta * areasvol(surface)/dt + g*dt*alpha*theta * D(H * G(eta))
 
 with G the elemental scalar gradient, H the element depth (less the
-accumulated perturbation hbar_e under zstar) and D the edge-stencil
-divergence.  Meshes up to ``model.DENSE_SSH_MAX_NODES`` nodes solve with a
+accumulated perturbation hbar_e under zlevel and zstar) and D the
+edge-stencil divergence.  Meshes up to ``model.DENSE_SSH_MAX_NODES`` nodes solve with a
 precomputed dense inverse plus one refinement sweep; larger ones with CG
 (``ops.pcg``) on the operator in node-ring form (``RingOperator``, kernel
-``ring_spmv``; under zstar rebuilt each step from hbar_e by ``RingALE``)
+``ring_spmv``; off linfs rebuilt each step from hbar_e by ``RingALE``)
 and the two-level block-Schwarz preconditioner (``BlockSchwarz``, kernel
 ``block_schwarz``).  The host-side builders are numpy and scipy, as in the
 JAX package.
@@ -66,8 +66,8 @@ def ale_hbar_e(state: OceanState, mesh: MeshTables) -> torch.Tensor:
 
 
 def ssh_operator(mesh: MeshTables, cfg, hbar_e=None):
-    """The matrix-free SPD operator eta -> A(eta); ``hbar_e`` is the zstar
-    depth perturbation (None: static depth)."""
+    """The matrix-free SPD operator eta -> A(eta); ``hbar_e`` is the depth
+    perturbation off linfs (None: static depth)."""
     dt = cfg.dt
     factor = g * dt * cfg.dyn.alpha * cfg.dyn.theta
     H = elem_depth(mesh)
@@ -232,7 +232,7 @@ class RingOperator:
 def build_ssh_ring(mesh: MeshTables, cfg,
                    dtype=torch.float64) -> RingOperator:
     """Assemble the static (linfs) SSH stencil into ring form (host numpy);
-    zstar takes ``build_ssh_ring_ale``."""
+    zlevel and zstar take ``build_ssh_ring_ale``."""
     A = _csr_operator(mesh, cfg)
     N = A.shape[0]
     deg = np.diff(A.indptr)
@@ -280,7 +280,7 @@ def ssh_sparse_coo_elems(mesh: MeshTables, cfg):
 
 @dataclass
 class RingALE:
-    """The zstar SSH operator in ring form: the ring values are affine in
+    """The zlevel and zstar SSH operator in ring form: the ring values are affine in
     hbar_e, vals(hbar_e) = vals0 - sum_c e_coef[c] * hbar_e[e_ids[c]].
     ``materialize`` rebuilds them once per step (plain torch); the CG
     iterations then apply the result through ``ring_spmv``."""
@@ -520,7 +520,7 @@ def build_block_schwarz(mesh: MeshTables, cfg, block_size: int = 256,
 def compute_ssh_rhs(state: OceanState, mesh: MeshTables, cfg, forcing: Forcing,
                     u_rhs, v_rhs):
     """ssh_rhs = -alpha*div(int (u+du) dz) + (1-alpha)*ssh_rhs_old, less
-    alpha*water_flux*area under zstar (ref compute_ssh_rhs_ale :1478)."""
+    alpha*water_flux*area off linfs (ref compute_ssh_rhs_ale :1478)."""
     alpha = cfg.dyn.alpha
     he = torch.where(mesh.elem_layer_mask, state.helem, 0.0)
     c = alpha * edge_transport((state.u + u_rhs) * he,
@@ -541,7 +541,7 @@ def solve_ssh_dense(state: OceanState, mesh: MeshTables, cfg, dense_inv, rhs,
                     n_refine: int = 1):
     """d_eta = A^-1 rhs by a product with the dense inverse plus
     ``n_refine`` sweeps of iterative refinement against the operator (the
-    hbar-corrected one under zstar: the stored inverse is of the
+    hbar-corrected one off linfs: the stored inverse is of the
     unperturbed operator, and |hbar_e|/H ~ 1e-4 lets 1-2 sweeps converge).
     Returns (d_eta, number of products); ``ssh_relative_residual`` gives
     the residual apart for callers that ask."""
@@ -562,8 +562,8 @@ def ssh_relative_residual(mesh: MeshTables, cfg, d_eta, rhs,
 def solve_ssh(state: OceanState, mesh: MeshTables, cfg, precond, rhs, ring,
               x0=None):
     """CG solve for d_eta (replaces psolve; tolerances oce_ale.F90:2296-
-    2301): ``ring`` is a RingOperator (linfs) or a RingALE (zstar, its
-    values rebuilt here from hbar_e), ``precond`` the BlockSchwarz.  The
+    2301): ``ring`` is a RingOperator (linfs) or a RingALE (zlevel, zstar;
+    its values rebuilt here from hbar_e), ``precond`` the BlockSchwarz.  The
     reference's soltol=1e-10 assumes f64; the tolerance is 2e-5 in f32.
     Returns (d_eta, iterations, relative residual)."""
     op = ring.materialize(ale_hbar_e(state, mesh)) \

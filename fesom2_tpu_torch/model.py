@@ -13,13 +13,15 @@ operator and block preconditioner of the CG solve above
 buffers live on.
 
 Two configurations are set up here: the soufflet channel
-(``setup_soufflet_model``) and the benched CI configuration on a global
-mesh (``pi_config``, ``setup_pi_model``, ``pi_initial_state``,
-``pi_coupled_step_fn``: zstar with partial cells, JM, KPP, GM/Redi,
-``w_split``, MFCT/QR4C/FCT, shortwave penetration, mEVP sea ice on the
-polar-cap subdomain, FCT ice advection, ice thermodynamics, NCAR bulk
-forcing).  Configuration branches outside the port raise
-NotImplementedError naming the ROADMAP item that will port them.
+(``setup_soufflet_model``, linfs, zlevel or zstar) and the benched
+configurations on a global mesh (``pi_config``, ``setup_pi_model``,
+``pi_initial_state``, ``pi_coupled_step_fn``): the CI one (zstar with
+partial cells, JM, KPP, GM/Redi, ``w_split``, MFCT/QR4C/FCT, shortwave
+penetration, mEVP sea ice on the polar-cap subdomain, FCT ice advection,
+ice thermodynamics, NCAR bulk forcing) and the fast one (the same on
+linfs with PP, full cells and no GM/Redi).  Configuration branches outside
+the port raise NotImplementedError naming the ROADMAP item that will port
+them.
 """
 from __future__ import annotations
 
@@ -71,15 +73,18 @@ def check_slice(cfg: ModelConfig) -> None:
         missing.append("the tidal potential (item 19)")
     if cfg.run.use_cavity:
         missing.append("ice-shelf cavities (item 15)")
-    if cfg.ale.which_ALE not in ("linfs", "zstar"):
-        missing.append(f"which_ALE='{cfg.ale.which_ALE}' (item 8)")
+    if getattr(cfg.run, "use_cavity_partial_cell", False) \
+            or getattr(cfg.dyn, "which_pgf", "shchepetkin") == "sergey":
+        missing.append("linfs with cavity partial cells, the 'sergey' PGF "
+                       "(item 15, with core/cavity.py)")
+    if cfg.run.l_mslp:
+        missing.append("sea-level pressure forcing (item 19)")
+    if cfg.ale.which_ALE not in ("linfs", "zlevel", "zstar"):
+        raise ValueError(f"which_ALE='{cfg.ale.which_ALE}': linfs, zlevel "
+                         "or zstar")
     schemes = [s.strip().upper() for s in cfg.dyn.mix_scheme.split("+")]
     if schemes not in (["PP"], ["KPP"]):
         missing.append(f"mix_scheme='{cfg.dyn.mix_scheme}' (CVMix item 16)")
-    if cfg.dyn.visc_option != 5:
-        missing.append(f"visc_option={cfg.dyn.visc_option} (item 15)")
-    if cfg.dyn.mom_adv != 2:
-        missing.append(f"mom_adv={cfg.dyn.mom_adv} (item 15)")
     if not cfg.dyn.i_vert_visc or not cfg.tra.i_vert_diff:
         missing.append("explicit vertical viscosity/diffusion (item 15)")
     if cfg.dyn.SPP:
@@ -110,7 +115,7 @@ class Model(nn.Module):
                  ice_sub: Optional[IceSubdomain] = None):
         """The SSH solve is dense with ``ssh_dense_inv``, else CG with
         ``ssh_ring`` (``ssh.RingOperator`` under linfs, ``ssh.RingALE``
-        under zstar) and ``ssh_block_pc`` (``ssh.BlockSchwarz``).
+        under zlevel and zstar) and ``ssh_block_pc`` (``ssh.BlockSchwarz``).
         ``soufflet_statics`` is given for the soufflet channel only;
         ``ice_sub`` restricts the EVP subcycles to the polar caps."""
         super().__init__()
@@ -236,8 +241,9 @@ class Model(nn.Module):
             state = pp_mixing.mo_convect(state, mesh, cfg, forcing)
 
         with record_function("step.momentum"):
-            state, u_rhs, v_rhs = dynamics.compute_vel_rhs(state, mesh,
-                                                           forcing, cfg)
+            rhs_fn = dynamics.compute_vel_rhs_vinv if cfg.dyn.mom_adv == 3 \
+                else dynamics.compute_vel_rhs
+            state, u_rhs, v_rhs = rhs_fn(state, mesh, forcing, cfg)
             state, u_rhs, v_rhs = dynamics.viscosity_filter(state, mesh, cfg,
                                                             u_rhs, v_rhs)
             u_rhs, v_rhs = dynamics.impl_vert_visc(state, mesh, cfg, forcing,
@@ -588,7 +594,7 @@ def soufflet_config(step_per_day: int = 72,
 def _ssh_solver(mesh: MeshTables, cfg, dtype) -> dict:
     """The SSH solver's tables as Model keywords: the dense inverse up to
     ``DENSE_SSH_MAX_NODES`` nodes, else the block preconditioner and the
-    ring (linfs) or ALE ring (zstar) operator of the CG solve
+    ring (linfs) or ALE ring (zlevel, zstar) operator of the CG solve
     (``fesom2_tpu/model.py:873-882``)."""
     if mesh.n_nodes <= DENSE_SSH_MAX_NODES:
         return dict(ssh_dense_inv=ssh.ssh_dense_inverse(mesh, cfg, dtype))
@@ -614,7 +620,8 @@ def setup_soufflet_model(mesh_path: Optional[str] = None, *,
 
     ``mesh_path``: a FESOM mesh directory; None builds the default channel
     in code (``mesh/channel.py``: 25 x 115 nodes, 40 layers of 100 m).
-    ``which_ale``: "linfs" or "zstar" (ignored when ``cfg`` is given).
+    ``which_ale``: "linfs", "zlevel" or "zstar" (ignored when ``cfg`` is
+    given).
     Meshes up to ``DENSE_SSH_MAX_NODES`` nodes get the dense SSH inverse,
     larger ones the CG tables (``_ssh_solver``).
     """
@@ -637,19 +644,21 @@ def setup_soufflet_model(mesh_path: Optional[str] = None, *,
 
 def pi_config(parity: str = "ci", step_per_day: int = 96) -> ModelConfig:
     """The configuration ``fesom2_tpu.model.setup_pi_model`` builds
-    (``fesom2_tpu/model.py:793-836``) with ``parity="ci"``, field for
-    field: the reference CI configuration (zstar, partial cells with
-    threshold 0, JM, KPP, ``visc_option=5``, ``w_split`` with
-    ``w_max_cfl=1``, MFCT/QR4C/FCT, Fer_GM + Redi with the CI values,
-    ``K_hor=3000``, shortwave penetration, ``force_rotation``).  No other
-    parity is ported: any other value raises.
+    (``fesom2_tpu/model.py:793-839``), field for field.  Both parities
+    share JM, ``visc_option=5``, ``w_split`` with ``w_max_cfl=1``,
+    MFCT/QR4C/FCT, shortwave penetration and ``force_rotation``.
+    ``"ci"`` is the reference CI configuration: zstar, partial cells with
+    threshold 0, KPP, Fer_GM + Redi with the CI values, ``K_hor=3000``,
+    the CI viscosity and relaxation.  ``"fast"`` (``bench.py``'s
+    ``BENCH_PARITY=fast``) is linfs + PP with every other field at its
+    default: full cells, no GM/Redi.  Any other parity raises.
 
     The ice is on (mEVP, 120 subcycles, on the subdomain poleward of 40
     degrees); a caller who wants the ocean alone (``run.run_pi_ocean``)
     may set ``cfg.run.use_ice = False`` before ``setup_pi_model``.
     """
-    if parity != "ci":
-        raise ValueError(f"parity must be 'ci', not {parity!r}")
+    if parity not in ("ci", "fast"):
+        raise ValueError(f"parity must be 'ci' or 'fast', not {parity!r}")
     cfg = ModelConfig()
     cfg.timestep.step_per_day = step_per_day
     cfg.run.use_ice = True
@@ -665,6 +674,10 @@ def pi_config(parity: str = "ci", step_per_day: int = 96) -> ModelConfig:
     cfg.tra.tra_adv_hor = "MFCT"
     cfg.tra.tra_adv_ver = "QR4C"
     cfg.tra.tra_adv_lim = "FCT"
+    if parity == "fast":
+        cfg.ale.which_ALE = "linfs"
+        cfg.dyn.mix_scheme = "PP"
+        return cfg
     cfg.ale.which_ALE = "zstar"          # namelist.config:32
     cfg.ale.use_partial_cell = True      # namelist.config:33
     cfg.ale.partial_cell_thresh = 0.0

@@ -3,7 +3,7 @@
     python -m fesom2_tpu_torch.run soufflet --steps N --device cuda \\
         [--f32] [--mesh DIR]
     python -m fesom2_tpu_torch.run pi --steps N --device cuda \\
-        [--f32] [--level 7] [--seed 0] [--mesh DIR]
+        [--f32] [--level 7] [--seed 0] [--mesh DIR] [--parity ci|fast]
 
 The port of ``fesom2_tpu/run.py:run_soufflet`` and of the time loop of
 ``run_pi``.  ``--device`` defaults to cuda and raises where CUDA is
@@ -241,6 +241,9 @@ def main(argv=None):
                    help="pi: subdivision level of the code-built globe")
     p.add_argument("--seed", type=int, default=0,
                    help="pi: seed of the initial state and the atmosphere")
+    p.add_argument("--parity", choices=["ci", "fast"], default="ci",
+                   help="pi: the CI configuration or the fast one (linfs + "
+                        "PP), as bench.py's BENCH_PARITY")
     args = p.parse_args(argv)
     dtype = torch.float32 if args.f32 else torch.float64
     if args.config == "soufflet":
@@ -251,7 +254,7 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         path = args.mesh or write_globe(tmp, level=args.level)
         model, atm = setup_pi_model(path, device=args.device, dtype=dtype,
-                                    atm_seed=args.seed)
+                                    parity=args.parity, atm_seed=args.seed)
     state, ice = pi_initial_state(model, seed=args.seed)
     timers = RunTimers(setup=time.perf_counter() - t_all)
     state, ice = run_pi(model, atm, state, ice, args.steps, verbose=True,

@@ -135,7 +135,7 @@ def test_setup_needs_the_ice_off(pair):
     with pytest.raises(NotImplementedError, match="item 17"):
         setup_pi_model(pair.path, device="cpu", cfg=cfg)
     with pytest.raises(ValueError, match="parity"):
-        pi_config(parity="fast")
+        pi_config(parity="bogus")
 
 
 def test_initial_state_and_config(pair):

@@ -242,7 +242,10 @@ def test_run_pi_reports_ice_and_flags_it_outside_the_subdomain(pair, capsys):
     (("run", "use_global_tides"), True, "item 19"),
     (("ice", "whichEVP"), 0, "item 17"),
     (("ice", "whichEVP"), 2, "item 17"),
-    (("run", "use_cavity"), True, "item 15")])
+    (("run", "use_cavity"), True, "item 15"),
+    (("run", "l_mslp"), True, "item 19"),
+    (("run", "use_cavity_partial_cell"), True, "item 15"),
+    (("dyn", "which_pgf"), "sergey", "item 15")])
 def test_check_slice_raises_for_what_is_not_ported(knob, value, item):
     cfg = pi_config()
     check_slice(cfg)                       # the CI configuration passes

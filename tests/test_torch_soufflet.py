@@ -109,8 +109,8 @@ def test_cuda_requested_without_card_raises(mesh_dir):
 
 
 @pytest.mark.parametrize("knob,value", [
-    (("dyn", "mix_scheme"), "CVMIX_TKE"), (("dyn", "visc_option"), 1),
-    (("ale", "which_ALE"), "zlevel"), (("dyn", "mom_adv"), 3),
+    (("dyn", "mix_scheme"), "CVMIX_TKE"), (("tra", "tra_adv_hor"), "UPW1"),
+    (("dyn", "i_vert_visc"), False), (("run", "use_cavity"), True),
     (("tra", "tra_adv_ver"), "PPM"), (("run", "use_ice"), True),
     (("diag", "ldiag_DVD"), True), (("dyn", "SPP"), True)])
 def test_out_of_slice_config_raises(mesh_dir, knob, value):
