@@ -60,7 +60,16 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    ``elem_contrib_to_nodes`` bitwise at [L, E, 3] (the vector-invariant
    momentum's kinetic energy) and ``elem_to_node_mean`` on one [L, E]
    field with and without the level mask (the viscosity menu's
-   smoothing), each with its bound and library call;
+   smoothing), each with its bound and library call; the kernels the
+   ice-shelf cavities change or feed, on the level-7 globe under the
+   shelf of ``globe.shelf_draft`` (a 250 m draft south of 62S; its state
+   after one coupled step): ``fct_bounds`` and ``elem_to_node_mean``
+   bitwise on its cluster tables (with the count of neighbour entries
+   split into two runs), ``kpp_column`` (bitwise in float64) and
+   ``pressure_bv``
+   (columns whose top lies below the surface), each with its bound and
+   library call and whether it is bitwise, beside the same kernels'
+   times on the shelf-free globe;
 4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
    linfs, dense SSH) through ``run.run_soufflet``, with sanity bounds,
    linfs volume conservation and a launch count above 0 for every kernel
@@ -142,15 +151,38 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     ``mom_adv=3``, ``visc_option`` 1-4 and 6-8 and the PGF forms
     (cubicspline, easypgf under zstar; nemo, shchepetkin, cubicspline,
     easypgf under linfs with partial cells), the CI ocean where the ice
-    is not needed; nemo and cubicspline on the linfs channel (full cells).
+    is not needed; nemo and cubicspline on the linfs channel (full cells);
+16. the CI coupled step under the ice shelf at full width
+    (``setup_pi_model(cavity_depth=globe.shelf_draft(...))`` on the
+    level-7 globe, 47 layers, CG): 10 float64 steps gated on the bounds of
+    phase 12 (the area-mean hbar over the areas of each column's top row,
+    ``areasvol`` at ``ulevels - 1``), no sea ice under the shelf, some melt
+    heat flux there, T, S, density, pressure, u and v exactly 0 above each
+    column's top, the launches a step of phase 12 and every kernel of
+    the path launched; the cavity nodes and elements; throughput over 10
+    steps in each dtype, a 3-step profile per dtype with the device ms a
+    step per kernel and per span (``step.cavity`` among them);
+17. card against CPU, 3 float64 coupled steps each, every field within
+    1e-8 of max|CPU| (Kv on the interfaces each column has) and no kernel
+    launched on the CPU path: the shelf on the level-3 globe (the CI step
+    dense and with CG forced; the fast configuration with cavity partial
+    cells under 'sergey', 'shchepetkin' and 'easypgf'), and the CI step
+    on the level-2 globe with ``n_refine=1``;
+18. the level-6 globe refined once (``setup_pi_model(n_refine=1)``:
+    28,795 ocean nodes become about 114,000, numbered as the subdivision
+    leaves them): 5 float64 coupled steps with phase 12's gates, then
+    coupled steps a second in both dtypes, and the device us of
+    ``node_edge_reduce``, ``elem_to_node_mean`` and ``fct_bounds`` on its
+    numbering beside phase 3's on both numberings of the level-7 globe
+    (information).
 
 Any failure exits non-zero before the last line.  Before it come one
 JSON line with the gather kernels' device times on both numberings, one
 with the device ms a step per span of both coupled steps and each menu
 case's worst field, one
 with every kernel's launches, error, times, bound and library time (with
-the device ms a coupled step spends in it, from phase 12's and phase 14's
-profiles, its launches a float64 and a float32 coupled step of both
+the device ms a coupled step spends in it, from phase 12's, 14's and
+16's profiles, its launches a float64 and a float32 coupled step of the
 configurations, and the times of every
 shape of tridiag_solve, elem_contrib_to_nodes, block_schwarz, ring_spmv
 and kpp_column, the first two's calls a step also priced at those times), the
@@ -354,11 +386,13 @@ def check_sane(phase: str, model, state, launches: dict):
 
 
 def check_globe(phase: str, model, state, launches: dict,
-                hbar_expected: float = 0.0):
+                hbar_expected: float = 0.0, area=None):
     """The global ocean's bounds: every field finite, |u| < 3 m/s, T in
     [-3, 35] C, area-mean hbar within 1e-6 m of ``hbar_expected`` (0 where
     the water flux has zero mean; the coupled step's fluxes add up to a
-    known mean) and a launch count above 0 for every kernel of the path."""
+    known mean) and a launch count above 0 for every kernel of the path.
+    The mean is over ``area`` [N] (default the surface areas; under ice-
+    shelf cavities the areas of each column's top row)."""
     import torch
     m = model.mesh
     for name in ("u", "v", "eta", "hbar", "tr", "w", "Kv", "Av", "hnode"):
@@ -366,7 +400,7 @@ def check_globe(phase: str, model, state, launches: dict,
             fail(f"{phase}: {name} is not finite")
     umax = float(state.u.abs().max())
     T = state.tr[0][m.node_layer_mask]
-    a = m.area[0]
+    a = m.area[0] if area is None else area
     hbar_int = float((state.hbar * a).sum() / a.sum())
     say(f"{phase} |u|max={umax:.4f} |eta|max={float(state.eta.abs().max()):.4f} "
         f"T=[{float(T.min()):.4f}, {float(T.max()):.4f}] "
@@ -382,8 +416,8 @@ def check_globe(phase: str, model, state, launches: dict,
         fail(f"{phase}: kernels never launched on the path: {idle}")
 
 
-def check_ice(phase: str, model, state, ice, ice0):
-    """The coupled step's ice bounds after its 20 steps: every ice field
+def check_ice(phase: str, model, state, ice, ice0, n_steps: int = 20):
+    """The coupled step's ice bounds after its ``n_steps`` steps: every ice field
     finite, 0 <= a_ice <= 1, m_ice and m_snow >= 0, some a_ice > 0.5,
     0 < max|u_ice| < 3 m/s and no ice outside the EVP subdomain."""
     import torch
@@ -395,7 +429,7 @@ def check_ice(phase: str, model, state, ice, ice0):
             fail(f"{phase}: ice.{name} is not finite")
     info = step_info(state, model.mesh, ice)
     outside = int(((ice.a_ice > 0) & ~model.ice_sub.node_mask).sum())
-    say(f"{phase} ice after 20 steps: a_ice in [{float(ice.a_ice.min()):.4f}, "
+    say(f"{phase} ice after {n_steps} steps: a_ice in [{float(ice.a_ice.min()):.4f}, "
         f"{info['aice_max']:.4f}], nodes with ice {int((ice.a_ice > 0).sum())} "
         f"(at the start {int((ice0.a_ice > 0).sum())}), area "
         f"{info['ice_area']:.6e} m^2, volume {info['ice_volume']:.6e} m^3, "
@@ -431,6 +465,18 @@ def kpp_flips(got, want, nlevels, tol):
     return int(bad.sum()), int(flip.sum())
 
 
+def split_entries(ct) -> int:
+    """Entries of the fct_bounds neighbour table beyond one per (node,
+    neighbour) pair: a pair whose shared wet levels are not one run (beside
+    an ice shelf) has an entry per run."""
+    import torch
+    w = ct.fct_slot.long() & 0xFFFFFFFF                 # [M, N]
+    local, lo, hi = w & 0xFFFF, (w >> 16) & 0xFF, w >> 24
+    node = torch.arange(w.shape[1], device=w.device)[None].expand_as(w)
+    keys = (node * 65536 + local)[lo < hi]
+    return int(keys.numel() - torch.unique(keys).numel())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -448,7 +494,7 @@ def main():
     from fesom2_tpu_torch.ice.coupling import ocean2ice
     from fesom2_tpu_torch.ice.state import zero_ice_forcing
     from fesom2_tpu_torch.core.mixing import kpp
-    from fesom2_tpu_torch.mesh import build_mesh, cluster, globe
+    from fesom2_tpu_torch.mesh import build_mesh, cluster, globe, read_raw_mesh
     from fesom2_tpu_torch.mesh.channel import channel_raw_mesh, write_mesh
     from fesom2_tpu_torch.model import (pi_coupled_step_fn, pi_initial_state,
                                         setup_pi_model, setup_soufflet_model)
@@ -554,6 +600,32 @@ def main():
     say(f"phase 3 globe: N={gmesh.n_nodes} E={gmesh.n_elems} "
         f"Ed={gmesh.n_edges} layers={gmesh.nl - 1} levels per column "
         f"{int(gmesh.nlevels_node.min())}-{int(gmesh.nlevels_node.max())}")
+    # the CI configuration under the ice shelf of globe.shelf_draft on the
+    # same globe: its tables and its state after one coupled step feed
+    # phase 3, its models phase 16
+    draft7 = globe.shelf_draft(read_raw_mesh(globe_path))
+    sm, satm, sm_setup, s1 = {}, {}, {}, {}
+    for dtype in (torch.float64, torch.float32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sm[dtype], satm[dtype] = setup_pi_model(globe_path, device=dev,
+                                                dtype=dtype,
+                                                cavity_depth=draft7)
+        torch.cuda.synchronize()
+        sm_setup[dtype] = time.perf_counter() - t0
+        s1[dtype] = pi_coupled_step_fn(sm[dtype], satm[dtype])(
+            *pi_initial_state(sm[dtype]), 0)
+    smesh = sm[torch.float64].mesh
+    say(f"phase 3 shelf globe: {int((draft7 < 0).sum())} of "
+        f"{smesh.n_nodes} nodes under the shelf (250 m draft south of 62S); "
+        f"columns with their top below the surface: "
+        f"{int((smesh.ulevels_node > 1).sum())} nodes, "
+        f"{int((smesh.ulevels_elem > 1).sum())} elements, top row up to "
+        f"{int(smesh.ulevels_node.max()) - 1}; fct_bounds neighbour table "
+        f"M={smesh.cluster.fct_slot.shape[0]} (shelf-free "
+        f"{gmesh.cluster.fct_slot.shape[0]}), {split_entries(smesh.cluster)} "
+        f"entries more than (node, neighbour) pairs: pairs whose shared "
+        f"wet levels are two runs")
 
     pbv_fields = ("density_m_rho0", "hpressure", "bvfreq", "dbsfc", "mld2")
 
@@ -723,6 +795,58 @@ def main():
                 lambda: op(x),
                 lambda: ssh.ring_spmv_plain(op.cols, op.vals, x), True,
                 ssh.ring_spmv_work(Kr, N, size), lambda: ring @ xcol)
+
+    def shelf_cases(dtype):
+        """The kernels whose columns or tables the ice-shelf cavities
+        change, on the shelf globe: fct_bounds and elem_to_node_mean (with
+        the level mask and without; library call for the latter: a CSR
+        product with the area weights) on its tables, bitwise, kpp_column
+        (bitwise in float64) and pressure_bv on its state after one
+        coupled step."""
+        m, (st, _, forcing) = sm[dtype], s1[dtype]
+        mesh = m.mesh
+        L, N, E = mesh.nl - 1, mesh.n_nodes, mesh.n_elems
+        K = mesh.nod_in_elem.shape[1]
+        size = torch.empty((), dtype=dtype).element_size()
+        ct = mesh.cluster
+        wet = int(mesh.node_layer_mask.sum())
+        ttf = rand(2, L, N, lo=0.0, hi=30.0, dtype=dtype)
+        lo_ = rand(2, L, N, lo=0.0, hi=30.0, dtype=dtype)
+        out = [("fct_bounds", f"shelf ttf,lo {[2, L, N]}",
+                lambda: tracers.fct_bounds(ttf, lo_, mesh),
+                lambda: tracers.fct_bounds_plain(ttf, lo_, mesh), True,
+                tracers.fct_bounds_work(
+                    2, L, N, ct.fct_slot.shape[0], size,
+                    ct.fct_tile_nodes.numel(), ct.tile_nodes), None)]
+        nie = mesh.nod_in_elem.long()
+        w = mesh.elem_area[nie.clamp_min(0)] * (nie >= 0)
+        mean = csr(torch.arange(N, device=dev)[:, None].expand_as(nie)[
+            nie >= 0], nie[nie >= 0], (w / w.sum(1, keepdim=True))[nie >= 0],
+            (N, E))
+        for lev in (False, True):
+            x = rand(2, L, E, dtype=dtype)
+            xt = x.reshape(-1, E).T.contiguous()
+            out.append(("elem_to_node_mean", f"shelf levels={lev} "
+                        f"{[2, L, E]}",
+                        lambda x=x, lev=lev: ops.elem_to_node_mean(x, mesh,
+                                                                   lev),
+                        lambda x=x, lev=lev: ops.elem_to_node_mean_plain(
+                            x, mesh, lev), True,
+                        ops.elem_to_node_mean_work(
+                            2, L, E, N, K, size, ct.mean_tile_elems.numel(),
+                            ct.tile_nodes),
+                        None if lev else (lambda xt=xt: mean @ xt)))
+        # bitwise in float64; in float32 a column whose boundary layer
+        # rounding moves a level passes as in the globe's case
+        args = kpp.column_inputs(st, mesh, m.cfg, forcing)
+        out.append(("kpp_column", "shelf dd=False",
+                    lambda: tuple(x for x in kpp.kpp_column(*args)
+                                  if x is not None),
+                    lambda: tuple(x for x in kpp.kpp_column_plain(*args)
+                                  if x is not None), dtype == torch.float64,
+                    kpp.kpp_column_work(mesh.nl, N, wet, False, size), None))
+        out.append(pbv_case("shelf", m, st))
+        return out
 
     def globe_cases(dtype):
         """The step kernels on the globe's varying-depth tables, then
@@ -923,7 +1047,8 @@ def main():
                 cases(dtype, "channel", chan[dtype], chan1[dtype])
                 + cg_cases(dtype)
                 + (probe_cases() if dtype == torch.float32 else [])
-                + menu_cases(dtype) + globe_cases(dtype) + ice_cases(dtype)):
+                + menu_cases(dtype) + shelf_cases(dtype) + globe_cases(dtype)
+                + ice_cases(dtype)):
             # an in-place kernel is timed on buffers of its own
             kern_t = own[0] if own else kern
             got, want = kern(), plain()
@@ -934,10 +1059,8 @@ def main():
             # each output against its own largest magnitude
             rel = max(max_abs(g, w) / max(float(w.abs().max()), 1e-300)
                       for g, w in zip(got, want))
-            if exact:
-                ok = all(torch.equal(g, w) for g, w in zip(got, want))
-            else:
-                ok = rel <= tol
+            bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+            ok = bitwise if exact else rel <= tol
             if not ok and name == "kpp_column" and dtype == torch.float32:
                 # a boundary-layer depth that f32 rounding moves across a
                 # level: reported; passes only if every column beyond the
@@ -970,7 +1093,7 @@ def main():
             if library is not None:
                 l_dev = device_us(library)
             say(f"phase 3 {name:21s} {tag} {label:36s} max_abs_err={err:.3e} "
-                f"rel={rel:.3e} "
+                f"rel={rel:.3e} bitwise={bitwise} "
                 f"kernel_us={k_ms * 1e3:.1f} plain_us={p_ms * 1e3:.1f} "
                 f"library_us={'none' if l_ms is None else f'{l_ms * 1e3:.1f}'} "
                 f"bound_us={b_ms * 1e3:.1f} ({bound_by}) "
@@ -980,10 +1103,12 @@ def main():
             # every shape of the kernels whose step calls take several
             if (name in ("tridiag_solve", "elem_to_node_mean")
                     and label.startswith("globe")) \
+                    or label.startswith("shelf") \
                     or name in ("block_schwarz", "elem_contrib_to_nodes",
                                 "kpp_column", "ring_spmv"):
                 summary[name].setdefault("shapes", {})[f"{tag} {label}"] = {
                     "ms": k_ms, "device_ms": k_dev and k_dev / 1e3,
+                    "bitwise": bitwise,
                     "bound_ms": b_ms, "plain_ms": p_ms, "library_ms": l_ms,
                     "library_device_ms": l_dev and l_dev / 1e3,
                     **ecn_calls.get(label, {})}
@@ -1433,7 +1558,8 @@ def main():
     # the 3-step profiles, each dtype's launches a coupled step counted in
     # them (the CG kernels' with the CG iterations of each dtype's steps)
     step_us, launches_dtype = {}, {}
-    span_ms = {"ci": {}, "fast": {}}    # device ms a step per span, by dtype
+    # device ms a step per span, by path and dtype
+    span_ms = {"ci": {}, "fast": {}, "shelf": {}}
     for dtype, (mdl, s_, i_, k0) in cruns.items():
         tag = str(dtype).replace("torch.", "")
         kernels.reset_launches()
@@ -1730,6 +1856,290 @@ def main():
     say(f"phase 15 {len(menus)} menu cases in "
         f"{time.perf_counter() - t15:.1f} s")
 
+    # phase 16 -----------------------------------------------------------
+    say(f"phase 16 starts at {time.perf_counter() - t_start:.1f} s")
+    # the CI coupled step under the ice shelf at full width: the models of
+    # phase 3 (setup_pi_model(cavity_depth=globe.shelf_draft(...)))
+    sm64 = sm[torch.float64]
+    cav_n, cav_e = smesh.ulevels_node > 1, smesh.ulevels_elem > 1
+    uln0 = smesh.ulevels_node.long() - 1
+    top_area = torch.gather(smesh.areasvol, 0, uln0[None])[0]
+    swet = int(smesh.node_layer_mask.sum())
+    for dtype, sec in sm_setup.items():
+        say(f"phase 16 setup {str(dtype).replace('torch.', '')}: {sec:.3f} s "
+            f"(N={smesh.n_nodes}, {int(cav_n.sum())} cavity nodes, "
+            f"{int(cav_e.sum())} cavity elements, {swet} wet node-levels; "
+            f"the mesh's cavity levels, then as phase 12)")
+    steps = pi_coupled_step_fn(sm64, satm[torch.float64])
+    st, ice = pi_initial_state(sm64)
+    ice0 = ice
+    kernels.reset_launches()
+    iters, hbar_expected, melt = [], 0.0, 0.0
+    t0 = time.perf_counter()
+    for k in range(10):
+        st, ice, oforc = steps(st, ice, k)
+        iters.append(sm64.ssh_iters)
+        # the water flux enters each column through its top row
+        hbar_expected = hbar_expected - sm64.cfg.dt * (
+            oforc.water_flux * top_area).sum() / top_area.sum()
+        melt = max(melt, float(oforc.heat_flux[cav_n].abs().max()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shelf_launches = {k: kernels.LAUNCHES[k] for k in coupled_kernels}
+    per_shelf_step = {k: v / 10 for k, v in shelf_launches.items()}
+    say(f"phase 16 coupled CI step under the shelf, 10 steps float64: "
+        f"{wall:.3f} s, CG iterations per step {iters}, launches per step "
+        f"{per_shelf_step}")
+    check_globe("phase 16", sm64, st, shelf_launches, float(hbar_expected),
+                area=top_area)
+    check_ice("phase 16", sm64, st, ice, ice0, n_steps=10)
+    for k, want in step_calls.items():
+        if per_shelf_step[k] != want:
+            fail(f"phase 16: {k} launched {per_shelf_step[k]} times a step, "
+                 f"not {want}")
+    lay = torch.arange(smesh.nl - 1, device=dev)[:, None]
+    above_n = lay < uln0[None]
+    above_e = lay < (smesh.ulevels_elem.long() - 1)[None]
+    nonzero_above = {name: int((f[above] != 0).sum()) for name, f, above in (
+        ("T", st.tr[0], above_n), ("S", st.tr[1], above_n),
+        ("density_m_rho0", st.density_m_rho0, above_n),
+        ("hpressure", st.hpressure, above_n), ("u", st.u, above_e),
+        ("v", st.v, above_e))}
+    ice_under = float(torch.maximum(ice.a_ice[cav_n].abs().max(),
+                                    ice.m_ice[cav_n].abs().max()))
+    T_top = torch.gather(st.tr[0], 0, uln0[None])[0]
+    # cavity nodes under the draft, and those the cavity levels put at
+    # coastal corners elsewhere (ROADMAP queue 3)
+    drafted = torch.as_tensor(draft7 < 0, device=dev)
+    for where, sel in (("under the draft", cav_n & drafted),
+                       ("off the draft", cav_n & ~drafted)):
+        if not bool(sel.any()):
+            continue
+        say(f"phase 16 cavity nodes {where}: {int(sel.sum())}; last step's "
+            f"melt heat flux in [{float(oforc.heat_flux[sel].min()):.3f}, "
+            f"{float(oforc.heat_flux[sel].max()):.3f}] W/m^2, water flux "
+            f"max|.| {float(oforc.water_flux[sel].abs().max()):.3e} m/s; "
+            f"top-row T in [{float(T_top[sel].min()):.4f}, "
+            f"{float(T_top[sel].max()):.4f}] C")
+    say(f"phase 16 under the shelf: max a_ice, m_ice {ice_under:.3e}; "
+        f"max|melt heat flux| over the 10 steps {melt:.3f} W/m^2; values "
+        f"not 0 above the tops {nonzero_above}")
+    if ice_under != 0.0:
+        fail("phase 16: sea ice under the shelf")
+    if not melt > 0.0:
+        fail("phase 16: no melt heat flux under the shelf")
+    if any(nonzero_above.values()):
+        fail(f"phase 16: values above the cavities' tops {nonzero_above}")
+    sruns = {}
+    for dtype, m in sm.items():
+        s_, i_ = pi_initial_state(m)
+        s_, i_ = run_pi(m, satm[dtype], s_, i_, 2)
+        sruns[dtype] = [m, s_, i_, 2]
+    for dtype in (torch.float32, torch.float64):
+        mdl, s_, i_, k0 = sruns[dtype]
+        n = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_, i_ = run_pi(mdl, satm[dtype], s_, i_, n, first_step=k0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sruns[dtype][1:] = [s_, i_, k0 + n]
+        if not (torch.isfinite(s_.eta).all()
+                and torch.isfinite(i_.u_ice).all()):
+            fail("phase 16: eta or u_ice is not finite")
+        say(f"phase 16 throughput {str(dtype).replace('torch.', '')}: "
+            f"{n / wall:.3f} coupled steps/s, {swet * n / wall:.6e} wet "
+            f"node-levels/s ({swet} wet node-levels; {card})")
+    shelf_us, shelf_launches_dtype = {}, {}
+    for dtype, (mdl, s_, i_, k0) in sruns.items():
+        tag = str(dtype).replace("torch.", "")
+        kernels.reset_launches()
+        shelf_us[tag] = profile_steps(
+            "phase 16", mdl, s_, 3, card,
+            run=lambda m, st_, k, a=satm[dtype], i=i_, k0=k0:
+            run_pi(m, a, st_, i, k, first_step=k0),
+            also=("elem_to_node_mean", "fct_bounds", "pressure_bv",
+                  "kpp_column"),
+            spans=span_ms["shelf"].setdefault(tag, {}))
+        shelf_launches_dtype[tag] = {k: kernels.LAUNCHES[k] / 3
+                                     for k in coupled_kernels}
+        idle = [k for k in coupled_kernels
+                if shelf_launches_dtype[tag][k] <= 0]
+        if idle:
+            fail(f"phase 16 {tag}: kernels of the path never launched {idle}")
+        if "step.cavity" not in span_ms["shelf"][tag]:
+            say(f"phase 16 {tag}: the step.cavity span holds no kernel in "
+                f"the profile")
+    shelf_ms = {tag: {k: sum(v for key, v in us.items()
+                             if any(f in key for f in functions[k])) / 1e3
+                      or None for k in coupled_kernels}
+                for tag, us in shelf_us.items()}
+    say(f"phase 16 device ms a coupled step per kernel (profile): {shelf_ms}")
+
+    # phase 17 -----------------------------------------------------------
+    say(f"phase 17 starts at {time.perf_counter() - t_start:.1f} s")
+    # card against CPU, 3 float64 coupled steps each: the shelf on the
+    # level-3 globe (CI dense and CG forced; the fast configuration with
+    # cavity partial cells under each PGF form it takes), and the CI step
+    # on the level-2 globe refined once
+    draft3 = globe.shelf_draft(read_raw_mesh(small))
+    l2 = globe.write_globe(str(Path(__file__).resolve().parent / "build"
+                               / "chip_smoke" / "globe_l2"), level=2)
+
+    def cavity_cfg(parity, **run):
+        cfg = port_model.pi_config(parity)
+        for k, v in run.items():
+            setattr(cfg.run, k, v)
+        return cfg
+
+    cases17 = [("CI coupled, shelf, dense", small, dense_max_saved,
+                lambda: port_model.pi_config(), dict(cavity_depth=draft3)),
+               ("CI coupled, shelf, CG forced", small, 0,
+                lambda: port_model.pi_config(), dict(cavity_depth=draft3))]
+    for w in ("sergey", "shchepetkin", "easypgf"):
+        def fast_cfg(w=w):
+            cfg = cavity_cfg("fast", use_cavity_partial_cell=True)
+            cfg.dyn.which_pgf = w
+            return cfg
+        cases17.append((f"fast coupled, shelf, cavity partial cells, "
+                        f"which_pgf={w}", small, dense_max_saved, fast_cfg,
+                        dict(cavity_depth=draft3)))
+    cases17.append(("CI coupled, level-2 globe, n_refine=1", l2,
+                    dense_max_saved, lambda: port_model.pi_config(),
+                    dict(n_refine=1)))
+    t17 = time.perf_counter()
+    for label, where, limit, make_cfg, kw in cases17:
+        port_model.DENSE_SSH_MAX_NODES = limit
+        try:
+            on_gpu, atm_gpu = setup_pi_model(where, device=dev,
+                                             cfg=make_cfg(), **kw)
+            on_cpu, atm_cpu = setup_pi_model(where, device="cpu",
+                                             cfg=make_cfg(), **kw)
+        finally:
+            port_model.DENSE_SSH_MAX_NODES = dense_max_saved
+        kernels.reset_launches()
+        s_gpu, i_gpu = run_pi(on_gpu, atm_gpu, *pi_initial_state(on_gpu), 3)
+        n_card = sum(kernels.LAUNCHES.values())
+        s_cpu, i_cpu = run_pi(on_cpu, atm_cpu, *pi_initial_state(on_cpu), 3)
+        if n_card <= 0 or sum(kernels.LAUNCHES.values()) != n_card:
+            fail(f"phase 17: {label}: the card's path launched no kernel, or "
+                 f"the CPU path launched one")
+        mesh_c = on_cpu.mesh
+        # Kv on the interfaces each column has: above a cavity's top KPP
+        # fills rows nothing reads
+        kv = lambda s_, m_: torch.where(m_.node_level_mask, s_.Kv, 0.0)
+        worst = 0.0
+        for obj_gpu, obj_cpu, names in (
+                (s_gpu, s_cpu, ("u", "v", "eta", "hbar", "tr", "w", "hnode",
+                                "pgf_x", "Kv")),
+                (i_gpu, i_cpu, ("u_ice", "v_ice", "m_ice", "a_ice",
+                                "sigma11"))):
+            for name in names:
+                if name == "Kv":
+                    got, ref = kv(s_gpu, on_gpu.mesh).cpu(), kv(s_cpu, mesh_c)
+                else:
+                    got, ref = getattr(obj_gpu, name).cpu(), getattr(obj_cpu,
+                                                                     name)
+                rel = max_abs(got, ref) / max(float(ref.abs().max()), 1e-300)
+                if not rel <= 1e-8:
+                    fail(f"phase 17: {label} {name} card vs CPU {rel:.3e} "
+                         f"> 1e-8")
+                worst = max(worst, rel)
+        menu_report[label] = worst
+        say(f"phase 17 {label} ({mesh_c.n_nodes} nodes, "
+            f"{int((mesh_c.ulevels_node > 1).sum())} cavity nodes, use_cavity"
+            f" {on_cpu.cfg.run.use_cavity}): worst field card vs cpu "
+            f"{worst:.3e} of max|cpu|; {n_card} kernel launches on the card; "
+            f"CG iterations of the 3rd step {on_gpu.ssh_iters}")
+    say(f"phase 17 {len(cases17)} cases in {time.perf_counter() - t17:.1f} s")
+
+    # phase 18 -----------------------------------------------------------
+    say(f"phase 18 starts at {time.perf_counter() - t_start:.1f} s")
+    # the level-6 globe refined once (setup_pi_model(n_refine=1)): about
+    # the level-7 globe's size, numbered as the subdivision leaves it
+    l6 = globe.write_globe(str(Path(__file__).resolve().parent / "build"
+                               / "chip_smoke" / "globe_l6"), level=6)
+    rm, ratm, rm_setup = {}, {}, {}
+    for dtype in (torch.float64, torch.float32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rm[dtype], ratm[dtype] = setup_pi_model(l6, device=dev, dtype=dtype,
+                                                n_refine=1)
+        torch.cuda.synchronize()
+        rm_setup[dtype] = time.perf_counter() - t0
+    rmesh = rm[torch.float64].mesh
+    rwet = int(rmesh.node_layer_mask.sum())
+    say(f"phase 18 refined level-6 globe: {read_raw_mesh(l6).n_nodes} nodes "
+        f"refined to N={rmesh.n_nodes} E={rmesh.n_elems} Ed={rmesh.n_edges} "
+        f"layers={rmesh.nl - 1}, {rwet} wet node-levels (the level-7 globe: "
+        f"N={gmesh.n_nodes}); setup float64 {rm_setup[torch.float64]:.3f} s, "
+        f"float32 {rm_setup[torch.float32]:.3f} s")
+    rm64 = rm[torch.float64]
+    stepr = pi_coupled_step_fn(rm64, ratm[torch.float64])
+    st, ice = pi_initial_state(rm64)
+    ice0 = ice
+    area = rmesh.area[0]
+    kernels.reset_launches()
+    iters, hbar_expected = [], 0.0
+    for k in range(5):
+        st, ice, oforc = stepr(st, ice, k)
+        iters.append(rm64.ssh_iters)
+        hbar_expected = hbar_expected - rm64.cfg.dt * (
+            oforc.water_flux * area).sum() / area.sum()
+    torch.cuda.synchronize()
+    refined_launches = {k: kernels.LAUNCHES[k] for k in coupled_kernels}
+    say(f"phase 18 refined coupled CI step, 5 steps float64: CG iterations "
+        f"per step {iters}, launches per step "
+        f"{ {k: v / 5 for k, v in refined_launches.items()} }")
+    check_globe("phase 18", rm64, st, refined_launches, float(hbar_expected))
+    check_ice("phase 18", rm64, st, ice, ice0, n_steps=5)
+    refined_rate = {}
+    for dtype in (torch.float32, torch.float64):
+        m = rm[dtype]
+        s_, i_ = run_pi(m, ratm[dtype], *pi_initial_state(m), 2)
+        n = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_, i_ = run_pi(m, ratm[dtype], s_, i_, n, first_step=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not (torch.isfinite(s_.eta).all()
+                and torch.isfinite(i_.u_ice).all()):
+            fail("phase 18: eta or u_ice is not finite")
+        tag = str(dtype).replace("torch.", "")
+        refined_rate[tag] = n / wall
+        say(f"phase 18 throughput {tag}: {n / wall:.3f} coupled steps/s, "
+            f"{rwet * n / wall:.6e} wet node-levels/s ({rwet} wet "
+            f"node-levels; {m.ssh_iters} CG iterations in the last step; "
+            f"{card})")
+    # the gather kernels on the subdivision's numbering, beside phase 3's
+    # times on both numberings of the level-7 globe
+    refined_us = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        mesh = rm[dtype].mesh
+        L_, N_, E_, Ed_ = (mesh.nl - 1, mesh.n_nodes, mesh.n_elems,
+                           mesh.n_edges)
+        f = rand(2, L_, Ed_, dtype=dtype)
+        x = rand(2, L_, E_, dtype=dtype)
+        ttf = rand(2, L_, N_, lo=0.0, hi=30.0, dtype=dtype)
+        lo_ = rand(2, L_, N_, lo=0.0, hi=30.0, dtype=dtype)
+        for name, kern in (
+                ("node_edge_reduce div", lambda: ops.edge_divergence(f, mesh)),
+                ("elem_to_node_mean", lambda: ops.elem_to_node_mean(x, mesh)),
+                ("fct_bounds", lambda: tracers.fct_bounds(ttf, lo_, mesh))):
+            us, batch = device_us(kern), timed_batch(kern, 20) * 1e3
+            refined_us.setdefault(name, {})[tag] = {"device_us": us,
+                                                    "batch_us": batch}
+            level7 = numbering_us.get(name, {}).get(tag, {})
+            say(f"phase 18 {name:22s} {tag} refined level-6: device_us="
+                f"{us_text(us)}, us a call of 20 between two events="
+                f"{batch:.2f}; level-7 globe (phase 3, the same) along the "
+                f"curve {level7.get('curve', {}).get('device_us')} / "
+                f"{level7.get('curve', {}).get('batch_us')}, by subdivision "
+                f"{level7.get('subdivision', {}).get('device_us')} / "
+                f"{level7.get('subdivision', {}).get('batch_us')} ({card})")
+
     # result -------------------------------------------------------------
     sources = {"node_edge_reduce": "fesom2_tpu/core/ops.py:154",
                "elem_to_node_mean": "fesom2_tpu/core/ops.py:328",
@@ -1771,7 +2181,9 @@ def main():
     step_rows = {"tridiag_solve": tri_step, "elem_contrib_to_nodes": ecn_step}
     say(json.dumps({"numbering_device_us": numbering_us}))
     say(json.dumps({"span_device_ms_a_step": span_ms,
-                    "menus_card_vs_cpu": menu_report}))
+                    "menus_card_vs_cpu": menu_report,
+                    "refined_l6": {"coupled_steps_per_s": refined_rate,
+                                   "device_us": refined_us}}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "fesom2_tpu_torch/csrc/"
@@ -1799,6 +2211,9 @@ def main():
              fast_launches["float32"].get(k),
          "fast_step_device_ms": fast_ms["float64"].get(k),
          "fast_step_device_ms_f32": fast_ms["float32"].get(k),
+         "launches_per_shelf_coupled_step": per_shelf_step.get(k),
+         "shelf_step_device_ms": shelf_ms["float64"].get(k),
+         "shelf_step_device_ms_f32": shelf_ms["float32"].get(k),
          **({"shapes": summary[k]["shapes"]} if "shapes" in summary[k]
             else {}),
          **{key: summary[k][key] for key in ("barrier_floor_ms", "plan",

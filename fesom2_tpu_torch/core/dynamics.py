@@ -2,7 +2,7 @@
 vector-invariant advection, floating-ice loading), the viscosity filters,
 implicit vertical viscosity, the velocity update.
 
-The port of ``fesom2_tpu/core/dynamics.py`` but for the cavity PGF (ref
+The port of ``fesom2_tpu/core/dynamics.py`` (ref
 ``src/oce_ale_vel_rhs.F90`` compute_vel_rhs :13-148, momentum_adv_scalar
 :154-343; ``src/oce_vel_rhs_vinv.F90``; ``src/oce_dyn.F90`` update_vel
 :101-131, compute_vel_nodes :133-169, viscosity_filter :171-234 and the
@@ -390,6 +390,72 @@ def pressure_force_linfs_nemo(state: OceanState, mesh: MeshTables,
                    pgf_y=torch.where(lmask, pgf_y, 0.0))
 
 
+def pressure_force_linfs_cavity(state: OceanState,
+                                mesh: MeshTables) -> OceanState:
+    """The 'sergey' linfs PGF of cavity and partial-cell geometry (ref
+    pressure_force_4_linfs_cavity, oce_ale_pressure_bv.F90:1451-1658):
+    the layers between take the hydrostatic-pressure gradient; the top
+    layer under a cavity (ulevels > 1) and the partial bottom layer get the
+    sloped density-Jacobian correction drho/dx - drho/dz dz/dx, the bottom
+    anchored on the pressure integrated to its upper interface
+    (:1590-1594)."""
+    nl = mesh.nl
+    lmask = mesh.elem_layer_mask
+    rho = state.density_m_rho0
+    Z3 = state.Z_3d
+    dev = Z3.device
+    lev = torch.arange(nl - 1, device=dev)[:, None]
+    nle0 = (mesh.nlevels_elem - 2)[None, :]      # bottom layer row
+    ule0 = (mesh.ulevels_elem - 1)[None, :]      # top layer row
+    gx_p, gy_p = scalar_gradient(state.hpressure / density_0, mesh)
+
+    # element mid-depths and the sloped correction (the shchepetkin
+    # forms' stencil; only the top and bottom rows are used)
+    h, Z_e = _elem_mid_depths(state, mesh)
+    gx = mesh.gradient_sca[:, 0:3]
+    gy = mesh.gradient_sca[:, 3:6]
+    drho_dz = torch.zeros_like(Z_e)
+    drho_dx = torch.zeros_like(Z_e)
+    drho_dy = torch.zeros_like(Z_e)
+    dz_dx = torch.zeros_like(Z_e)
+    dz_dy = torch.zeros_like(Z_e)
+    for v, (env, dm2, dm1) in enumerate(_pgf_vertex_stencil(mesh)):
+        rho_v = rho[:, env]
+        z_v = Z3[:, env]
+        x0, x1, x2 = _stencil_reads(z_v, dm2, dm1)
+        f0, f1, f2 = _stencil_reads(rho_v, dm2, dm1)
+        dx10, dx21, dx20 = x1 - x0, x2 - x1, x2 - x0
+        df10, df21 = f1 - f0, f2 - f1
+        drho_dz = drho_dz + df10 / _safe(dx10) \
+            + (dx10 * df21 - dx21 * df10) / _safe(dx20 * dx21 * dx10) \
+            * ((Z_e - x1) + (Z_e - x0))
+        drho_dx = drho_dx + rho_v * gx[None, :, v]
+        drho_dy = drho_dy + rho_v * gy[None, :, v]
+        dz_dx = dz_dx + z_v * gx[None, :, v]
+        dz_dy = dz_dy + z_v * gy[None, :, v]
+    drho_dz = drho_dz / 3.0
+    aux_x = (drho_dx - drho_dz * dz_dx) * h * g / density_0
+    aux_y = (drho_dy - drho_dz * dz_dy) * h * g / density_0
+
+    # the bottom's anchor: the gradient of hpressure + g/2 rho hnode on
+    # the row above the bottom (:1590-1594)
+    hp_anchor = state.hpressure + 0.5 * g * rho \
+        * torch.where(mesh.node_layer_mask, state.hnode, 0.0)
+    ax, ay = scalar_gradient(hp_anchor / density_0, mesh)
+    row = torch.clamp_min(nle0 - 1, 0).clamp(0, nl - 2).long()
+    int_x = torch.gather(ax, 0, row)
+    int_y = torch.gather(ay, 0, row)
+
+    is_srf_cav = (lev == ule0) & (ule0 > 0)
+    is_bot = lev == nle0
+    pgf_x = torch.where(is_srf_cav, 0.5 * aux_x, gx_p)
+    pgf_y = torch.where(is_srf_cav, 0.5 * aux_y, gy_p)
+    pgf_x = torch.where(is_bot, int_x + 0.5 * aux_x, pgf_x)
+    pgf_y = torch.where(is_bot, int_y + 0.5 * aux_y, pgf_y)
+    return replace(state, pgf_x=torch.where(lmask, pgf_x, 0.0),
+                   pgf_y=torch.where(lmask, pgf_y, 0.0))
+
+
 def pressure_force(state: OceanState, mesh: MeshTables, cfg) -> OceanState:
     """PGF dispatch on ``which_pgf`` (ref pressure_force_4_linfs :371-427,
     pressure_force_4_zxxxx :1661-1687), as ``fesom2_tpu/core/dynamics.py:
@@ -397,15 +463,23 @@ def pressure_force(state: OceanState, mesh: MeshTables, cfg) -> OceanState:
     hydrostatic-pressure gradient; linfs with partial cells nemo,
     shchepetkin, cubicspline or easypgf (the layer geometry is static
     there, so the moving-coordinate forms evaluate to the linfs ones);
+    linfs with cavity partial cells (``cfg.run.use_cavity_partial_cell``,
+    an attribute set on the configuration) sergey, shchepetkin or easypgf;
     zlevel and zstar shchepetkin, cubicspline or easypgf.  Another name
-    raises ValueError.  The cavity form ("sergey", with cavity partial
-    cells) is not ported: ``model.check_slice`` refuses it."""
+    raises ValueError."""
     which = getattr(cfg.dyn, "which_pgf", "shchepetkin")
-    if getattr(cfg.run, "use_cavity_partial_cell", False):
-        raise NotImplementedError("linfs with cavity partial cells (the "
-                                  "'sergey' PGF) is not ported yet: ROADMAP "
-                                  "queue 1 item 15")
     if cfg.ale.which_ALE == "linfs":
+        use_cav_pc = getattr(cfg.run, "use_cavity_partial_cell", False)
+        if use_cav_pc:
+            if which == "sergey":
+                return pressure_force_linfs_cavity(state, mesh)
+            if which == "shchepetkin":
+                return pressure_force_zxxxx_shchepetkin(state, mesh)
+            if which == "easypgf":
+                return pressure_force_easypgf(state, mesh, cfg)
+            raise ValueError(
+                f"which_pgf='{which}' not supported for linfs with cavity "
+                "partial cells (ref :388-402: sergey, shchepetkin, easypgf)")
         if not cfg.ale.use_partial_cell:
             if which == "nemo":
                 return pressure_force_linfs_nemo(state, mesh, cfg)

@@ -18,6 +18,7 @@ import torch
 from ..constants import g, density_0
 from .. import kernels
 from ..mesh import MeshTables
+from .ops import take_row
 from .state import OceanState
 
 # Jackett & McDougall (1992) coefficients (ref :2605-2636)
@@ -101,11 +102,12 @@ _EOS_CELL_FLOPS = {0: 4 + 55, 1: 110 + 55, 2: 4 + 55}
 def pressure_bv_work(levels: int, n_nodes: int, wet_cells: int, eos_kind: int,
                      itemsize: int) -> tuple:
     """(bytes, flops) of one call on [levels, N] layers of which
-    ``wet_cells`` are wet (a column ends at its bottom, so these inputs
-    need no more): T, S, Z_3d, hnode, density_ref and zbar_3d read on the
-    wet cells, ``nlevels_node`` [N], the outputs written whole (rho and
-    hpressure [L, N], bvfreq and dbsfc [L + 1, N], mld2 [N])."""
-    nbytes = (6 * wet_cells + n_nodes) * itemsize + 4 * n_nodes \
+    ``wet_cells`` are wet (a column runs from its top to its bottom, so
+    these inputs need no more): T, S, Z_3d, hnode, density_ref and zbar_3d
+    read on the wet cells, ``nlevels_node`` and ``ulevels_node`` [N], the
+    outputs written whole (rho and hpressure [L, N], bvfreq and dbsfc
+    [L + 1, N], mld2 [N])."""
+    nbytes = (6 * wet_cells + n_nodes) * itemsize + 8 * n_nodes \
         + (2 * levels + 2 * (levels + 1) + 1) * n_nodes * itemsize
     return nbytes, _EOS_CELL_FLOPS[eos_kind] * wet_cells
 
@@ -115,10 +117,9 @@ def pressure_bv(state: OceanState, mesh: MeshTables, cfg,
     """EoS + hydrostatic pressure + N^2 + MLD (ref pressure_bv :106-370);
     column-local.  ``density_ref`` is [nl-1, N].  Writes density_m_rho0,
     hpressure, bvfreq (with its surface and bottom copies), dbsfc (the
-    buoyancy difference to the surface, for KPP) and mld2."""
-    if cfg.run.use_cavity:
-        raise NotImplementedError("ice-shelf cavities are not ported yet: "
-                                  "ROADMAP queue 1 item 15")
+    buoyancy difference to the surface, for KPP) and mld2.  A column's
+    surface is its top row, ``ulevels_node - 1`` (below the surface under
+    an ice-shelf cavity)."""
     if state.tr.device.type == "cpu":
         return pressure_bv_plain(state, mesh, cfg, density_ref)
     kernels.cuda_only(state.tr, "pressure_bv")
@@ -131,13 +132,15 @@ def pressure_bv(state: OceanState, mesh: MeshTables, cfg,
         kernels.require(x, name, (L, N), dt, dev)
     kernels.require(state.zbar_3d, "zbar_3d", (L + 1, N), dt, dev)
     kernels.require(mesh.nlevels_node, "nlevels_node", (N,), torch.int32, dev)
+    kernels.require(mesh.ulevels_node, "ulevels_node", (N,), torch.int32, dev)
     rho = torch.empty((L, N), dtype=dt, device=dev)
     hp = torch.empty_like(rho)
     bv = torch.empty((L + 1, N), dtype=dt, device=dev)
     dbsfc = torch.empty_like(bv)
     mld2 = torch.empty((N,), dtype=dt, device=dev)
     kernels.launch("pressure_bv", dev, t, s, state.Z_3d, state.zbar_3d,
-                   state.hnode, density_ref, mesh.nlevels_node, L + 1, N,
+                   state.hnode, density_ref, mesh.nlevels_node,
+                   mesh.ulevels_node, L + 1, N,
                    _eos_kind(cfg), g, density_0, rho, hp, bv, dbsfc, mld2,
                    kernels.float_code(dt))
     return replace(state, density_m_rho0=rho, hpressure=hp, bvfreq=bv,
@@ -161,13 +164,17 @@ def pressure_bv_plain(state: OceanState, mesh: MeshTables, cfg,
     rho = rho * rhopot / (rho + 0.1 * Z3 * sef) - density_ref
     rho = torch.where(nmask, rho, 0.0)
 
-    # surface row: ulevels == 1 everywhere without cavities
+    # the surface row of each column: 0 in open ocean, ulevels - 1 under
+    # a cavity
     uln0 = (mesh.ulevels_node - 1).long()
     lay3 = torch.arange(mesh.nl - 1, device=dev)[:, None]
+    top = lambda a: take_row(a, uln0)
 
-    # buoyancy difference vs surface (for KPP bldepth, ref :222-231)
-    rho_srf = b0[0][None, :] + Z3 * (bpz[0][None, :] + Z3 * bpz2[0][None, :])
-    rho_srf = rho_srf * rhopot[0][None, :] / (rho_srf + 0.1 * Z3 * sef)
+    # buoyancy difference vs surface (for KPP bldepth, ref :222-231): the
+    # surface water brought adiabatically to the local depth
+    rho_srf = top(b0)[None, :] + Z3 * (top(bpz)[None, :]
+                                       + Z3 * top(bpz2)[None, :])
+    rho_srf = rho_srf * top(rhopot)[None, :] / (rho_srf + 0.1 * Z3 * sef)
     rho_full = rho + density_ref
     dbsfc_lay = -g * (rho_srf - rho_full) / torch.where(rho_full == 0, 1.0,
                                                         rho_full)
@@ -179,11 +186,12 @@ def pressure_bv_plain(state: OceanState, mesh: MeshTables, cfg,
     dbsfc = torch.where(lev == (nln - 1)[None, :], bot_db, dbsfc)
     dbsfc = torch.where(lev <= (nln - 1)[None, :], dbsfc, 0.0)
 
-    # hydrostatic pressure at mid-levels (linfs path, ref :269-293)
+    # hydrostatic pressure at mid-levels (linfs and cavity path, ref
+    # :269-293), from the column's top down
     h = state.hnode
     incr = 0.5 * g * (torch.roll(rho * h, 1, 0) + rho * h)
     incr = torch.where(lay3 <= uln0[None, :], 0.0, incr)
-    hp = (-Z3[0] * rho[0] * g)[None, :] + torch.cumsum(incr, 0)
+    hp = (-top(Z3) * top(rho) * g)[None, :] + torch.cumsum(incr, 0)
     hp = torch.where(nmask, hp, 0.0)
 
     # Brunt-Vaisala frequency on interfaces (ref :321-333)
@@ -196,9 +204,10 @@ def pressure_bv_plain(state: OceanState, mesh: MeshTables, cfg,
     bv_int = -g * dz_inv * (rho_up - rho_dn) / density_0
     bvfreq = torch.zeros_like(state.bvfreq)
     bvfreq[1:-1] = bv_int
-    # boundary values (ref :364-365): surface <- first interior, bottom
-    # interface nzmax <- nzmax-1 (per column)
-    bvfreq = torch.where(lev == uln0[None, :], bvfreq[1:2], bvfreq)
+    # boundary values (ref :364-365): the top interface <- the first
+    # interior one, the bottom interface nzmax <- nzmax-1 (per column)
+    bvfreq = torch.where(lev == uln0[None, :], take_row(bvfreq, uln0 + 1),
+                         bvfreq)
     bot_val = torch.gather(bvfreq, 0, (nln - 2)[None, :])
     bvfreq = torch.where(lev == (nln - 1)[None, :], bot_val, bvfreq)
     bvfreq = torch.where((lev <= (nln - 1)[None, :]) & (lev >= uln0[None, :]),
@@ -206,7 +215,7 @@ def pressure_bv_plain(state: OceanState, mesh: MeshTables, cfg,
 
     # MLD2: shallowest level with rhopot - rhopot(surface) > 0.125
     # (ref :340-358)
-    exceed = (rhopot - rhopot[0][None, :]) > 0.125
+    exceed = (rhopot - top(rhopot)[None, :]) > 0.125
     exceed = torch.where(nmask, exceed, True)
     exceed = torch.where(lay3 <= uln0[None, :], False, exceed)
     idx = torch.argmax(exceed.to(torch.uint8), 0)           # first True

@@ -153,13 +153,20 @@ def _nie_weights(mesh: MeshTables):
 
 def elem_to_node_mean_plain(x_elem: torch.Tensor, mesh: MeshTables,
                             respect_levels: bool = True) -> torch.Tensor:
+    """The weighted sums taken over the slots in the order k = 0..K-1, a
+    slot of weight 0 adding nothing, as the kernel takes them (``torch.sum``
+    over the slots may add in another order): kernel and plain agree bit
+    for bit."""
     safe, w = _nie_weights(mesh)
-    xv = x_elem[..., safe]                                  # [.., L, N, K]
-    if respect_levels:
-        wl = torch.where(mesh.elem_layer_mask[..., safe], w, 0.0)
-    else:
-        wl = w.expand(xv.shape)
-    return (xv * wl).sum(-1) / (wl.sum(-1)).clamp_min(1e-30)
+    num = den = None
+    for k in range(safe.shape[1]):
+        wk = w[:, k]
+        if respect_levels:
+            wk = torch.where(mesh.elem_layer_mask[..., safe[:, k]], wk, 0.0)
+        term = torch.where(wk != 0, x_elem[..., safe[:, k]] * wk, 0.0)
+        num = term if num is None else num + term
+        den = wk if den is None else den + wk
+    return num / den.clamp_min(1e-30)
 
 
 def elem_to_node_mean_flat_plain(xs: torch.Tensor,

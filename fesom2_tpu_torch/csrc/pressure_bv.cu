@@ -2,20 +2,23 @@
 // frequency, the buoyancy difference to the surface and the mixed-layer
 // depth of each node column.
 //
-// Replaces fesom2_tpu/core/eos.py:88-175 pressure_bv (without cavities:
-// the surface row is row 0).  The EoS is the split form
+// Replaces fesom2_tpu/core/eos.py:88-175 pressure_bv.  A column's
+// surface is its top row u = ulevels - 1: 0 in open ocean, below it under
+// an ice-shelf cavity, where the rows above u are dry.  The EoS is the
+// split form
 // rho = (b0 + z (bpz + z bpz2)) rhopot / (b0 + z (bpz + z bpz2) + 0.1 z sef)
 // of Jackett & McDougall (eos_kind 1, sef = 1) or the linear forms
 // (b0 = 1, bpz = bpz2 = 0, sef = 0): the general one (eos_kind 0) and the
-// soufflet channel's (eos_kind 2).  Per column n with nln levels:
-//   rho[k]   = rho_eos(k, Z[k]) - rho_ref[k]            (k < nln-1, else 0)
-//   hp[k]    = -Z[0] rho[0] g + sum_{j=1..k} g/2 (rho h[j-1] + rho h[j])
+// soufflet channel's (eos_kind 2).  Per column n with top row u and nln
+// levels (wet layers u <= k < nln-1):
+//   rho[k]   = rho_eos(k, Z[k]) - rho_ref[k]         (wet k, else 0)
+//   hp[k]    = -Z[u] rho[u] g + sum_{j=u+1..k} g/2 (rho h[j-1] + rho h[j])
 //   bv[i]    = -g (rho(i-1 at zbar[i]) - rho(i at zbar[i])) / (Z[i-1]-Z[i])
-//              / rho0, bv[0] = bv[1], bv[nln-1] = bv[nln-2]
+//              / rho0, bv[u] = bv[u+1], bv[nln-1] = bv[nln-2], 0 above u
 //   dbsfc[k] = -g (rho_srf(Z[k]) - rho_full[k]) / rho_full[k], with the
-//              surface water's coefficients at depth Z[k]; bottom copied
-//   mld2     = Z[first k >= 1 with rhopot[k] - rhopot[0] > 0.125, or the
-//              bottom layer; 1 if none]
+//              top water's coefficients at depth Z[k]; bottom copied
+//   mld2     = Z[first k > u with rhopot[k] - rhopot[u] > 0.125, or the
+//              bottom layer; u + 1 if none]
 // Every product and sum is taken in the order of the plain torch version
 // (eos.pressure_bv_plain), and the pressure is summed down the column in
 // level order, as torch.cumsum does, so kernel and plain agree to
@@ -32,13 +35,13 @@
 // 32 contiguous values.  Down the column ceil(L / kCells) threads each
 // take a run of kCells consecutive levels.  Each thread stages its cells'
 // inputs into shared memory with cp.async, all at once (dry cells are not
-// read, except level 1 of a one-layer column, whose N^2 the surface copy
-// reads, as in the plain version).  Pass 1, every cell in parallel: the
+// read, except level u + 1 of a one-layer column, whose N^2 the surface
+// copy reads, as in the plain version).  Pass 1, every cell in parallel: the
 // EoS components once, rho, rho * h for the pressure sum, and the cell's
 // densities at its upper and lower interface (N^2 at the interface
 // between k-1 and k needs k-1's components at zbar[k], which cell k-1
 // evaluates, so no component is evaluated twice), written over the
-// inputs they consumed; the surface cell puts its components in shared
+// inputs they consumed; the top cell puts its components in shared
 // memory.  Pass 2, after a barrier, every cell: dbsfc with the surface
 // water's components, N^2 from the two interface densities, the bottom
 // and surface copies written by the thread that holds the value (each
@@ -112,7 +115,8 @@ __global__ void __launch_bounds__(1024) pressure_bv_kernel(
     const T* __restrict__ tt, const T* __restrict__ ss,
     const T* __restrict__ Z3, const T* __restrict__ zb3,
     const T* __restrict__ hnode, const T* __restrict__ dref,
-    const int* __restrict__ nlevels, int nl, int cols, int kind, T g, T rho0,
+    const int* __restrict__ nlevels, const int* __restrict__ ulevels, int nl,
+    int cols, int kind, T g, T rho0,
     T* __restrict__ rho_out, T* __restrict__ hp_out, T* __restrict__ bv_out,
     T* __restrict__ db_out, T* __restrict__ mld2) {
   extern __shared__ __align__(16) unsigned char shared_raw[];
@@ -128,13 +132,14 @@ __global__ void __launch_bounds__(1024) pressure_bv_kernel(
   T* sH = sZ + L * kTile;
   T* sR = sH + L * kTile;
   T* sZb = sR + L * kTile;      // interfaces 0..L-1
-  T* e0_s = sZb + L * kTile;    // [4][kTile]: the surface cell's components
-  T* base_s = e0_s + 4 * kTile; // [kTile]: -Z[0] rho[0] g
+  T* e0_s = sZb + L * kTile;    // [4][kTile]: the top cell's components
+  T* base_s = e0_s + 4 * kTile; // [kTile]: -Z[u] rho[u] g
   int* mld_s = reinterpret_cast<int*>(base_s + kTile);  // [runs][kTile]
   const int n = blockIdx.x * kTile + tx;
   const bool active = n < cols;
   const long long N = cols;
-  const int nln1 = active ? nlevels[n] - 1 : 0;  // wet layers
+  const int nln1 = active ? nlevels[n] - 1 : 0;  // below the last wet layer
+  const int u = active ? ulevels[n] - 1 : 0;     // the top (wet) layer
   const int k0 = ty * kCells;
   const T sef = kind == 1 ? T(1) : T(0);
   const T mg = -g;
@@ -142,19 +147,19 @@ __global__ void __launch_bounds__(1024) pressure_bv_kernel(
   constexpr int kNone = 1 << 30;
 
   // stage the cells this thread owns; dry cells are not read, except
-  // level 1 of a one-layer column (its N^2 is the surface copy's)
+  // level u + 1 of a one-layer column (its N^2 is the surface copy's)
   if (active) {
     for (int i = 0; i < kCells; ++i) {
       const int k = k0 + i;
       if (k >= L) break;
       const long long idx = k * N + n;
       const int s = k * kTile + tx;
-      const bool wet = k < nln1;
-      if (wet || k == 1) {
+      const bool wet = k >= u && k < nln1;
+      if (wet || k == u + 1) {
         fesom::cp_async(sT + s, tt + idx);
         fesom::cp_async(sS + s, ss + idx);
         fesom::cp_async(sZ + s, Z3 + idx);
-        if (k >= 1) fesom::cp_async(sZb + s, zb3 + idx);
+        if (k > u) fesom::cp_async(sZb + s, zb3 + idx);
       }
       if (wet) {
         fesom::cp_async(sH + s, hnode + idx);
@@ -174,9 +179,9 @@ __global__ void __launch_bounds__(1024) pressure_bv_kernel(
     rhopot[i] = T(0);
     if (active && k < L) {
       const int s = k * kTile + tx;
-      const bool wet = k < nln1;
+      const bool wet = k >= u && k < nln1;
       T rho = T(0);
-      if (wet || k == 1) {
+      if (wet || k == u + 1) {
         const T z = sZ[s];
         const Eos<T> e = eos_components(sT[s], sS[s], kind, rho0);
         rhopot[i] = e.rhopot;
@@ -190,10 +195,10 @@ __global__ void __launch_bounds__(1024) pressure_bv_kernel(
         sH[s] = rhoh;
         // densities at the upper interface (N^2 at interface k) and at
         // the lower one (N^2 at interface k + 1)
-        if (k >= 1) sT[s] = insitu(e, sZb[s], sef);
-        if (k + 1 < L && (k + 1 < nln1 || k == 0))
+        if (k > u) sT[s] = insitu(e, sZb[s], sef);
+        if (k + 1 < L && k >= u && (k + 1 < nln1 || k == u))
           sS[s] = insitu(e, sZb[s + kTile], sef);
-        if (k == 0) {
+        if (k == u) {
           e0_s[tx] = e.b0;
           e0_s[kTile + tx] = e.bpz;
           e0_s[2 * kTile + tx] = e.bpz2;
@@ -213,8 +218,8 @@ __global__ void __launch_bounds__(1024) pressure_bv_kernel(
       T hsum = T(0);
       for (int k = 0; k < L; ++k) {
         T hp = T(0);
-        if (k < nln1) {
-          if (k >= 1)
+        if (k >= u && k < nln1) {
+          if (k > u)
             hsum = hsum + half_g * (sH[(k - 1) * kTile + tx] +
                                     sH[k * kTile + tx]);
           hp = base + hsum;
@@ -235,8 +240,8 @@ __global__ void __launch_bounds__(1024) pressure_bv_kernel(
       if (k < L) {
         const int s = k * kTile + tx;
         const long long idx = k * N + n;
-        const bool wet = k < nln1;
-        // buoyancy difference to the surface water brought to depth z;
+        const bool wet = k >= u && k < nln1;
+        // buoyancy difference to the top water brought to depth z;
         // row nln-1 copies row nln-2 and is written by its thread
         T db = T(0);
         if (wet) {
@@ -247,19 +252,24 @@ __global__ void __launch_bounds__(1024) pressure_bv_kernel(
         if (k != nln1) db_out[idx] = db;
         if (k + 1 == nln1) db_out[idx + N] = db;
         else if (k == L - 1) db_out[idx + N] = T(0);
-        // N^2 at interface k (between layers k-1 and k)
+        // N^2 at interface k (between layers k-1 and k); each row of
+        // bv_out has one writer: row k that of level k, but the top row u
+        // (the copy of interface u + 1, written by level u + 1 or, where
+        // u + 1 is the bottom interface L, 0 by level u), the bottom
+        // copy nln - 1 (written by the level above, unless that is u) and
+        // row L (by level L - 1)
         T bv = T(0);
-        if (k >= 1 && (wet || k == 1)) {
+        if (k > u && (wet || k == u + 1)) {
           const T dz_inv = T(1) / (sZ[s - kTile] - sZ[s]);
           bv = mg * dz_inv * (sS[s - kTile] - sT[s]) / rho0;
         }
-        if (k == 1) bv_out[n] = bv;  // the surface copies interface 1
-        if (k >= 1 && (k == 1 || k != nln1)) bv_out[idx] = bv;
-        if (k >= 1 && k + 1 == nln1) bv_out[idx + N] = bv;
+        if (k == u + 1) bv_out[idx - N] = bv;  // the top copies interface u+1
+        if (k == u && u + 1 == L) bv_out[idx] = T(0);
+        if (k != u && (k != nln1 || k == u + 1)) bv_out[idx] = bv;
+        if (k > u && k + 1 == nln1) bv_out[idx + N] = bv;
         else if (k == L - 1) bv_out[idx + N] = T(0);
-        if (L == 1) bv_out[n] = T(0);
         // mixed-layer depth: the first level that crosses the criterion
-        if (k >= 1 && mld == kNone &&
+        if (k > u && mld == kNone &&
             (!wet || (rhopot[i] - e0.rhopot) > T(0.125)))
           mld = k;
       }
@@ -276,16 +286,17 @@ __global__ void __launch_bounds__(1024) pressure_bv_kernel(
         break;
       }
     }
-    mld2[n] = Z3[(first > 1 ? first : 1) * N + n];
+    mld2[n] = Z3[(first > u + 1 ? first : u + 1) * N + n];
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* t, const void* s, const void* Z3,
                    const void* zb3, const void* hnode, const void* dref,
-                   const void* nlevels, int nl, int cols, int kind, double g,
-                   double rho0, void* rho, void* hp, void* bv, void* db,
-                   void* mld2, cudaStream_t stream) {
+                   const void* nlevels, const void* ulevels, int nl,
+                   int cols, int kind, double g, double rho0, void* rho,
+                   void* hp, void* bv, void* db, void* mld2,
+                   cudaStream_t stream) {
   const int L = nl - 1;
   if (cols == 0) return cudaSuccess;
   const int runs = (L + kCells - 1) / kCells;
@@ -300,7 +311,8 @@ cudaError_t launch(const void* t, const void* s, const void* Z3,
       static_cast<const T*>(t), static_cast<const T*>(s),
       static_cast<const T*>(Z3), static_cast<const T*>(zb3),
       static_cast<const T*>(hnode), static_cast<const T*>(dref),
-      static_cast<const int*>(nlevels), nl, cols, kind, static_cast<T>(g),
+      static_cast<const int*>(nlevels), static_cast<const int*>(ulevels), nl,
+      cols, kind, static_cast<T>(g),
       static_cast<T>(rho0), static_cast<T*>(rho), static_cast<T*>(hp),
       static_cast<T*>(bv), static_cast<T*>(db), static_cast<T*>(mld2));
   return cudaSuccess;
@@ -310,18 +322,19 @@ cudaError_t launch(const void* t, const void* s, const void* Z3,
 
 extern "C" int fesom_pressure_bv(const void* t, const void* s, const void* Z3,
                                  const void* zb3, const void* hnode,
-                                 const void* dref, const void* nlevels, int nl,
-                                 int cols, int kind, double g, double rho0,
+                                 const void* dref, const void* nlevels,
+                                 const void* ulevels, int nl, int cols,
+                                 int kind, double g, double rho0,
                                  void* rho, void* hp, void* bv, void* db,
                                  void* mld2, int is_double, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_double ? launch<double>(t, s, Z3, zb3, hnode, dref, nlevels, nl,
-                                 cols, kind, g, rho0, rho, hp, bv, db, mld2,
-                                 st)
-                : launch<float>(t, s, Z3, zb3, hnode, dref, nlevels, nl,
-                                cols, kind, g, rho0, rho, hp, bv, db, mld2,
-                                st);
+      is_double ? launch<double>(t, s, Z3, zb3, hnode, dref, nlevels,
+                                 ulevels, nl, cols, kind, g, rho0, rho, hp,
+                                 bv, db, mld2, st)
+                : launch<float>(t, s, Z3, zb3, hnode, dref, nlevels, ulevels,
+                                nl, cols, kind, g, rho0, rho, hp, bv, db,
+                                mld2, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return fesom::last_error();
 }

@@ -139,7 +139,15 @@ def fct_advect_fields(u_ice, v_ice, fields, mesh: MeshTables, gamma, ice_dt):
     ye = y[..., en]                                       # [F, E, 3]
     s = ye.sum(-1)
     flux_q = -(s[..., None] - 3.0 * ye) * mesh.elem_area[:, None] / 12.0
-    flux_q = flux_q / torch.clamp_min(area1[en], 1e-30)
+    # a node without a surface area (under an ice-shelf cavity) takes no
+    # antidiffusive flux: fesom2_tpu divides by max(area, 1e-30) there, a
+    # flux of elem_area / 12 / 1e-30 (about 1e38) times the field on the
+    # level-7 globe, which overflows float32 to inf and then NaN; in
+    # float64 that node's bound shrinks its elements' factor to about
+    # 1e-38, and the flux they add elsewhere is lost to rounding.  Its
+    # elements' factor is 0 here.
+    wet1 = area1[en] > 0                                  # [E, 3]
+    flux_q = flux_q / torch.where(wet1, area1[en], 1.0)
 
     # cluster min/max of the low-order solution over node neighbourhoods,
     # gathered over the 1-ring table; a padded slot never bounds
@@ -166,7 +174,7 @@ def fct_advect_fields(u_ice, v_ice, fields, mesh: MeshTables, gamma, ice_dt):
 
     # element limiting factor ae = min over its 3 nodes
     fac = torch.where(flux_q >= 0, pplus[..., en], pminus[..., en])  # [F,E,3]
-    ae = fac.amin(-1)
+    ae = torch.where(wet1.all(-1), fac.amin(-1), 0.0)
     out = low + elem_contrib_to_nodes(ae[..., None] * flux_q, mesh)
     return out + d_div
 

@@ -17,8 +17,10 @@ it is constant, so it is derived here once per mesh, on the host in numpy
   element's area, 0 in a padded slot);
 * for the FCT bounds, per node its neighbour nodes (itself first, then
   the other vertices of its elements) with the range of levels over which
-  the neighbour is wet and shares a wet element with the node, packed the
-  same way over the tile's list of neighbour nodes; and per node one word
+  the neighbour is wet and shares a wet element with the node (one entry
+  per range where, beside an ice-shelf cavity, these levels are not one
+  range), packed the same way over the tile's list of neighbour nodes;
+  and per node one word
   ``full_lo | full_hi << 8 | wet_lo << 16 | wet_hi << 24``: the levels on
   which no slot is padded, no element dry and no vertex dry (there the
   cluster bound holds no -1e3 / +1e3 filler), and the node's own wet
@@ -119,7 +121,10 @@ def _neighbour_ranges(nie, elem_nodes, e_lo, e_hi, n_lo, n_hi):
     """The (node, neighbour) pairs with the union of the level runs on which
     a shared element and the neighbour are both wet: (node, neighbour, lo,
     hi), sorted by node with the node itself first.  Every node has its self
-    entry, with an empty run if nothing around it is wet."""
+    entry, with an empty run if nothing around it is wet.  Where the union
+    is not one run (beside an ice shelf one element can be wet on [9, 12)
+    and another on [0, 3)), the pair has one entry per run, in level
+    order."""
     N, K = nie.shape
     valid = nie >= 0
     n_of = np.broadcast_to(np.arange(N)[:, None, None], (N, K, 3))[valid]
@@ -143,16 +148,18 @@ def _neighbour_ranges(nie, elem_nodes, e_lo, e_hi, n_lo, n_hi):
     group = np.cumsum(first) - 1
     start = np.nonzero(first)[0]
     rank = np.arange(n_of.shape[0]) - start[group]
-    # the union of a group's runs: each must touch or overlap what the
-    # earlier ones cover
-    g_lo, g_hi = lo[start], hi[start].copy()
+    # the union of a group's runs, as disjoint runs: a run that starts
+    # beyond the end of what the group's earlier runs cover starts a new one
+    new_run = first.copy()
+    reach = hi.copy()               # the end of the union so far
     for r in range(1, int(rank.max(initial=0)) + 1):
-        sel = rank == r
-        g = group[sel]
-        if (lo[sel] > g_hi[g]).any():
-            raise ValueError("a neighbour's wet levels are not one run")
-        g_hi[g] = np.maximum(g_hi[g], hi[sel])
-    return n_of[start], m_of[start], g_lo, g_hi
+        i = np.nonzero(rank == r)[0]
+        new_run[i] = lo[i] > reach[i - 1]
+        reach[i] = np.where(new_run[i], hi[i], np.maximum(reach[i - 1], hi[i]))
+    run_start = np.nonzero(new_run)[0]
+    run_end = np.append(run_start[1:], n_of.shape[0]) - 1
+    return (n_of[run_start], m_of[run_start], lo[run_start],
+            reach[run_end])
 
 
 def elem_slot_table(nod_in_elem, nod_in_elem_slot, n_elems: int

@@ -51,6 +51,9 @@ surface forcing from a seed: a latitude and depth profile of T/S with
 of latitude, given directly as model-frame components; a heat flux
 pattern; a water flux with zero area mean; a shortwave pattern.
 
+``shelf_draft`` puts an ice shelf of 250 m draft over the ocean south of
+62S, for the cavity configuration.
+
 ``globe_atm_fixtures`` gives an atmosphere for the coupled step from a
 seed: a few records of wind, air temperature, humidity, radiation, rain
 and snow on three time axes of different spacing, and a runoff field, in
@@ -79,6 +82,9 @@ CONTINENT_CAPS = (
     (135.0, -25.0, 15.0),                                       # Australia
 )
 ANTARCTIC_LAT = -68.0
+# the ice shelf of ``shelf_draft``: its northern edge (degrees) and draft (m)
+SHELF_LAT = -62.0
+SHELF_DRAFT = -250.0
 
 
 def stretched_levels(n_layers: int = 47, dz_top: float = 10.0,
@@ -362,14 +368,32 @@ def globe_raw_mesh(level: int = 7, n_layers: int = 47,
                    edge_tri=None, edge2D_in=None)
 
 
-def write_globe(path: str, level: int = 7, **options) -> str:
+def shelf_draft(raw: RawMesh, lat_cut: float = SHELF_LAT,
+                draft: float = SHELF_DRAFT) -> np.ndarray:
+    """An ice shelf over the globe's Antarctic coast: the draft [N] in
+    metres, ``draft`` (negative) under every node south of ``lat_cut``
+    degrees geographic and 0 elsewhere (the synthetic shelf of
+    ``tests/test_cavity.py``, cut further north: the globe's Antarctica is
+    land south of 68S).  ``raw`` is the globe's RawMesh, read with or
+    without ``force_rotation`` (``coords_deg`` are geographic either
+    way)."""
+    return np.where(raw.coords_deg[:, 1] < lat_cut, draft, 0.0)
+
+
+def write_globe(path: str, level: int = 7, shelf: bool = False,
+                **options) -> str:
     """Write ``nod2d.out``, ``elem2d.out`` and ``aux3d.out`` (levels, then
     the positive node depths) of ``globe_raw_mesh(level, **options)``
-    (``n_layers``, ``dz_bottom``, ``numbering``)."""
+    (``n_layers``, ``dz_bottom``, ``numbering``); with ``shelf`` also
+    ``cavity_depth.out``, the draft of ``shelf_draft``, which
+    ``build_mesh`` then reads as the mesh's cavities."""
     raw = globe_raw_mesh(level, **options)
     write_mesh(raw, path)
     with open(os.path.join(path, "aux3d.out"), "a") as fh:
         fh.write("\n".join(f"{-d:.17g}" for d in raw.depth) + "\n")
+    if shelf:
+        with open(os.path.join(path, "cavity_depth.out"), "w") as fh:
+            fh.write("\n".join(f"{d:.17g}" for d in shelf_draft(raw)) + "\n")
     return path
 
 

@@ -104,6 +104,126 @@ def derive_levels(raw: RawMesh, elem_neighbors: np.ndarray,
     return nle.astype(np.int64), nln
 
 
+def derive_ulevels_cavity(cavity_depth: np.ndarray, elem_nodes: np.ndarray,
+                          elem_neighbors: np.ndarray, nle: np.ndarray,
+                          zbar: np.ndarray):
+    """Per-element/per-node level of the ice-shelf (cavity) to ocean
+    boundary, 1-based (1 = open ocean), as the partitioner's
+    ``find_levels_cavity`` (ref ``fvom_init.F90:878-1075``) and
+    ``fesom2_tpu/mesh/tables.py:140-230`` derive it: the element draft is
+    the mean of its vertices', the first mid-depth Z below it (or the level
+    that leaves 3 layers) gives the boundary, then cells isolated within a
+    layer are removed (the boundary deepened where 3 bottom layers remain,
+    else the closest neighbour's raised), repeated until none is left;
+    node ulevels are the minimum over the node's elements."""
+    nl = zbar.shape[0]
+    Z = 0.5 * (zbar[:-1] + zbar[1:])
+    E = elem_nodes.shape[0]
+    dmean = cavity_depth[elem_nodes].mean(axis=1)
+    # the first nz (1-based) with Z(nz) < dmean or at most 3 layers left
+    # (ref :925-931); dmean >= 0 stops at nz = 1 (open ocean)
+    k1 = np.arange(1, nl)
+    cond = (Z[None, :] < dmean[:, None]) | ((nle[:, None] - k1[None, :]) <= 3)
+    ule = np.argmax(cond, axis=1) + 1
+
+    # a cell open on layer nz needs two open neighbours (ref :957-1040)
+    elemreduce = np.zeros(E, bool)
+    elemfix = np.zeros(E, bool)
+    nb = elem_neighbors
+    has2 = (nb >= 0).sum(axis=1) >= 2
+    # the open neighbours of each element, counted column by column (a
+    # bool sum along a row of three is the slow part of the sweep)
+    nb_cols = [(nb[:, j] >= 0, np.clip(nb[:, j], 0, None)) for j in range(3)]
+
+    def _open_neighbours(act):
+        cnt = np.zeros(E, np.uint8)
+        for valid, col in nb_cols:
+            cnt += valid & act[col]
+        return cnt
+
+    def _n_isolated(u):
+        # coastal corners (fewer than two neighbours) are exempt
+        n_bad = 0
+        for nz in range(1, int(u.max()) + 1):
+            act = (u <= nz) & (nz < nle)
+            n_bad += int((act & has2 & (_open_neighbours(act) < 2)).sum())
+        return n_bad
+
+    for _outer in range(12):
+        elemreduce[:] = False
+        for nz in range(1, int(ule.max()) + 1):
+            for _ in range(1000):
+                active = (ule <= nz) & (nz < nle)
+                bad = active & (_open_neighbours(active) < 2)
+                if not bad.any():
+                    break
+                deepen = bad & ((nle - (nz + 1)) >= 3) & ~elemreduce \
+                    & ~elemfix
+                ule = np.where(deepen, nz + 1, ule)
+                changed = bool(deepen.any())
+                for e in np.nonzero(bad & ~deepen)[0]:
+                    cands = [(ule[j] - nz, j) for j in nb[e]
+                             if j >= 0 and ule[j] - nz > 0]
+                    if cands:
+                        j = min(cands)[1]
+                        ule[j] = max(nz - 1, 1)
+                        elemreduce[j] = True
+                        changed = True
+                # a sweep that changed nothing would repeat itself to the
+                # end of the 1,000: the cells left are beyond repair
+                if not changed:
+                    break
+        viol = ule > nle - 1
+        if viol.any():
+            elemfix |= viol
+            ule = np.minimum(ule, np.maximum(nle - 3, 1))
+            continue
+        # sweep again while a raised neighbour isolated a shallower cell
+        if _n_isolated(ule) == 0:
+            break
+
+    uln = np.full(cavity_depth.shape[0], nl, np.int64)
+    for j in range(3):
+        np.minimum.at(uln, elem_nodes[:, j], ule)
+    return ule.astype(np.int64), uln.astype(np.int64)
+
+
+def close_column_gaps(ule: np.ndarray, nle: np.ndarray,
+                      nod_in_elem: np.ndarray) -> np.ndarray:
+    """Element cavity tops [E] (1-based) raised until no node's water
+    column has a gap: the layers of a node's elements, [ule - 1, nle - 1)
+    each, must make one run, or the node has dry layers inside its column
+    (zero area, so its control volume divides by 0).  A gap comes where a
+    cavity's top lies below the bottom of a shallow neighbour (a draft
+    deeper than the sea beside it: the level-6 and level-7 globes under
+    ``globe.shelf_draft``, not the level-3).  An element whose top lies
+    below every layer the node's elements above it reach is raised to
+    where they end; repeated to a fixed point (the tops only rise, and a
+    raised element keeps its bottom and has more layers).  This is the
+    port's repair: ``fesom2_tpu/mesh/tables.py:derive_ulevels_cavity``
+    leaves such gaps; where it leaves none, the levels are its own.
+    ``nod_in_elem`` [N, K] is padded with -1."""
+    ule = ule.copy()
+    valid = nod_in_elem >= 0
+    safe = np.where(valid, nod_in_elem, 0)
+    hi = np.where(valid, nle[safe] - 1, -1)
+    K = nod_in_elem.shape[1]
+    while True:
+        lo = np.where(valid, ule[safe] - 1, -1)
+        # per (node, element): the deepest layer reached by the node's
+        # elements whose runs start above this element's
+        reach = np.full(nod_in_elem.shape, -1, np.int64)
+        for k in range(K):
+            above = valid[:, k:k + 1] & (lo[:, k:k + 1] < lo)
+            reach = np.maximum(reach, np.where(above, hi[:, k:k + 1], -1))
+        gap = valid & (reach >= 0) & (reach < lo)
+        if not gap.any():
+            return ule
+        new_lo = ule - 1
+        np.minimum.at(new_lo, nod_in_elem[gap], reach[gap])
+        ule = new_lo + 1
+
+
 def partial_bottom_depths(depth: Optional[np.ndarray], elem_nodes: np.ndarray,
                           nod_in_elem: np.ndarray, nle: np.ndarray,
                           nln: np.ndarray, zbar: np.ndarray,
@@ -204,11 +324,15 @@ class MeshTables:
 
 def build_mesh(path: str, *, cyclic_length_deg: float = 360.0,
                force_rotation: bool = False, use_partial_cell: bool = False,
-               partial_cell_thresh: float = 0.0, dtype=torch.float64,
-               device) -> MeshTables:
+               partial_cell_thresh: float = 0.0, cavity_depth=None,
+               dtype=torch.float64, device) -> MeshTables:
     """Read a FESOM-format mesh directory and derive all static geometry;
-    with ``use_partial_cell`` the bottom cells follow the node depths."""
+    with ``use_partial_cell`` the bottom cells follow the node depths.
+    ``cavity_depth`` [N] (the ice-shelf draft, negative; 0 in open ocean)
+    replaces the directory's ``cavity_depth.out``, if it has one."""
     raw = read_raw_mesh(path, force_rotation=force_rotation)
+    if cavity_depth is not None:
+        raw = replace(raw, cavity_depth=np.asarray(cavity_depth, np.float64))
     return build_mesh_from_raw(raw, cyclic_length_deg=cyclic_length_deg,
                                force_rotation=force_rotation,
                                use_partial_cell=use_partial_cell,
@@ -222,9 +346,8 @@ def build_mesh_from_raw(raw: RawMesh, *, cyclic_length_deg: float = 360.0,
                         use_partial_cell: bool = False,
                         partial_cell_thresh: float = 0.0,
                         dtype=torch.float64, device) -> MeshTables:
-    if raw.cavity_depth is not None:
-        raise NotImplementedError("ice-shelf cavities are not ported yet: "
-                                  "ROADMAP queue 1 item 15")
+    """The tables of a RawMesh; a draft in ``raw.cavity_depth`` puts
+    ice-shelf cavities over the columns beneath it."""
     cl = cyclic_length_deg * rad
     coords = raw.coords
     N, E, nl = raw.n_nodes, raw.n_elems, raw.nl
@@ -299,8 +422,15 @@ def build_mesh_from_raw(raw: RawMesh, *, cyclic_length_deg: float = 360.0,
         nle, nln = raw.nlevels_elem, raw.nlevels_node
     else:
         nle, nln = derive_levels(raw, elem_neighbors)
-    ule = np.ones(E, np.int64)
-    uln = np.ones(N, np.int64)
+    if raw.cavity_depth is not None:
+        ule, _ = derive_ulevels_cavity(raw.cavity_depth, elem_nodes,
+                                       elem_neighbors, nle, raw.zbar)
+        ule = close_column_gaps(ule, nle, nod_in_elem)
+        # a node's top: the highest of its elements'
+        uln = np.where(nod_in_elem >= 0, ule[safe_nie], nl).min(1)
+    else:
+        ule = np.ones(E, np.int64)
+        uln = np.ones(N, np.int64)
 
     zbar = raw.zbar
     Z = 0.5 * (zbar[:-1] + zbar[1:])
@@ -338,7 +468,21 @@ def build_mesh_from_raw(raw: RawMesh, *, cyclic_length_deg: float = 360.0,
     contrib_levels = np.where(elem_layer_mask, (elem_area / 3.0)[None, :], 0.0)
     for j in range(3):
         np.add.at(area[:nl - 1].T, elem_nodes[:, j], contrib_levels.T)
-    areasvol = area.copy()
+    if raw.cavity_depth is not None:
+        # under a cavity the scalar cell's volume area is the lower prism
+        # face where an adjacent element is still closed (ref :1952-1977)
+        cav_contrib = np.zeros((nl - 1, N), np.int64)
+        closed = lay[:, None] < (ule[None, :] - 1)
+        for j in range(3):
+            np.add.at(cav_contrib.T, elem_nodes[:, j],
+                      closed.T.astype(np.int64))
+        areasvol = area.copy()
+        nz_dn = np.minimum(lay[:, None] + 1, np.maximum(nln[None, :] - 2, 0))
+        area_dn = np.take_along_axis(area[:nl - 1], nz_dn, axis=0)
+        areasvol[:nl - 1] = np.where((cav_contrib > 0) & node_layer_mask,
+                                     area_dn, area[:nl - 1])
+    else:
+        areasvol = area.copy()
 
     elem_area = elem_area * r_earth * r_earth
     area = area * r_earth * r_earth

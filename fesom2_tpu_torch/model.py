@@ -19,7 +19,9 @@ configurations on a global mesh (``pi_config``, ``setup_pi_model``,
 partial cells, JM, KPP, GM/Redi, ``w_split``, MFCT/QR4C/FCT, shortwave
 penetration, mEVP sea ice on the polar-cap subdomain, FCT ice advection,
 ice thermodynamics, NCAR bulk forcing) and the fast one (the same on
-linfs with PP, full cells and no GM/Redi).  Configuration branches outside
+linfs with PP, full cells and no GM/Redi), each with ice-shelf cavities
+where a draft is given (``setup_pi_model(cavity_depth=...)``) and on a
+refined mesh (``n_refine``).  Configuration branches outside
 the port raise NotImplementedError naming the ROADMAP item that will port
 them.
 """
@@ -37,7 +39,8 @@ from .config import ModelConfig
 from .constants import vcpw
 from .mesh import MeshTables, build_mesh, build_mesh_from_raw
 from .mesh.channel import channel_raw_mesh
-from .core import eos, dynamics, ssh, ale, tracers, gm_redi
+from .mesh.refine import refined_mesh
+from .core import eos, dynamics, ssh, ale, tracers, gm_redi, cavity
 from .core.ops import edge_divergence, take_row
 from .core.state import (OceanState, Forcing, allocate_state, initial_z3d,
                          init_thickness_linfs, zero_forcing)
@@ -71,12 +74,6 @@ def check_slice(cfg: ModelConfig) -> None:
         missing.append("Icepack (item 18)")
     if cfg.run.use_global_tides:
         missing.append("the tidal potential (item 19)")
-    if cfg.run.use_cavity:
-        missing.append("ice-shelf cavities (item 15)")
-    if getattr(cfg.run, "use_cavity_partial_cell", False) \
-            or getattr(cfg.dyn, "which_pgf", "shchepetkin") == "sergey":
-        missing.append("linfs with cavity partial cells, the 'sergey' PGF "
-                       "(item 15, with core/cavity.py)")
     if cfg.run.l_mslp:
         missing.append("sea-level pressure forcing (item 19)")
     if cfg.ale.which_ALE not in ("linfs", "zlevel", "zstar"):
@@ -454,12 +451,21 @@ def coupled_step_impl(model: Model, ice_update: bool = True):
     ocean still receives the fluxes computed from the (held) ice state; the
     ice catches up with ice_dt = ice_ave_steps * dt on update steps.
 
+    Under ice-shelf cavities (``cfg.run.use_cavity``, ``fesom2_tpu/
+    model.py:356-403``) no sea ice stays at a cavity node, the drag of the
+    shelf base replaces the surface stress on cavity elements, the
+    3-equation melt fluxes replace the heat and water fluxes at cavity
+    nodes (no virtual, relaxation or real salt flux there) and no
+    shortwave reaches the ocean through the shelf; the span
+    ``step.cavity`` holds this work.  The Icepack branch is not ported
+    (``check_slice``).
+
     Returns impl(state, ice, ocean_forcing, ice_forcing) -> (state, ice,
-    ocean_forcing).  The cavity and Icepack branches of
-    ``fesom2_tpu/model.py:318-413`` are not ported (``check_slice``)."""
+    ocean_forcing)."""
     cfg = model.cfg
     check_slice(cfg)
     use_virt_salt = cfg.ale.which_ALE == "linfs"
+    use_cavity = cfg.run.use_cavity
 
     def step_impl(state: OceanState, ice: IceState, ocean_forcing: Forcing,
                   ice_forcing: IceForcing):
@@ -470,13 +476,37 @@ def coupled_step_impl(model: Model, ice_update: bool = True):
                                use_virt_salt, ref_sss=cfg.tra.ref_sss,
                                ref_sss_local=cfg.tra.ref_sss_local,
                                sub=model.ice_sub)
+        if use_cavity:
+            with record_function("step.cavity"):
+                ice = cavity.cavity_ice_clean(ice, mesh)
+                # the drag of the shelf base against the top layer's flow
+                # (ref ice_oce_coupling.F90:75) and the 3-equation melt
+                # fluxes (:222), of the state before this step
+                cav_e = mesh.ulevels_elem > 1
+                cav_n = mesh.ulevels_node > 1
+                csx, csy = cavity.cavity_momentum_fluxes(state, mesh, cfg)
+                chf, cwf = cavity.cavity_heat_water_fluxes_3eq(
+                    state, mesh, model.density_ref)
         with record_function("step.fluxes"):
             sx, sy = ice_cpl.oce_fluxes_mom(ice, surf, ice_forcing, mesh, cfg)
+            if use_cavity:
+                sx = torch.where(cav_e, csx, sx)
+                sy = torch.where(cav_e, csy, sy)
             ocean_forcing = replace(ocean_forcing, stress_x=sx, stress_y=sy)
             ocean_forcing = ice_cpl.oce_fluxes(
                 ice, surf, ice_forcing, ocean_forcing, mesh, cfg,
                 use_virt_salt, Ssurf=model.Ssurf, ref_sss=cfg.tra.ref_sss,
                 ref_sss_local=cfg.tra.ref_sss_local)
+            if use_cavity:
+                # the melt fluxes in place of the absent atmosphere's
+                of = ocean_forcing
+                ocean_forcing = replace(
+                    of, heat_flux=torch.where(cav_n, chf, of.heat_flux),
+                    water_flux=torch.where(cav_n, cwf, of.water_flux),
+                    virtual_salt=torch.where(cav_n, 0.0, of.virtual_salt),
+                    relax_salt=torch.where(cav_n, 0.0, of.relax_salt),
+                    real_salt_flux=torch.where(cav_n, 0.0,
+                                               of.real_salt_flux))
             # ice fields + atm stress for Monin-Obukhov mixing
             # (oce_mo_conv.F90)
             ocean_forcing = replace(
@@ -491,6 +521,10 @@ def coupled_step_impl(model: Model, ice_update: bool = True):
                 sw_3d, dheat = tracers.shortwave_penetration(
                     ice_forcing.shortwave, ice.a_ice, state.zbar_3d, mesh,
                     cfg.ice.albw)
+                if use_cavity:
+                    # no shortwave reaches the ocean through a shelf
+                    sw_3d = torch.where(cav_n[None, :], 0.0, sw_3d)
+                    dheat = torch.where(cav_n, 0.0, dheat)
                 ocean_forcing = replace(
                     ocean_forcing, heat_flux=ocean_forcing.heat_flux + dheat)
         state = model(state, ocean_forcing, sw_3d)
@@ -710,13 +744,22 @@ def pi_config(parity: str = "ci", step_per_day: int = 96) -> ModelConfig:
 
 def setup_pi_model(mesh_path: str, *, device, dtype=torch.float64,
                    step_per_day: int = 96, parity: str = "ci",
-                   cfg: Optional[ModelConfig] = None, atm_seed: int = 0):
+                   cfg: Optional[ModelConfig] = None, atm_seed: int = 0,
+                   cavity_depth=None, n_refine: int = 0):
     """The global ocean + ice configuration on ``device``, as
     ``fesom2_tpu/model.py:setup_pi_model`` and ``_finish_pi_setup``
     (:764-911) build it.  Returns (Model, AtmData):
 
     1. the mesh tables with ``force_rotation``, a cyclic length of 360
-       degrees and the configuration's partial cells;
+       degrees and the configuration's partial cells; ``cavity_depth``
+       [N] (an ice-shelf draft, negative, 0 in open ocean; it replaces the
+       directory's ``cavity_depth.out``) puts cavities under the shelf
+       and turns ``cfg.run.use_cavity`` on; ``n_refine > 0`` refines the
+       mesh 4-way that many times (``mesh/refine.py``), with the draft of
+       the directory's ``cavity_depth.out`` if it has one.  As in the JAX
+       package, a ``cavity_depth`` given with ``n_refine > 0`` turns
+       ``use_cavity`` on but does not reach the refined mesh (where the
+       mesh has no cavity, the cavity branches change nothing);
     2. the tracer statics;
     3. the unperturbed ``initial_z3d`` and the reference density on its
        mid depths (partial cells move the bottom layer's);
@@ -734,10 +777,18 @@ def setup_pi_model(mesh_path: str, *, device, dtype=torch.float64,
     if cfg is None:
         cfg = pi_config(parity, step_per_day)
     check_slice(cfg)
-    mesh = build_mesh(mesh_path, force_rotation=True, cyclic_length_deg=360.0,
-                      use_partial_cell=cfg.ale.use_partial_cell,
-                      partial_cell_thresh=cfg.ale.partial_cell_thresh,
-                      dtype=dtype, device=device)
+    pc = dict(use_partial_cell=cfg.ale.use_partial_cell,
+              partial_cell_thresh=cfg.ale.partial_cell_thresh)
+    if n_refine > 0:
+        mesh = refined_mesh(mesh_path, n_refine, force_rotation=True,
+                            cyclic_length_deg=360.0, dtype=dtype,
+                            device=device, **pc)
+    else:
+        mesh = build_mesh(mesh_path, force_rotation=True,
+                          cyclic_length_deg=360.0, cavity_depth=cavity_depth,
+                          dtype=dtype, device=device, **pc)
+    if cavity_depth is not None:
+        cfg.run.use_cavity = True
     tst = build_tracer_statics(mesh, K_hor=cfg.tra.K_hor, dtype=dtype)
     _, Z3 = initial_z3d(mesh, dtype)
     dref = eos.reference_density(mesh, Z3, cfg.dyn.state_equation)
@@ -785,8 +836,12 @@ def pi_initial_state(model: Model, seed: int = 0):
     fx = globe_ocean_fixtures(model, seed)
     state = model.initial_state()
     tr = state.tr.clone()
-    tr[0] = torch.as_tensor(fx["T"], device=dev).to(dtype)
-    tr[1] = torch.as_tensor(fx["S"], device=dev).to(dtype)
+    # no water above an ice-shelf cavity's top
+    nmask = mesh.node_layer_mask
+    tr[0] = torch.where(nmask, torch.as_tensor(fx["T"], device=dev).to(dtype),
+                        0.0)
+    tr[1] = torch.where(nmask, torch.as_tensor(fx["S"], device=dev).to(dtype),
+                        0.0)
     state = replace(state, tr=tr, tr_old=tr)
     model.Ssurf = tr[1, 0].clone()
 

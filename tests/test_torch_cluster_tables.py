@@ -6,11 +6,19 @@ lists of elements and of neighbour nodes, packed slot words.  The CUDA
 kernels cannot run here, so these tests hold what they read and how they
 walk it: the ranges against the masks, a torch emulation of each kernel's
 data flow against the plain version (``fct_bounds`` bitwise with a NaN
-planted, ``elem_to_node_mean`` to 1e-13), on the channel and on the
+planted, ``elem_to_node_mean`` bitwise), on the channel and on the
 level-3 globe with partial cells (columns of 5 to 46 levels), for tiles
 smaller and larger than the mesh; the wrappers' argument lists against
 the C signatures; and the byte and flop counters of every kernel against
 figures worked out by hand.
+
+Two meshes carry ice-shelf cavities: the level-3 globe with the shelf of
+``globe.shelf_draft`` (columns whose top lies below the surface), and
+that globe with the tops of some elements moved below the bottoms of
+their neighbours (``split_mesh``), so that a node and a neighbour share
+wet levels in two runs with a gap between them, as beside a real shelf
+(477 such pairs on the level-7 shelf globe): the neighbour table holds one
+entry per run.
 """
 import ctypes
 import dataclasses
@@ -27,19 +35,56 @@ from fesom2_tpu_torch.mesh import globe
 from fesom2_tpu_torch.mesh.channel import channel_raw_mesh
 from fesom2_tpu_torch.scripts import gather_cost_model as probe
 
-MESHES = ("channel", "globe")
+MESHES = ("channel", "globe", "shelf", "split")
 TILES = (32, 256, 1024)
+
+
+def split_mesh(mesh):
+    """``mesh`` with the top of an element moved to the level below its
+    neighbour's bottom wherever the neighbour, open to the surface, ends
+    at least three levels above it (each element moved once, its
+    neighbours then left alone): the two nodes of their common edge share
+    wet levels in two runs.  The node tops follow (the least over the
+    node's elements), and both layer masks."""
+    ule = mesh.ulevels_elem.numpy().astype(np.int64).copy()
+    nle = mesh.nlevels_elem.numpy().astype(np.int64)
+    nb = mesh.elem_neighbors.numpy()
+    touched = np.zeros(ule.shape[0], bool)
+    for e in range(ule.shape[0]):
+        for f in nb[e]:
+            if f >= 0 and not touched[e] and not touched[f] \
+                    and ule[e] == 1 and ule[f] == 1 and nle[f] - nle[e] >= 3:
+                ule[f] = nle[e] + 1
+                touched[e] = touched[f] = True
+    en = mesh.elem_nodes.numpy().astype(np.int64)
+    uln = np.full(mesh.n_nodes, mesh.nl, np.int64)
+    for j in range(3):
+        np.minimum.at(uln, en[:, j], ule)
+    nln = mesh.nlevels_node.numpy().astype(np.int64)
+    lay = np.arange(mesh.nl - 1)[:, None]
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32)
+    out = dataclasses.replace(
+        mesh, ulevels_elem=i32(ule), ulevels_node=i32(uln),
+        elem_layer_mask=torch.as_tensor((lay >= ule - 1) & (lay < nle - 1)),
+        node_layer_mask=torch.as_tensor((lay >= uln - 1) & (lay < nln - 1)))
+    return dataclasses.replace(out, cluster=cluster.build_cluster_tables(out))
 
 
 @pytest.fixture(scope="module")
 def meshes(tmp_path_factory):
     torch.set_num_threads(1)
     path = globe.write_globe(str(tmp_path_factory.mktemp("globe")), level=3)
-    return {"channel": build_mesh_from_raw(
-                channel_raw_mesh(8, 24, 10, dz=400.0), cyclic_length_deg=4.5,
-                device="cpu"),
-            "globe": build_mesh(path, force_rotation=True,
-                                use_partial_cell=True, device="cpu")}
+    shelf = globe.write_globe(str(tmp_path_factory.mktemp("shelf")), level=3,
+                              shelf=True)
+    out = {"channel": build_mesh_from_raw(
+               channel_raw_mesh(8, 24, 10, dz=400.0), cyclic_length_deg=4.5,
+               device="cpu"),
+           "globe": build_mesh(path, force_rotation=True,
+                               use_partial_cell=True, device="cpu"),
+           "shelf": build_mesh(shelf, force_rotation=True,
+                               use_partial_cell=True, device="cpu")}
+    out["split"] = split_mesh(out["shelf"])
+    return out
 
 
 def unpack(word):
@@ -61,6 +106,69 @@ def test_layer_masks_are_level_ranges(meshes, name):
     if name == "globe":
         assert int(mesh.nlevels_node.min()) == 5
         assert int(mesh.nlevels_node.max()) > 40
+    if name in ("shelf", "split"):
+        assert int((mesh.ulevels_node > 1).sum()) > 30
+        assert int(mesh.ulevels_elem.max()) > 3
+
+
+def _pairs(ct, tile):
+    """(node, neighbour, lo, hi) of every used entry of the FCT table."""
+    local, lo, hi = unpack(ct.fct_slot)                 # [M, N]
+    N = local.shape[1]
+    base = ct.fct_tile_ptr.numpy()[np.arange(N) // tile]
+    nb = ct.fct_tile_nodes.numpy()[base[None] + local]
+    node = np.broadcast_to(np.arange(N)[None], local.shape)
+    used = lo < hi
+    return node[used], nb[used], lo[used], hi[used]
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("name", ["shelf", "split"])
+def test_neighbour_runs_split_beside_a_shelf(meshes, name, tile):
+    """Each (node, neighbour) pair's entries are disjoint runs, apart by at
+    least one level, whose union is the set of levels on which a shared
+    element and the neighbour are wet (worked out level by level); the
+    split mesh has such pairs, and the table grows by their extra
+    entries; every level bound fits its 8 bits."""
+    mesh = meshes[name]
+    ct = cluster.build_cluster_tables(mesh, tile)
+    L, N = mesh.nl - 1, mesh.n_nodes
+    node, nb, lo, hi = _pairs(ct, tile)
+    assert hi.max() <= L < 256
+    emask = mesh.elem_layer_mask.numpy()
+    nmask = mesh.node_layer_mask.numpy()
+    nie = mesh.nod_in_elem.numpy()
+    en = mesh.elem_nodes.numpy()
+    want = {}
+    for n in range(N):
+        for e in nie[n][nie[n] >= 0]:
+            for m in en[e]:
+                lev = want.setdefault((n, int(m)), np.zeros(L, bool))
+                lev |= emask[:, e] & nmask[:, m]
+    got = {}
+    order = np.lexsort((lo, nb, node))
+    for n, m, a, b in zip(node[order], nb[order], lo[order], hi[order]):
+        runs = got.setdefault((int(n), int(m)), [])
+        assert not runs or a > runs[-1][1]          # apart, in level order
+        runs.append((a, b))
+    want = {k: v for k, v in want.items() if v.any()}
+    assert set(got) == set(want)
+    for k, runs in got.items():
+        lev = np.zeros(L, bool)
+        for a, b in runs:
+            lev[a:b] = True
+        assert np.array_equal(lev, want[k]), k
+    n_split = sum(len(r) - 1 for r in got.values())
+    if name == "split":
+        assert n_split > 10
+        assert ct.fct_slot.shape[0] >= meshes["shelf"].cluster.fct_slot.shape[0]
+    # the full levels of a node lie inside its first (self) entry
+    info = ct.fct_node.numpy().astype(np.int64) & 0xFFFFFFFF
+    f_lo, f_hi = info & 0xFF, (info >> 8) & 0xFF
+    _, s_lo, s_hi = unpack(ct.fct_slot)
+    full = f_lo < f_hi
+    assert (s_lo[0][full] <= f_lo[full]).all()
+    assert (s_hi[0][full] >= f_hi[full]).all()
 
 
 def test_level_ranges_refuse_a_gap():
@@ -125,7 +233,8 @@ def test_mean_emulation_matches_plain(meshes, name, tile, respect_levels):
     x = torch.as_tensor(rng.uniform(-1, 1, (2, mesh.nl - 1, mesh.n_elems)))
     got = cluster.mean_emulation(x, ct, respect_levels)
     want = ops.elem_to_node_mean_plain(x, mesh, respect_levels)
-    assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
+    # both sum the slots in the kernel's order
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("tile", TILES)
@@ -253,8 +362,8 @@ WORK = [
     (ssh.block_schwarz_work(100, 3, 40, 2, 5, 8), (42012, 9833)),
     # pressure_bv, 4 layers x 10 columns, 25 wet, JM, float64: reads
     # (150+10)*8 + 40, writes (8+10+1)*10*8
-    (eos.pressure_bv_work(4, 10, 25, 1, 8), (2840, 165 * 25)),
-    (eos.pressure_bv_work(4, 10, 25, 2, 4), (1440, 59 * 25)),
+    (eos.pressure_bv_work(4, 10, 25, 1, 8), (2880, 165 * 25)),
+    (eos.pressure_bv_work(4, 10, 25, 2, 4), (1480, 59 * 25)),
     # kpp_column, 5 levels x 10 columns, 25 wet, float64
     (kpp.kpp_column_work(5, 10, 25, False, 8), (2880, 5000)),
     (kpp.kpp_column_work(5, 10, 25, True, 8), (4080, 6500)),
@@ -295,7 +404,8 @@ def test_tile_stats(meshes, name):
 def test_neighbour_ranges_on_two_triangles():
     """Nodes 0-3, elements (0, 1, 2) and (1, 3, 2): the shared edge 1-2
     gets the union of both elements' runs; a node around which nothing is
-    wet lists itself with no levels; runs with a gap between them raise."""
+    wet lists itself with no levels; runs with a gap between them (beside
+    an ice shelf) give one entry each, in level order."""
     elem_nodes = np.array([[0, 1, 2], [1, 3, 2]])
     nie = np.array([[0, -1], [0, 1], [0, 1], [1, -1]])
     wet = np.array([0, 0, 0, 0]), np.array([6, 6, 6, 6])
@@ -316,6 +426,12 @@ def test_neighbour_ranges_on_two_triangles():
     alone = [(int(m), int(a), int(b))
              for n, m, a, b in zip(node, nb, lo, hi) if n == 3]
     assert alone == [(3, 0, 0)]
-    with pytest.raises(ValueError):
-        cluster._neighbour_ranges(nie, elem_nodes, np.array([0, 4]),
-                                  np.array([3, 6]), *wet)
+    node, nb, lo, hi = cluster._neighbour_ranges(
+        nie, elem_nodes, np.array([0, 4]), np.array([3, 6]), *wet)
+    entries = [(int(n), int(m), int(a), int(b))
+               for n, m, a, b in zip(node, nb, lo, hi)]
+    for n, m in ((1, 2), (2, 1), (1, 1), (2, 2)):
+        assert [e[2:] for e in entries if e[:2] == (n, m)] == [(0, 3), (4, 6)]
+    assert [e[2:] for e in entries if e[:2] == (3, 2)] == [(4, 6)]
+    assert len(entries) == 18
+    assert [e[1] for e in entries if e[0] == 1][:2] == [1, 1]

@@ -132,9 +132,11 @@ def _insitu(e, z, sef):
     return bulk * e[3] / (bulk + 0.1 * z * sef)
 
 
-def pressure_bv_walk(t, s, Z3, zb3, h, dref, nlev, kind, g_, rho0):
-    """The kernel's data flow on numpy [L, N] arrays; returns (rho, hp,
-    bvfreq, dbsfc, mld2)."""
+def pressure_bv_walk(t, s, Z3, zb3, h, dref, nlev, kind, g_, rho0,
+                     ulev=None):
+    """The kernel's data flow on numpy [L, N] arrays, with each column's
+    top row at ``ulev - 1`` (None: 0); returns (rho, hp, bvfreq, dbsfc,
+    mld2)."""
     L, N = t.shape
     sef = 1.0 if kind == 1 else 0.0
     mg, half_g = -g_, 0.5 * g_
@@ -143,55 +145,59 @@ def pressure_bv_walk(t, s, Z3, zb3, h, dref, nlev, kind, g_, rho0):
     bv_out, db_out = np.full((L + 1, N), nan), np.full((L + 1, N), nan)
     mld2 = np.full(N, nan)
     runs = -(-L // CELLS)
+    if ulev is None:
+        ulev = np.ones_like(nlev)
     with np.errstate(all="ignore"):
         for n0 in range(0, N, TILE):
             cols = slice(n0, min(N, n0 + TILE))
             nl1 = nlev[cols] - 1
+            u = ulev[cols] - 1
             w = nl1.shape[0]
             sT, sS, sZ, sH, sR, sZb = (np.full((L, w), nan) for _ in range(6))
             # staging: the cells each thread needs
             for k in range(L):
-                wet = k < nl1
-                need = wet | (k == 1)
+                wet = (k >= u) & (k < nl1)
+                need = wet | (k == u + 1)
                 sT[k] = np.where(need, t[k, cols], nan)
                 sS[k] = np.where(need, s[k, cols], nan)
                 sZ[k] = np.where(need, Z3[k, cols], nan)
-                if k >= 1:
-                    sZb[k] = np.where(need, zb3[k, cols], nan)
+                sZb[k] = np.where(need & (k > u), zb3[k, cols], nan)
                 sH[k] = np.where(wet, h[k, cols], nan)
                 sR[k] = np.where(wet, dref[k, cols], nan)
             # pass 1
             rhopot = np.full((L, w), nan)
+            e0 = [np.full(w, nan) for _ in range(4)]
+            base = np.full(w, nan)
             for k in range(L):
-                wet = k < nl1
-                need = wet | (k == 1)
+                wet = (k >= u) & (k < nl1)
+                need = wet | (k == u + 1)
                 z = sZ[k]
                 e = _eos(sT[k], sS[k], kind, rho0)
                 rhopot[k] = np.where(need, e[3], 0.0)
                 rho = np.where(wet, _insitu(e, z, sef) - sR[k], 0.0)
                 sH[k] = np.where(need, np.where(wet, rho * sH[k], 0.0), sH[k])
                 sR[k] = np.where(wet, rho + sR[k], sR[k])
-                if k >= 1:
-                    sT[k] = np.where(need, _insitu(e, sZb[k], sef), sT[k])
+                sT[k] = np.where(need & (k > u), _insitu(e, sZb[k], sef),
+                                 sT[k])
                 if k + 1 < L:
-                    up = need & ((k + 1 < nl1) | (k == 0))
+                    up = need & (k >= u) & ((k + 1 < nl1) | (k == u))
                     sS[k] = np.where(up, _insitu(e, sZb[k + 1], sef), sS[k])
-                if k == 0:
-                    e0 = e
-                    base = ((-z) * rho) * g_
+                top = k == u
+                e0 = [np.where(top, a, b) for a, b in zip(e, e0)]
+                base = np.where(top, ((-z) * rho) * g_, base)
                 rho_out[k, cols] = rho
             # the pressure, summed down the column by one thread
             hsum = np.zeros(w)
             for k in range(L):
-                wet = k < nl1
+                wet = (k >= u) & (k < nl1)
                 if k >= 1:
-                    hsum = np.where(wet, hsum + half_g * (sH[k - 1] + sH[k]),
-                                    hsum)
+                    hsum = np.where(wet & (k > u),
+                                    hsum + half_g * (sH[k - 1] + sH[k]), hsum)
                 hp_out[k, cols] = np.where(wet, base + hsum, 0.0)
             # pass 2: each output row has one writer
             first = np.full((runs, w), -1)
             for k in range(L):
-                wet = k < nl1
+                wet = (k >= u) & (k < nl1)
                 rho_full = sR[k]
                 db = np.where(wet, mg * (_insitu(e0, sZ[k], sef) - rho_full)
                               / np.where(rho_full == 0.0, 1.0, rho_full), 0.0)
@@ -201,26 +207,32 @@ def pressure_bv_walk(t, s, Z3, zb3, h, dref, nlev, kind, g_, rho0):
                 row[k + 1] = np.where(bottom, db, 0.0 if k == L - 1
                                       else row[k + 1])
                 db_out[:, cols] = row
+                bv = np.zeros(w)
                 if k >= 1:
-                    bv = np.where(wet | (k == 1), mg * (1.0 / (
-                        sZ[k - 1] - sZ[k])) * (sS[k - 1] - sT[k]) / rho0, 0.0)
-                    row = bv_out[:, cols]
-                    if k == 1:
-                        row[0] = bv
-                    row[k] = np.where((k == 1) | (k != nl1), bv, row[k])
-                    row[k + 1] = np.where(bottom, bv, 0.0 if k == L - 1
-                                          else row[k + 1])
-                    bv_out[:, cols] = row
-                elif L == 1:
-                    bv_out[:, cols] = 0.0
+                    bv = np.where((k > u) & (wet | (k == u + 1)), mg * (
+                        1.0 / (sZ[k - 1] - sZ[k])) * (sS[k - 1] - sT[k])
+                        / rho0, 0.0)
+                row = bv_out[:, cols]
+                ar = np.arange(w)
+                # the top row u copies interface u + 1
+                hit = k == u + 1
+                row[u[hit], ar[hit]] = bv[hit]
+                if k == L - 1:
+                    hit = u == L - 1
+                    row[u[hit], ar[hit]] = 0.0
+                row[k] = np.where((k != u) & ((k != nl1) | (k == u + 1)), bv,
+                                  row[k])
+                row[k + 1] = np.where(bottom & (k > u), bv,
+                                      0.0 if k == L - 1 else row[k + 1])
+                bv_out[:, cols] = row
                 r = k // CELLS
-                hit = (k >= 1) & (first[r] < 0) & (
+                hit = (k > u) & (first[r] < 0) & (
                     ~wet | ((rhopot[k] - e0[3]) > 0.125))
                 first[r] = np.where(hit, k, first[r])
             idx = np.zeros(w, dtype=np.int64)
             for r in range(runs - 1, -1, -1):
                 idx = np.where(first[r] >= 0, first[r], idx)
-            mld2[cols] = Z3[np.maximum(idx, 1), np.arange(n0, n0 + w)]
+            mld2[cols] = Z3[np.maximum(idx, u + 1), np.arange(n0, n0 + w)]
     return rho_out, hp_out, bv_out, db_out, mld2
 
 
@@ -262,6 +274,85 @@ def test_pressure_bv_plain_matches_jax(case, kind):
     one = case.nlev - 1 == 1
     bv = got.bvfreq.numpy()
     assert np.array_equal(bv[0, one], bv[1, one])   # the surface copy
+
+
+def _cavity_columns(case):
+    """The recut globe with ice-shelf cavities over some columns: every
+    13th node from the 3rd has its top at row min(3, nlevels - 3) (two wet
+    layers or more), every 31st from the 7th keeps its two bottom layers
+    (top at nlevels - 3: the top copies N^2 from the bottom interface).
+    A cavity keeps at least three layers (``derive_ulevels_cavity``); one
+    wet layer under a top, where the surface copy would read the layer
+    below the bottom, does not occur.  Returns (ulevels [N], the port's
+    and the JAX mesh with them, the JAX configuration flag set)."""
+    nlev = case.nlev
+    L = case.nl - 1
+    ulev = np.ones_like(nlev)
+    ulev[3::13] = np.maximum(1, np.minimum(4, nlev[3::13] - 2))
+    ulev[7::31] = np.maximum(1, nlev[7::31] - 2)
+    lay = np.arange(L)[:, None]
+    mask = (lay >= (ulev - 1)[None, :]) & (lay < (nlev - 1)[None, :])
+    tmesh = dataclasses.replace(
+        case.tmesh, ulevels_node=torch.as_tensor(ulev, dtype=torch.int32),
+        node_layer_mask=torch.as_tensor(mask))
+    jmesh = dataclasses.replace(
+        case.jmesh, ulevels_node=jnp.asarray(ulev, dtype=jnp.int32),
+        node_layer_mask=jnp.asarray(mask))
+    return ulev, tmesh, jmesh
+
+
+def test_cavity_columns_cover_the_cases(case):
+    ulev, _, _ = _cavity_columns(case)
+    L = case.nl - 1
+    wet = case.nlev - ulev
+    assert int((ulev > 1).sum()) > 40
+    assert int(((ulev > 1) & (wet == 2)).sum()) > 5       # two wet layers
+    assert int(((ulev > 1) & (wet >= 3)).sum()) > 20
+    assert int(((ulev > 1) & (case.nlev - 1 == L)).sum()) >= 1  # full depth
+
+
+@pytest.mark.parametrize("kind", [1, 0, 2], ids=["jm", "linear", "soufflet"])
+def test_pressure_bv_walk_equals_plain_under_cavities(case, kind):
+    """Columns whose top lies below the surface: the kernel's data flow
+    with the top row u = ulevels - 1, bitwise against the plain version."""
+    cfg = _cfg(kind)
+    cfg.run.use_cavity = True
+    ulev, tmesh, _ = _cavity_columns(case)
+    st = case.ts
+    want = eos.pressure_bv_plain(st, tmesh, cfg, case.tdref)
+    got = pressure_bv_walk(*(x.numpy() for x in (
+        st.tr[0], st.tr[1], st.Z_3d, st.zbar_3d, st.hnode, case.tdref)),
+        case.nlev, kind, g, density_0, ulev)
+    for name, gv in zip(FIELDS, got):
+        wv = getattr(want, name).numpy()
+        assert np.isfinite(wv).all() and np.array_equal(gv, wv), name
+    # the rows above each top are 0, the top copies interface u + 1
+    cav = ulev > 1
+    lay = np.arange(case.nl - 1)[:, None]
+    above = lay < (ulev - 1)[None, :]
+    for name in ("density_m_rho0", "hpressure"):
+        v = getattr(want, name).numpy()
+        assert not v[above].any() and v[~above & (lay < case.nlev - 1)][
+            :].any(), name
+    bv = want.bvfreq.numpy()
+    n = np.nonzero(cav & (case.nlev - ulev >= 3))[0]
+    assert np.array_equal(bv[ulev[n] - 1, n], bv[ulev[n], n])
+    assert not bv[:-1][above].any()
+
+
+@pytest.mark.parametrize("kind", [1, 0], ids=["jm", "linear"])
+def test_pressure_bv_plain_matches_jax_under_cavities(case, kind):
+    cfg = _cfg(kind)
+    cfg.run.use_cavity = True
+    _, tmesh, jmesh = _cavity_columns(case)
+    got = eos.pressure_bv(case.ts, tmesh, cfg, case.tdref)
+    want = jax.jit(lambda s: jeos.pressure_bv(s, jmesh, cfg,
+                                              case.jdref))(case.js)
+    for name in FIELDS:
+        gv = getattr(got, name).numpy()
+        wv = np.asarray(getattr(want, name))
+        scale = max(float(np.abs(wv).max()), 1e-300)
+        assert float(np.abs(gv - wv).max()) <= TOL * scale, name
 
 
 # --------------------------------------------------------------------------

@@ -242,16 +242,28 @@ def test_run_pi_reports_ice_and_flags_it_outside_the_subdomain(pair, capsys):
     (("run", "use_global_tides"), True, "item 19"),
     (("ice", "whichEVP"), 0, "item 17"),
     (("ice", "whichEVP"), 2, "item 17"),
-    (("run", "use_cavity"), True, "item 15"),
+    (("dyn", "SPP"), True, "item 15"),
     (("run", "l_mslp"), True, "item 19"),
-    (("run", "use_cavity_partial_cell"), True, "item 15"),
-    (("dyn", "which_pgf"), "sergey", "item 15")])
+    (("dyn", "i_vert_visc"), False, "item 15"),
+    (("tra", "tra_adv_hor"), "UPW1", "item 15")])
 def test_check_slice_raises_for_what_is_not_ported(knob, value, item):
     cfg = pi_config()
     check_slice(cfg)                       # the CI configuration passes
     setattr(getattr(cfg, knob[0]), knob[1], value)
     with pytest.raises(NotImplementedError, match=item):
         check_slice(cfg)
+
+
+@pytest.mark.parametrize("knob,value", [
+    (("run", "use_cavity"), True),
+    (("run", "use_cavity_partial_cell"), True),
+    (("dyn", "which_pgf"), "sergey")])
+def test_check_slice_passes_the_cavity_configuration(knob, value):
+    """Ice-shelf cavities, cavity partial cells and the 'sergey' PGF are
+    ported (``core/cavity.py``, ``dynamics.pressure_force_linfs_cavity``)."""
+    cfg = pi_config("fast")
+    setattr(getattr(cfg, knob[0]), knob[1], value)
+    check_slice(cfg)
 
 
 def test_check_slice_keeps_the_ice_off_the_toy_channel():

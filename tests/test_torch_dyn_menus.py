@@ -1,5 +1,6 @@
 """The ocean dynamics menus in the port against the JAX package (CPU,
-float64): every PGF form but the cavity one, floating-ice loading, the
+float64): every PGF form but the cavity one (``test_torch_cavity.py``),
+floating-ice loading, the
 vector-invariant momentum (``mom_adv=3``) and ``visc_option`` 0-8.
 
 Module level, each output within 1e-12 of its largest JAX magnitude:
@@ -176,9 +177,15 @@ def test_pgf_dispatch_raises_where_jax_does(globe_pc, zstar):
     cfg.dyn.which_pgf = "nemo"
     with pytest.raises(ValueError, match="zlevel/zstar"):
         dynamics.pressure_force(zstar.ts, zstar.tmesh, cfg)
+    # cavity partial cells change the menu under linfs only, as in JAX
     cfg.run.use_cavity_partial_cell = True
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="zlevel/zstar"):
         dynamics.pressure_force(zstar.ts, zstar.tmesh, cfg)
+    cfg = copy.deepcopy(globe_pc.tcfg)
+    cfg.run.use_cavity_partial_cell = True
+    cfg.dyn.which_pgf = "nemo"
+    with pytest.raises(ValueError, match="cavity partial cells"):
+        dynamics.pressure_force(globe_pc.ts, globe_pc.tmesh, cfg)
 
 
 def test_relative_vorticity_and_vector_invariant_rhs(zstar):

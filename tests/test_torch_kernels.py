@@ -593,3 +593,66 @@ def test_mevp_subcycles_whole_globe_on_card(tmp_path, rng, dtype):
         got = evp.mevp_subcycles(uv0.clone(), sig0.clone(), tab, m, n)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert kernels.LAUNCHES["mevp_subcycles"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_kernels_on_the_shelf_on_card(tmp_path, rng, dtype, tol):
+    """The coupled CI step's column and cluster kernels under ice-shelf
+    cavities: the level-3 globe with the shelf of ``globe.shelf_draft``,
+    its state after one coupled step on the card.  pressure_bv (columns
+    whose top lies below the surface) within tol of max|plain|,
+    kpp_column bitwise in float64, fct_bounds bitwise and
+    elem_to_node_mean within tol, on the shelf's tables and on tables
+    with split neighbour runs (``test_torch_cluster_tables.split_mesh``),
+    each against its plain version on the card."""
+    _need_card()
+    from test_torch_cluster_tables import split_mesh
+    from fesom2_tpu_torch.mesh import read_raw_mesh
+    from fesom2_tpu_torch.model import (pi_coupled_step_fn, pi_initial_state,
+                                        setup_pi_model)
+    path = globe.write_globe(str(tmp_path), level=3)
+    draft = globe.shelf_draft(read_raw_mesh(path))
+    model, atm = setup_pi_model(path, device="cuda", dtype=dtype,
+                                cavity_depth=draft)
+    m, cfg = model.mesh, model.cfg
+    assert int((m.ulevels_node > 1).sum()) > 30
+    st, ice = pi_initial_state(model)
+    st, ice, forcing = pi_coupled_step_fn(model, atm)(st, ice, 0)
+
+    def check(got, want, exact=False):
+        for g, w in zip(got, want):
+            assert torch.isfinite(w).all()
+            if exact:
+                assert torch.equal(g, w)
+            else:
+                assert float((g - w).abs().max()) <= tol * float(
+                    w.abs().max())
+
+    fields = ("density_m_rho0", "hpressure", "bvfreq", "dbsfc", "mld2")
+    kernels.reset_launches()
+    got = eos.pressure_bv(st, m, cfg, model.density_ref)
+    assert kernels.LAUNCHES["pressure_bv"] == 1
+    want = eos.pressure_bv_plain(st, m, cfg, model.density_ref)
+    check([getattr(got, k) for k in fields], [getattr(want, k) for k in fields])
+    if dtype == torch.float64:
+        args = kpp.column_inputs(got, m, cfg, forcing)
+        check([x for x in kpp.kpp_column(*args) if x is not None],
+              [x for x in kpp.kpp_column_plain(*args) if x is not None],
+              exact=True)
+    split = _on_card(split_mesh(model.mesh.__class__(**{
+        f.name: (getattr(m, f.name).cpu() if isinstance(
+            getattr(m, f.name), torch.Tensor) else getattr(m, f.name))
+        for f in dataclasses.fields(m) if f.name != "cluster"})), dtype)
+    for mesh in (m, split):
+        L, N, E = mesh.nl - 1, mesh.n_nodes, mesh.n_elems
+        ttf, lo = (torch.as_tensor(rng.uniform(0, 30, (2, L, N)),
+                                   device="cuda").to(dtype) for _ in range(2))
+        check(tracers.fct_bounds(ttf, lo, mesh),
+              tracers.fct_bounds_plain(ttf, lo, mesh), exact=True)
+        x = torch.as_tensor(rng.uniform(-1, 1, (2, L, E)),
+                            device="cuda").to(dtype)
+        for respect in (True, False):
+            check([ops.elem_to_node_mean(x, mesh, respect)],
+                  [ops.elem_to_node_mean_plain(x, mesh, respect)])

@@ -110,7 +110,7 @@ def test_cuda_requested_without_card_raises(mesh_dir):
 
 @pytest.mark.parametrize("knob,value", [
     (("dyn", "mix_scheme"), "CVMIX_TKE"), (("tra", "tra_adv_hor"), "UPW1"),
-    (("dyn", "i_vert_visc"), False), (("run", "use_cavity"), True),
+    (("dyn", "i_vert_visc"), False), (("run", "use_global_tides"), True),
     (("tra", "tra_adv_ver"), "PPM"), (("run", "use_ice"), True),
     (("diag", "ldiag_DVD"), True), (("dyn", "SPP"), True)])
 def test_out_of_slice_config_raises(mesh_dir, knob, value):
