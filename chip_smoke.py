@@ -174,16 +174,48 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     coupled steps a second in both dtypes, and the device us of
     ``node_edge_reduce``, ``elem_to_node_mean`` and ``fct_bounds`` on its
     numbering beside phase 3's on both numberings of the level-7 globe
-    (information).
+    (information);
+19. the column-physics menus on the CI coupled step at full width:
+    ``cvmix_TKE+cvmix_IDEMIX``, the salt plume and six tracers (T, S, the
+    rain tracer 101, the strait tracers 301-303) on the level-7 globe
+    with phase 12's tables and atmosphere: 10 float64 steps gated on
+    phase 12's ocean and ice bounds, tke >= 0 and finite on every active
+    interface, iwe >= 0, Kv and Av finite and >= 0, a rain-water
+    inventory that grows under positive ``prec_rain``, each strait region
+    that holds nodes held at 1, ``kpp_column`` never launched and every
+    other kernel of phase 12 launched (``tridiag_solve`` 6 times a step:
+    TKE's and IDEMIX's systems beside the CI step's four); the same 10
+    steps with the Redi terms off, where the advection (FCT) and the
+    implicit vertical diffusion alone move the tracers, gated on 101 >=
+    -1e-9 and 301-303 in [-1e-9, 1 + 1e-9] (the explicit Redi fluxes are
+    not limited, in the JAX package either); coupled steps a second in
+    both dtypes, a 3-step profile per dtype with the device ms a step per
+    span and the device ms, host ms and kernels a step of
+    ``step.mixing.tke``, ``step.mixing.idemix`` and ``step.mixing``, and
+    the peak memory allocated;
+20. card against CPU, 3 float64 steps each, every field within 1e-8 of
+    max|CPU| and no kernel launched on the CPU path, on the level-3
+    globe (the ocean alone unless the case needs the ice): each
+    ``tra_adv_hor`` (UPW1, MUSCL, MFCT) and ``tra_adv_ver`` (UPW1, CDIFF,
+    PPM), ``tra_adv_lim='NONE'`` with and without the w split,
+    ``i_vert_visc`` and ``i_vert_diff`` off, each ``mix_scheme``
+    (cvmix_PP, cvmix_TKE, cvmix_IDEMIX alone, cvmix_KPP,
+    KPP+cvmix_TIDAL, PP+cvmix_DDIFF+cvmix_CONV) and TKE+IDEMIX with SPP
+    and six tracers on the coupled step; on the soufflet channel a toy
+    channel of another name and sea ice on the channel
+    (``coupled_step_fn``).  Phase 3 also times the shapes these menus
+    add: ``tridiag_solve`` [48, N] with one right-hand side and [6, 47,
+    N], ``fct_bounds`` [6, 47, N].
 
 Any failure exits non-zero before the last line.  Before it come one
 JSON line with the gather kernels' device times on both numberings, one
-with the device ms a step per span of both coupled steps and each menu
-case's worst field, one
+with the device ms a step per span of the coupled steps, each menu
+case's worst field and phase 19's rates, memory, mixing spans and
+passive-tracer bounds, one
 with every kernel's launches, error, times, bound and library time (with
 the device ms a coupled step spends in it, from phase 12's, 14's and
-16's profiles, its launches a float64 and a float32 coupled step of the
-configurations, and the times of every
+16's and 19's profiles, its launches a float64 and a float32 coupled
+step of the configurations, and the times of every
 shape of tridiag_solve, elem_contrib_to_nodes, block_schwarz, ring_spmv
 and kpp_column, the first two's calls a step also priced at those times), the
 seconds the run took and the card; the last line is
@@ -282,11 +314,12 @@ def csr(rows, cols, vals, shape):
                                    shape).coalesce().to_sparse_csr()
 
 
-def span_device_ms(prof, n: int) -> dict:
+def span_device_ms(prof, n: int, counts=None) -> dict:
     """Device ms a step of the CUDA kernels under each ``step.*`` span: a
     kernel belongs to the span whose device-side range (the profiler's
     copy of the ``record_function`` span on the card's timeline) holds its
-    start; kernels outside every span count as "outside spans"."""
+    start; kernels outside every span count as "outside spans".  With a
+    dict ``counts``, also fills it with the kernels a step under each."""
     from torch.autograd import DeviceType
     spans, kern = [], []
     for e in prof.events():
@@ -302,19 +335,23 @@ def span_device_ms(prof, n: int) -> dict:
         if i >= 0 and k.time_range.start < spans[i].time_range.end:
             name = spans[i].name
         out[name] = out.get(name, 0.0) + k.time_range.elapsed_us()
+        if counts is not None:
+            counts[name] = counts.get(name, 0) + 1 / n
     return {k: v / 1e3 / n for k, v in sorted(out.items(),
                                               key=lambda kv: -kv[1])}
 
 
 def profile_steps(phase: str, model, state, n: int, card: str, run=None,
-                  also=(), spans=None):
+                  also=(), spans=None, host_spans=None, span_counts=None):
     """Profile n steps (``run(model, state, n)``, by default
     ``run_soufflet``): wall and device kernel time, the busy share, the
     kernels per step, the 12 costliest kernels, every kernel whose name
     holds one of ``also``, and the host time of each ``step.*`` span
     (information, not a gate).  Returns the device us per step of each
     CUDA kernel by name; with a dict ``spans``, also fills it with the
-    device ms a step under each span (``span_device_ms``)."""
+    device ms a step under each span (``span_device_ms``); with dicts
+    ``host_spans`` and ``span_counts``, with the host ms a step of each
+    span and the kernels a step under it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
@@ -345,8 +382,10 @@ def profile_steps(phase: str, model, state, n: int, card: str, run=None,
                      and e.device_type == DeviceType.CPU), key=lambda e: e.key):
         say(f"{phase} span {e.key:14s} host {e.cpu_time_total / 1e3 / n:8.3f} "
             f"ms/step")
+        if host_spans is not None:
+            host_spans[e.key] = e.cpu_time_total / 1e3 / n
     if spans is not None:
-        spans.update(span_device_ms(prof, n))
+        spans.update(span_device_ms(prof, n, span_counts))
         total = sum(spans.values())
         say(f"{phase} device ms a step per span "
             f"{str(model.dtype).replace('torch.', '')} (kernels {total:.3f} "
@@ -488,16 +527,19 @@ def main():
     from fesom2_tpu_torch import kernels
     from fesom2_tpu_torch.kernels import build
     import copy
+    import dataclasses
     from fesom2_tpu_torch.core import eos, ops, ssh, tracers
     from fesom2_tpu_torch.forcing.atmos import update_atm_forcing
     from fesom2_tpu_torch.ice import evp
     from fesom2_tpu_torch.ice.coupling import ocean2ice
-    from fesom2_tpu_torch.ice.state import zero_ice_forcing
+    from fesom2_tpu_torch.ice.state import allocate_ice, zero_ice_forcing
+    from fesom2_tpu_torch.core.state import zero_forcing
     from fesom2_tpu_torch.core.mixing import kpp
     from fesom2_tpu_torch.mesh import build_mesh, cluster, globe, read_raw_mesh
     from fesom2_tpu_torch.mesh.channel import channel_raw_mesh, write_mesh
-    from fesom2_tpu_torch.model import (pi_coupled_step_fn, pi_initial_state,
-                                        setup_pi_model, setup_soufflet_model)
+    from fesom2_tpu_torch.model import (coupled_step_fn, pi_coupled_step_fn,
+                                        pi_initial_state, setup_pi_model,
+                                        setup_soufflet_model)
     from fesom2_tpu_torch.run import (globe_ocean_inputs, run_pi,
                                       run_pi_ocean, run_soufflet)
     from fesom2_tpu_torch.scripts import gather_cost_model as probe
@@ -715,7 +757,7 @@ def main():
         f = rand(2, L, Ed, dtype=dtype)
         out.append(("node_edge_reduce", f"pair {list(f.shape)}",
                     lambda f=f: ops.edge_signed_reduce2(f, mesh),
-                    lambda f=f: ops.edge_signed_reduce2_plain(f, mesh), False,
+                    lambda f=f: ops.edge_signed_reduce2_plain(f, mesh), True,
                     ops.node_edge_reduce_work(2 * L, Ed, N, KE, True, size),
                     None))
         ne = mesh.node_edges.long()
@@ -726,7 +768,7 @@ def main():
             ft = f.reshape(-1, Ed).T.contiguous()
             out.append(("node_edge_reduce", f"div {list(f.shape)}",
                         lambda f=f: ops.edge_divergence(f, mesh),
-                        lambda f=f: ops.edge_divergence_plain(f, mesh), False,
+                        lambda f=f: ops.edge_divergence_plain(f, mesh), True,
                         ops.node_edge_reduce_work(ft.shape[1], Ed, N, KE,
                                                   False, size),
                         lambda ft=ft: inc @ ft))
@@ -848,6 +890,50 @@ def main():
         out.append(pbv_case("shelf", m, st))
         return out
 
+    def menu_shape_cases(dtype, mesh):
+        """The shapes the column-physics menus add on the level-7 globe
+        (phase 19): TKE's and IDEMIX's one [nl, N] tridiagonal a step,
+        one right-hand side, Neumann rows at the surface and at the
+        bottom interface nb, identity rows below it; the six-tracer
+        stack's solves (a, b, c [nl-1, N], d [6, nl-1, N]) and bounds.
+        (elem_to_node_mean_flat at TKE's surface stress [2, E] is the
+        shape phase 3 already times: ``flat [2, E]``.)"""
+        size = torch.empty((), dtype=dtype).element_size()
+        nl_, N_, L_ = mesh.nl, mesh.n_nodes, mesh.nl - 1
+        ct = mesh.cluster
+        lev = torch.arange(nl_, device=dev)[:, None]
+        nb = (mesh.nlevels_node - 1)[None, :]
+        act = lev <= nb
+        a = torch.where(act & (lev >= 1),
+                        rand(nl_, N_, lo=-0.4, hi=0.0, dtype=dtype), 0.0)
+        c = torch.where(lev < nb, rand(nl_, N_, lo=-0.4, hi=0.0,
+                                       dtype=dtype), 0.0)
+        b = torch.where(act, 1.0 - a - c, 1.0)
+        d = torch.where(act, rand(nl_, N_, dtype=dtype), 0.0)
+        out = [("tridiag_solve", f"globe tke a,b,c {[nl_, N_]} d "
+                f"{[nl_, N_]}",
+                lambda: ops.tridiag_solve(a, b, c, d),
+                lambda: ops.tridiag_solve_plain(a, b, c, d), True,
+                ops.tridiag_solve_work(1, nl_, N_, size), None)]
+        a6 = rand(L_, N_, lo=-0.4, hi=0.0, dtype=dtype)
+        c6 = rand(L_, N_, lo=-0.4, hi=0.0, dtype=dtype)
+        b6 = rand(L_, N_, lo=1.0, hi=2.0, dtype=dtype)
+        d6 = rand(6, L_, N_, dtype=dtype)
+        out.append(("tridiag_solve", f"globe six a,b,c {[L_, N_]} d "
+                    f"{[6, L_, N_]}",
+                    lambda: ops.tridiag_solve(a6, b6, c6, d6),
+                    lambda: ops.tridiag_solve_plain(a6, b6, c6, d6), True,
+                    ops.tridiag_solve_work(6, L_, N_, size), None))
+        ttf = rand(6, L_, N_, lo=0.0, hi=30.0, dtype=dtype)
+        lo6 = rand(6, L_, N_, lo=0.0, hi=30.0, dtype=dtype)
+        out.append(("fct_bounds", f"globe six ttf,lo {[6, L_, N_]}",
+                    lambda: tracers.fct_bounds(ttf, lo6, mesh),
+                    lambda: tracers.fct_bounds_plain(ttf, lo6, mesh), True,
+                    tracers.fct_bounds_work(
+                        6, L_, N_, ct.fct_slot.shape[0], size,
+                        ct.fct_tile_nodes.numel(), ct.tile_nodes), None))
+        return out
+
     def globe_cases(dtype):
         """The step kernels on the globe's varying-depth tables, then
         pressure_bv and kpp_column on its state after one step, and
@@ -857,7 +943,8 @@ def main():
         m, st, f = gm[dtype], g1[dtype], gin[dtype][1]
         mesh = m.mesh
         wet = int(mesh.node_layer_mask.sum())
-        out = cases(dtype, "globe", m, st, full=False)
+        out = menu_shape_cases(dtype, mesh)
+        out += cases(dtype, "globe", m, st, full=False)
         out.append(bs_case("globe", m, dtype))
         out.append(ring_case("globe", m, dtype))
         # the step's case (no double diffusion) last: the row of the result
@@ -1103,6 +1190,7 @@ def main():
             # every shape of the kernels whose step calls take several
             if (name in ("tridiag_solve", "elem_to_node_mean")
                     and label.startswith("globe")) \
+                    or " six " in label \
                     or label.startswith("shelf") \
                     or name in ("block_schwarz", "elem_contrib_to_nodes",
                                 "kpp_column", "ring_spmv"):
@@ -1188,10 +1276,10 @@ def main():
             for name, kern, plain, exact in (
                     ("node_edge_reduce div",
                      lambda: ops.edge_divergence(f, mesh),
-                     lambda: ops.edge_divergence_plain(f, mesh), False),
+                     lambda: ops.edge_divergence_plain(f, mesh), True),
                     ("node_edge_reduce pair",
                      lambda: ops.edge_signed_reduce2(f, mesh),
-                     lambda: ops.edge_signed_reduce2_plain(f, mesh), False),
+                     lambda: ops.edge_signed_reduce2_plain(f, mesh), True),
                     ("elem_to_node_mean",
                      lambda: ops.elem_to_node_mean(x, mesh),
                      lambda: ops.elem_to_node_mean_plain(x, mesh), False),
@@ -2140,6 +2228,311 @@ def main():
                 f"{level7.get('subdivision', {}).get('device_us')} / "
                 f"{level7.get('subdivision', {}).get('batch_us')} ({card})")
 
+    # phase 19 -----------------------------------------------------------
+    say(f"phase 19 starts at {time.perf_counter() - t_start:.1f} s")
+    # the column-physics menus on the CI coupled step at full width: the
+    # TKE closure with IDEMIX, the salt plume and six tracers (T, S, the
+    # rain tracer 101, the strait tracers 301-303) on the level-7 globe,
+    # with phase 12's tables (the models share phase 3's buffers: nothing
+    # of the setup depends on these knobs) and atmosphere
+    from fesom2_tpu_torch.model import Model
+
+    def tke_model(m):
+        cfg = copy.deepcopy(m.cfg)
+        cfg.dyn.mix_scheme = "cvmix_TKE+cvmix_IDEMIX"
+        cfg.dyn.SPP = True
+        cfg.tra.num_tracers = 6
+        cfg.tra.tracer_ID = [0, 1, 101, 301, 302, 303]
+        return Model(m.mesh, cfg, m.tracer_statics, m.density_ref,
+                     ice_sub=m.ice_sub, ssh_dense_inv=m.ssh_dense_inv,
+                     ssh_ring=m.ssh_ring, ssh_block_pc=m.ssh_block_pc)
+
+    tm = {dtype: tke_model(m) for dtype, m in gm.items()}
+    tm64 = tm[torch.float64]
+    region_nodes = {tid: int(mask.sum()) for tid, mask in zip(
+        (301, 302, 303), tm64.ptr_masks)}
+    say(f"phase 19 strait regions on the level-7 globe, nodes: "
+        f"{region_nodes}")
+    tke_kernels = tuple(k for k in coupled_kernels if k != "kpp_column")
+    nmask = gmesh.node_layer_mask
+    lev = torch.arange(gmesh.nl, device=dev)[:, None]
+    active = lev <= (gmesh.nlevels_node - 1)[None, :]
+
+    def tke_run(redi: bool, n: int = 10):
+        """n float64 coupled steps from the initial state: the state, the
+        ice, the last forcing, the launches, hbar's expected mean, the
+        largest prec_rain and the rain inventory after each step."""
+        tm64.cfg.dyn.Redi = redi
+        step = pi_coupled_step_fn(tm64, gatm[torch.float64])
+        st_, ice_ = pi_initial_state(tm64)
+        kernels.reset_launches()
+        hbar_exp, rain, inv = 0.0, 0.0, []
+        vol = tm64.mesh.areasvol[:-1]
+        for k in range(n):
+            st_, ice_, of_ = step(st_, ice_, k)
+            hbar_exp = hbar_exp - tm64.cfg.dt * (
+                of_.water_flux * area).sum() / area.sum()
+            rain = max(rain, float(of_.prec_rain.max()))
+            inv.append(float((st_.tr[2] * st_.hnode * vol)[nmask].sum()))
+        torch.cuda.synchronize()
+        launch = {k: kernels.LAUNCHES[k] for k in coupled_kernels}
+        tm64.cfg.dyn.Redi = True
+        return st_, ice_, of_, launch, float(hbar_exp), rain, inv
+
+    area = gmesh.area[0]
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, ice, oforc, tke_launches, hbar_expected, rain, rain_inv = \
+        tke_run(True)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_tke_step = {k: v / 10 for k, v in tke_launches.items()}
+    say(f"phase 19 TKE+IDEMIX coupled CI step with SPP and six tracers, 10 "
+        f"steps float64: {wall:.3f} s, launches per step {per_tke_step}; "
+        f"peak memory allocated {peak_gb:.2f} GiB, {peak_gb - base_gb:.2f} "
+        f"GiB above the {base_gb:.2f} GiB the earlier phases' models hold "
+        f"({card})")
+    check_globe("phase 19", tm64, st, {k: tke_launches[k]
+                                       for k in tke_kernels}, hbar_expected)
+    check_ice("phase 19", tm64, st, ice, pi_initial_state(tm64)[1],
+              n_steps=10)
+    if tke_launches["kpp_column"] != 0:
+        fail(f"phase 19: kpp_column launched {tke_launches['kpp_column']} "
+             f"times under cvmix_TKE")
+    tke_calls = {"pressure_bv": 1, "tridiag_solve": 6,
+                 "elem_contrib_to_nodes": 6, "mevp_subcycles": 1}
+    for k, want in tke_calls.items():
+        if per_tke_step[k] != want:
+            fail(f"phase 19: {k} launched {per_tke_step[k]} times a step, "
+                 f"not {want}")
+    tke_ok = bool(torch.isfinite(st.tke).all()) \
+        and float(st.tke[active].min()) >= 0.0
+    iwe_ok = bool(torch.isfinite(st.iwe).all()) and float(st.iwe.min()) >= 0.0
+    kv_ok = all(bool(torch.isfinite(f).all()) and float(f.min()) >= 0.0
+                for f in (st.Kv, st.Av))
+    say(f"phase 19 tke in [{float(st.tke[active].min()):.3e}, "
+        f"{float(st.tke.max()):.3e}], iwe in [{float(st.iwe.min()):.3e}, "
+        f"{float(st.iwe.max()):.3e}] (IDEMIX forcing is zero, as in the JAX "
+        f"package), Kv in [{float(st.Kv.min()):.3e}, {float(st.Kv.max()):.3e}]"
+        f", Av in [{float(st.Av.min()):.3e}, {float(st.Av.max()):.3e}]")
+    if not (tke_ok and iwe_ok and kv_ok):
+        fail("phase 19: tke, iwe, Kv or Av not finite or negative")
+
+    def tracer_report(label, st_):
+        out = {}
+        for i, tid in enumerate((101, 301, 302, 303), start=2):
+            t = st_.tr[i][nmask]
+            out[tid] = (float(t.min()), float(t.max()))
+        say(f"phase 19 {label}: passive tracers (min, max) {out}")
+        return out
+
+    def region_held(label, st_):
+        for (i, mask), tid in zip(tm64.ptracer_masks(), (301, 302, 303)):
+            if region_nodes[tid] == 0:
+                continue
+            held = st_.tr[i][mask[None, :] & nmask]
+            if not bool((held == 1.0).all()):
+                fail(f"phase 19 {label}: tracer {tid} not held at 1 in its "
+                     f"region ({float((held - 1).abs().max()):.3e})")
+
+    bounds = tracer_report("CI (with Redi)", st)
+    region_held("CI", st)
+    say(f"phase 19 rain tracer inventory (sum of tr_101 h areasvol) after "
+        f"each step: {rain_inv}; largest prec_rain {rain:.3e} m/s")
+    if rain > 0.0 and not (rain_inv[-1] > 0.0
+                           and all(b > a for a, b in zip(rain_inv,
+                                                         rain_inv[1:]))):
+        fail("phase 19: the rain-water inventory does not grow under "
+             "positive prec_rain")
+    if not all(np.isfinite(v).all() for v in bounds.values()):
+        fail("phase 19: a passive tracer is not finite")
+    # the explicit Redi fluxes are not limited (the JAX package's are not
+    # either): the passive tracers' bounds (101 >= 0, 301-303 in [0, 1])
+    # are a property of the advection (FCT) and the implicit vertical
+    # diffusion, gated on the same 10 steps with the Redi terms off
+    st_nr, _, _, nr_launches, _, _, _ = tke_run(False)
+    nr_bounds = tracer_report("without Redi", st_nr)
+    region_held("without Redi", st_nr)
+    for tid in (301, 302, 303):
+        lo_, hi_ = nr_bounds[tid]
+        if not (lo_ >= -1e-9 and hi_ <= 1.0 + 1e-9):
+            fail(f"phase 19: tracer {tid} outside [-1e-9, 1 + 1e-9] without "
+                 f"the Redi terms: [{lo_:.3e}, {hi_:.3e}]")
+    if nr_bounds[101][0] < -1e-9 or nr_launches["kpp_column"]:
+        fail("phase 19: tracer 101 below -1e-9 or kpp_column launched, "
+             "without Redi")
+    # throughput in both dtypes, 10 steps each after 2
+    truns, tke_rate = {}, {}
+    for dtype, m in tm.items():
+        s_, i_ = pi_initial_state(m)
+        s_, i_ = run_pi(m, gatm[dtype], s_, i_, 2)
+        truns[dtype] = [m, s_, i_, 2]
+    for dtype in (torch.float32, torch.float64):
+        mdl, s_, i_, k0 = truns[dtype]
+        n = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_, i_ = run_pi(mdl, gatm[dtype], s_, i_, n, first_step=k0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        truns[dtype][1:] = [s_, i_, k0 + n]
+        if not (torch.isfinite(s_.eta).all()
+                and torch.isfinite(i_.u_ice).all()):
+            fail("phase 19: eta or u_ice is not finite")
+        tag = str(dtype).replace("torch.", "")
+        tke_rate[tag] = n / wall
+        say(f"phase 19 throughput {tag}: {n / wall:.3f} coupled steps/s, "
+            f"{wet * n / wall:.6e} wet node-levels/s ({wet} wet "
+            f"node-levels; {card})")
+    span_ms["tke"] = {}
+    tke_us, tke_launches_dtype, tke_host, tke_counts = {}, {}, {}, {}
+    for dtype, (mdl, s_, i_, k0) in truns.items():
+        tag = str(dtype).replace("torch.", "")
+        kernels.reset_launches()
+        tke_us[tag] = profile_steps(
+            "phase 19", mdl, s_, 3, card,
+            run=lambda m, st_, k, a=gatm[dtype], i=i_, k0=k0:
+            run_pi(m, a, st_, i, k, first_step=k0),
+            also=("tridiag_solve", "fct_bounds"),
+            spans=span_ms["tke"].setdefault(tag, {}),
+            host_spans=tke_host.setdefault(tag, {}),
+            span_counts=tke_counts.setdefault(tag, {}))
+        tke_launches_dtype[tag] = {k: kernels.LAUNCHES[k] / 3
+                                   for k in coupled_kernels}
+        idle = [k for k in tke_kernels if tke_launches_dtype[tag][k] <= 0]
+        if idle or tke_launches_dtype[tag]["kpp_column"]:
+            fail(f"phase 19 {tag}: kernels of the path never launched {idle}"
+                 f", or kpp_column launched")
+        mix = {k: (span_ms["tke"][tag].get(k, 0.0), tke_host[tag].get(k),
+                   tke_counts[tag].get(k, 0))
+               for k in ("step.mixing.tke", "step.mixing.idemix",
+                         "step.mixing")}
+        dev_all = sum(v[0] for v in mix.values())
+        host_all = sum(v[1] or 0.0 for v in mix.values())
+        say(f"phase 19 mixing {tag} a step (device ms, host ms, kernels) per "
+            f"span: {mix}; TKE+IDEMIX share of the mixing: device "
+            f"{(mix['step.mixing.tke'][0] + mix['step.mixing.idemix'][0]) / max(dev_all, 1e-12):.3f}"
+            f", host {((mix['step.mixing.tke'][1] or 0) + (mix['step.mixing.idemix'][1] or 0)) / max(host_all, 1e-12):.3f} "
+            f"({card})")
+    tke_ms = {tag: {k: sum(v for key, v in us.items()
+                           if any(f in key for f in functions[k])) / 1e3
+                    or None for k in coupled_kernels}
+              for tag, us in tke_us.items()}
+    say(f"phase 19 device ms a coupled step per kernel (profile): {tke_ms}")
+
+    # phase 20 -----------------------------------------------------------
+    say(f"phase 20 starts at {time.perf_counter() - t_start:.1f} s")
+    # the menus of this slice, card against CPU on the level-3 globe, 3
+    # float64 steps each (the ocean alone unless the case needs the ice),
+    # and the toy channel cases on the soufflet channel
+
+    def slice_cfg(ocean_only, **knobs):
+        cfg = port_model.pi_config()
+        cfg.run.use_ice = not ocean_only
+        for k, v in knobs.items():
+            sec = "dyn" if hasattr(cfg.dyn, k) else "tra"
+            setattr(getattr(cfg, sec), k, v)
+        return cfg
+
+    cases20 = [(f"tra_adv_hor={h}", slice_cfg(True, tra_adv_hor=h))
+               for h in ("UPW1", "MUSCL", "MFCT")]
+    cases20 += [(f"tra_adv_ver={v}", slice_cfg(True, tra_adv_ver=v))
+                for v in ("UPW1", "CDIFF", "PPM")]
+    cases20 += [("tra_adv_lim=NONE, w split",
+                 slice_cfg(True, tra_adv_lim="NONE", w_max_cfl=1e-5)),
+                ("tra_adv_lim=NONE, no w split",
+                 slice_cfg(True, tra_adv_lim="NONE", w_split=False)),
+                ("i_vert_visc=False", slice_cfg(True, i_vert_visc=False)),
+                ("i_vert_diff=False", slice_cfg(True, i_vert_diff=False))]
+    cases20 += [(f"mix_scheme={ms}", slice_cfg(True, mix_scheme=ms))
+                for ms in ("cvmix_PP", "cvmix_TKE", "cvmix_IDEMIX",
+                           "cvmix_KPP", "KPP+cvmix_TIDAL",
+                           "PP+cvmix_DDIFF+cvmix_CONV")]
+    cases20 += [("mix_scheme=cvmix_TKE+cvmix_IDEMIX, SPP, six tracers "
+                 "(coupled)",
+                 slice_cfg(False, mix_scheme="cvmix_TKE+cvmix_IDEMIX",
+                           SPP=True, num_tracers=6,
+                           tracer_ID=[0, 1, 101, 301, 302, 303])),
+                ("toy channel 'channel' (soufflet channel, no soufflet "
+                 "physics)", "toy"),
+                ("sea ice on the toy channel (coupled_step_fn)", "toy_ice")]
+    slice_report = {}
+    t20 = time.perf_counter()
+    for label, cfg in cases20:
+        kernels.reset_launches()
+        outs = []
+        for i, d in enumerate((dev, "cpu")):
+            if cfg in ("toy", "toy_ice"):
+                scfg = port_model.soufflet_config(which_ale="zstar")
+                scfg.run.which_toy = "channel"
+                if cfg == "toy_ice":
+                    scfg.run.which_toy = "soufflet"
+                    scfg.run.use_ice = True
+                    scfg.ice.whichEVP = 1
+                    scfg.ice.evp_rheol_steps = 8
+                m = setup_soufflet_model(device=d, cfg=scfg)
+                if cfg == "toy":
+                    _, s_, _ = run_soufflet(3, model=m, verbose=False)
+                    outs.append((s_, None))
+                else:
+                    N_, mesh_ = m.mesh.n_nodes, m.mesh
+                    full = lambda v: torch.full((N_,), v, device=d,
+                                                dtype=torch.float64)
+                    ice_ = allocate_ice(mesh_, torch.float64)
+                    ice_ = dataclasses.replace(ice_, a_ice=full(0.8),
+                                               m_ice=full(1.5),
+                                               m_snow=full(0.2))
+                    ifc = dataclasses.replace(
+                        zero_ice_forcing(mesh_), Tair=full(-5.0),
+                        shortwave=full(100.0), longwave=full(250.0),
+                        shum=full(2e-3), u_wind=full(8.0),
+                        stress_atmice_x=full(0.1),
+                        stress_atmoce_x=full(0.1))
+                    of_ = dataclasses.replace(
+                        zero_forcing(mesh_), stress_x=torch.full(
+                            (mesh_.n_elems,), 0.1, device=d,
+                            dtype=torch.float64))
+                    cstep = coupled_step_fn(m)
+                    s_ = m.initial_state()
+                    for _ in range(3):
+                        s_, ice_, _ = cstep(s_, ice_, of_, ifc)
+                    outs.append((s_, ice_))
+            elif cfg.run.use_ice:
+                m, atm = setup_pi_model(small, device=d, cfg=cfg)
+                outs.append(run_pi(m, atm, *pi_initial_state(m), 3))
+            else:
+                m, _ = setup_pi_model(small, device=d, cfg=cfg)
+                outs.append((run_pi_ocean(m, *globe_ocean_inputs(m), 3),
+                             None))
+            if i == 0:
+                n_card = sum(kernels.LAUNCHES.values())
+        if n_card <= 0 or sum(kernels.LAUNCHES.values()) != n_card:
+            fail(f"phase 20: {label}: the card's path launched no kernel, or "
+                 f"the CPU path launched one")
+        (s_gpu, i_gpu), (s_cpu, i_cpu) = outs
+        names = ["u", "v", "eta", "hbar", "tr", "w", "hnode", "Kv", "Av",
+                 "Kv_s", "tke", "iwe", "kpp_nonloc"]
+        checks = [(s_gpu, s_cpu, names)]
+        if i_cpu is not None:
+            checks.append((i_gpu, i_cpu, ("u_ice", "v_ice", "m_ice", "a_ice",
+                                          "sigma11")))
+        worst = 0.0
+        for obj_gpu, obj_cpu, fields in checks:
+            for name in fields:
+                ref = getattr(obj_cpu, name)
+                rel = max_abs(getattr(obj_gpu, name).cpu(), ref) \
+                    / max(float(ref.abs().max()), 1e-300)
+                if not rel <= 1e-8:
+                    fail(f"phase 20: {label} {name} card vs CPU {rel:.3e} "
+                         f"> 1e-8")
+                worst = max(worst, rel)
+        slice_report[label] = worst
+        say(f"phase 20 {label}: worst field card vs cpu {worst:.3e} of "
+            f"max|cpu| over {names}{' and the ice' if i_cpu is not None else ''}"
+            f"; {n_card} kernel launches on the card")
+    say(f"phase 20 {len(cases20)} cases in {time.perf_counter() - t20:.1f} s")
+
     # result -------------------------------------------------------------
     sources = {"node_edge_reduce": "fesom2_tpu/core/ops.py:154",
                "elem_to_node_mean": "fesom2_tpu/core/ops.py:328",
@@ -2183,7 +2576,16 @@ def main():
     say(json.dumps({"span_device_ms_a_step": span_ms,
                     "menus_card_vs_cpu": menu_report,
                     "refined_l6": {"coupled_steps_per_s": refined_rate,
-                                   "device_us": refined_us}}))
+                                   "device_us": refined_us},
+                    "tke_idemix": {"coupled_steps_per_s": tke_rate,
+                                   "peak_memory_gib": peak_gb,
+                                   "memory_before_gib": base_gb,
+                                   "region_nodes": region_nodes,
+                                   "span_host_ms_a_step": tke_host,
+                                   "span_kernels_a_step": tke_counts,
+                                   "passive_bounds_redi": bounds,
+                                   "passive_bounds_no_redi": nr_bounds},
+                    "slice_menus_card_vs_cpu": slice_report}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "fesom2_tpu_torch/csrc/"
@@ -2214,6 +2616,11 @@ def main():
          "launches_per_shelf_coupled_step": per_shelf_step.get(k),
          "shelf_step_device_ms": shelf_ms["float64"].get(k),
          "shelf_step_device_ms_f32": shelf_ms["float32"].get(k),
+         "launches_per_tke_coupled_step": per_tke_step.get(k),
+         "launches_per_tke_coupled_step_f32":
+             tke_launches_dtype["float32"].get(k),
+         "tke_step_device_ms": tke_ms["float64"].get(k),
+         "tke_step_device_ms_f32": tke_ms["float32"].get(k),
          **({"shapes": summary[k]["shapes"]} if "shapes" in summary[k]
             else {}),
          **{key: summary[k][key] for key in ("barrier_floor_ms", "plan",

@@ -69,22 +69,34 @@ def scalar_gradient(f_nodes: torch.Tensor, mesh: MeshTables):
 # --------------------------------------------------------------------------
 # edge -> node assembly (kernel node_edge_reduce)
 # --------------------------------------------------------------------------
-def _signed_edge_values(flux: torch.Tensor, mesh: MeshTables):
-    """sign * flux at each node's incident edges: [.., KE, N]."""
-    ne = mesh.node_edges.T                                  # [KE, N]
+def _signed_slot_sum(flux: torch.Tensor, mesh: MeshTables, fn=None):
+    """sum_k fn(sign[n, k] * flux[.., node_edges[n, k]]) over the valid
+    slots, in the order k = 0..KE-1 (``slot_order_sum``): sign is +1 or -1,
+    so each term is flux or -flux to the bit, as the kernel reads it."""
+    ne = mesh.node_edges.long()
     valid = ne >= 0
-    safe = torch.where(valid, ne, 0)
-    sign = torch.where(valid, mesh.node_edge_sign.T, 0.0)
-    return flux[..., safe] * sign
+    Ed = flux.shape[-1]
+    idx = torch.where(mesh.node_edge_sign < 0, ne + Ed, ne)
+    both = torch.cat([flux, -flux], -1)
+    if fn is not None:
+        both = fn(both)
+    return slot_order_sum(both, torch.where(valid, idx, 0), valid)
 
 
 def edge_divergence_plain(flux: torch.Tensor, mesh: MeshTables):
-    return _signed_edge_values(flux, mesh).sum(-2)
+    return _signed_slot_sum(flux, mesh)
 
 
 def edge_signed_reduce2_plain(flux: torch.Tensor, mesh: MeshTables):
-    vals = _signed_edge_values(flux, mesh)
-    return vals.clamp_min(0.0).sum(-2), vals.clamp_max(0.0).sum(-2)
+    return (_signed_slot_sum(flux, mesh, lambda v: v.clamp_min(0.0)),
+            _signed_slot_sum(flux, mesh, lambda v: v.clamp_max(0.0)))
+
+
+def edge_signed_reduce(flux: torch.Tensor, mesh: MeshTables, fn):
+    """fn(sign * flux) summed over each node's incident edges, in slot
+    order (JAX ``ops.edge_signed_reduce``; plain torch only: no model path
+    calls it, ``edge_signed_reduce2`` is the limiter's pair)."""
+    return _signed_slot_sum(flux, mesh, fn)
 
 
 def _node_edge_reduce(flux: torch.Tensor, mesh: MeshTables, pair: bool):

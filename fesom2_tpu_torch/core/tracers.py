@@ -1,15 +1,18 @@
-"""Tracer transport: MUSCL/MFCT and QR4C advection, FCT limiter,
-implicit vertical advection of the w split, horizontal and Redi diffusion,
-implicit vertical diffusion, shortwave penetration.
+"""Tracer transport: the horizontal schemes (upwind, MUSCL, MFCT), the
+vertical ones (upwind, centred, QR4C, PPM), the FCT limiter, implicit
+vertical advection of the w split, horizontal and Redi diffusion,
+implicit vertical diffusion, shortwave penetration, the salt plume and
+the surface sources of T, S and the passive tracers.
 
-The port of the soufflet and CI subsets of ``fesom2_tpu/core/tracers.py``
-(ref driver ``src/oce_adv_tra_driver.F90:41-269``; adv_tra_hor_{muscl:215,
-mfct:485} ``oce_adv_tra_hor.F90``; adv_tra_ver_{upw1:231,qr4c:286},
-adv_tra_vert_impl :83 ``oce_adv_tra_ver.F90``; oce_tra_adv_fct
-``oce_adv_tra_fct.F90:58-349``; fill_up_dn_grad
+The port of ``fesom2_tpu/core/tracers.py`` (ref driver
+``src/oce_adv_tra_driver.F90:41-269``; adv_tra_hor_{upw1:57,muscl:215,
+mfct:485} ``oce_adv_tra_hor.F90``; adv_tra_ver_{upw1:231,qr4c:286,
+ppm:361,cdiff:542}, adv_tra_vert_impl :83 ``oce_adv_tra_ver.F90``;
+oce_tra_adv_fct ``oce_adv_tra_fct.F90:58-349``; fill_up_dn_grad
 ``oce_muscl_adv.F90:286-447``; diff_part_hor_redi, diff_ver_part_redi_expl,
 diff_ver_part_impl_ale, bc_surface ``oce_ale_tracer.F90``;
-cal_shortwave_rad ``oce_shortwave_pene.F90``).
+cal_shortwave_rad ``oce_shortwave_pene.F90``; cal_rejected_salt,
+app_rejected_salt ``oce_spp.F90``).
 
 Tracers are stacked on a leading axis, [T, nl-1, N].  Sign convention:
 ``flux_h[.., Ed]`` is positive INTO edge node 0.
@@ -24,7 +27,7 @@ import math
 
 import torch
 
-from ..constants import r_earth, vcpw
+from ..constants import density_0, g, r_earth, rhoice, rhowat, vcpw
 from .. import kernels
 from ..mesh import MeshTables
 from ..mesh.cluster import level_chunk
@@ -95,6 +98,28 @@ def fill_up_dn_grad_r(gx, gy, mesh: MeshTables, st: TracerStatics):
 # --------------------------------------------------------------------------
 # horizontal advection
 # --------------------------------------------------------------------------
+def fill_up_dn_grad(gx, gy, mesh: MeshTables, st: TracerStatics):
+    """The four MUSCL edge gradient components (gx_up, gx_dn, gy_up,
+    gy_dn) [.., nl-1, Ed], unfolded (ref oce_muscl_adv.F90:286-447): the
+    up/downwind triangles' gradients on the layers both share, else the
+    node-averaged gradients of the edge's two nodes."""
+    up = st.edge_up_dn_tri[:, 0]
+    dn = st.edge_up_dn_tri[:, 1]
+    both = (up >= 0) & (dn >= 0)
+    ups = torch.where(both, up, 0)
+    dns = torch.where(both, dn, 0)
+    gxy = torch.stack([gx, gy])
+    gn = elem_to_node_mean(gxy, mesh)
+    n0, n1 = mesh.edges[:, 0], mesh.edges[:, 1]
+    lay = torch.arange(mesh.nl - 1, device=gx.device)[:, None]
+    shared = lay < (torch.minimum(st.nln_min[n0], st.nln_min[n1]) - 1)[None, :]
+    use_tri = shared & both[None, :]
+    return (torch.where(use_tri, gxy[0][..., ups], gn[0][..., n0]),
+            torch.where(use_tri, gxy[0][..., dns], gn[0][..., n1]),
+            torch.where(use_tri, gxy[1][..., ups], gn[1][..., n0]),
+            torch.where(use_tri, gxy[1][..., dns], gn[1][..., n1]))
+
+
 def _edge_vflux(u, v, helem, mesh: MeshTables):
     """Volume transport through the dual edge face [nl-1, Ed]."""
     et1, et2 = mesh.edge_tri[:, 0], mesh.edge_tri[:, 1]
@@ -127,22 +152,77 @@ def _muscl_reconstruct(t1, t2, R1, R2, mesh: MeshTables, st: TracerStatics,
             t2 - (common + R2) / 6.0 * c2)
 
 
+def _muscl_flux(tm1, tm2, vflux, num_ord):
+    """-(the MUSCL expression) of the interface values (ref :310-320)."""
+    av = torch.abs(vflux)
+    cHO = (vflux + av) * tm1 + (vflux - av) * tm2
+    return -(0.5 * (1.0 - num_ord) * cHO
+             + vflux * num_ord * (0.5 * (tm1 + tm2)))
+
+
+def adv_hor_upw1(t, u, v, helem, mesh: MeshTables, flux_prev=None,
+                 vflux=None):
+    """First-order upwind horizontal flux [.., nl-1, Ed] (ref
+    adv_tra_hor_upw1 oce_adv_tra_hor.F90:57-213); ``vflux`` is the
+    caller's ``_edge_vflux`` of (u, v, helem), if it has one."""
+    if vflux is None:
+        vflux = _edge_vflux(u, v, helem, mesh)
+    av = torch.abs(vflux)
+    flux = -(0.5 * (t[..., mesh.edges[:, 0]] * (vflux + av)
+                    + t[..., mesh.edges[:, 1]] * (vflux - av)))
+    if flux_prev is not None:
+        flux = flux - flux_prev
+    return flux
+
+
+def adv_hor_muscl(t, u, v, helem, mesh: MeshTables, st: TracerStatics, eg,
+                  num_ord, flux_prev=None, boundary_fallback: bool = True,
+                  vflux=None):
+    """MUSCL horizontal flux from the four-component edge gradients ``eg``
+    of ``fill_up_dn_grad`` (ref adv_tra_hor_muscl :215-485; with
+    ``boundary_fallback=False`` the MFCT scheme :485-734).  No model path
+    calls it: the step folds the gradients first (``adv_hor_muscl_r``)."""
+    if vflux is None:
+        vflux = _edge_vflux(u, v, helem, mesh)
+    dx, dy = _muscl_dxdy(mesh)
+    tm1, tm2 = _muscl_reconstruct(t[..., mesh.edges[:, 0]],
+                                  t[..., mesh.edges[:, 1]],
+                                  dx * eg[0] + dy * eg[2],
+                                  dx * eg[1] + dy * eg[3], mesh, st, t.dtype,
+                                  boundary_fallback)
+    flux = _muscl_flux(tm1, tm2, vflux, num_ord)
+    if flux_prev is not None:
+        flux = flux - flux_prev
+    return flux
+
+
+def adv_hor_muscl_r(t, vflux, mesh: MeshTables, st: TracerStatics, rec,
+                    num_ord, boundary_fallback: bool = True):
+    """MUSCL (or, without ``boundary_fallback``, MFCT) horizontal flux of
+    t from the folded pair ``rec`` = (R1, R2) of ``fill_up_dn_grad_r``:
+    the high-order flux of a step without the FCT limiter."""
+    tm1, tm2 = _muscl_reconstruct(t[..., mesh.edges[:, 0]],
+                                  t[..., mesh.edges[:, 1]], rec[0], rec[1],
+                                  mesh, st, t.dtype, boundary_fallback)
+    return _muscl_flux(tm1, tm2, vflux, num_ord)
+
+
 def adv_hor_lo_ho(t, tAB, vflux, mesh: MeshTables, st: TracerStatics,
                   rec, num_ord, scheme: str = "MUSCL"):
-    """Low-order upwind flux of t and the MUSCL or MFCT antidiffusive flux
-    of tAB (already minus the low-order flux): returns (flux_lo, flux_adf)
-    (ref oce_adv_tra_driver.F90:83-135)."""
-    if scheme not in ("MUSCL", "MFCT"):
-        raise NotImplementedError(f"tra_adv_hor='{scheme}' is not ported "
-                                  "yet: ROADMAP queue 1 item 15")
+    """Low-order upwind flux of t and the antidiffusive flux of tAB
+    (already minus the low-order flux): returns (flux_lo, flux_adf) (ref
+    oce_adv_tra_driver.F90:83-135).  The high-order scheme is MUSCL or
+    MFCT; any other name is the upwind scheme on tAB (UPW1)."""
     n0, n1 = mesh.edges[:, 0], mesh.edges[:, 1]
     av = torch.abs(vflux)
     flux_lo = -0.5 * (t[..., n0] * (vflux + av) + t[..., n1] * (vflux - av))
-    tm1, tm2 = _muscl_reconstruct(tAB[..., n0], tAB[..., n1], rec[0], rec[1],
-                                  mesh, st, t.dtype,
-                                  boundary_fallback=(scheme == "MUSCL"))
-    cHO = (vflux + av) * tm1 + (vflux - av) * tm2
-    expr = 0.5 * (1.0 - num_ord) * cHO + vflux * num_ord * (0.5 * (tm1 + tm2))
+    if scheme in ("MUSCL", "MFCT"):
+        tm1, tm2 = _muscl_reconstruct(tAB[..., n0], tAB[..., n1], rec[0],
+                                      rec[1], mesh, st, t.dtype,
+                                      boundary_fallback=(scheme == "MUSCL"))
+        return flux_lo, _muscl_flux(tm1, tm2, vflux, num_ord) - flux_lo
+    tm1, tm2 = tAB[..., n0], tAB[..., n1]
+    expr = 0.5 * ((vflux + av) * tm1 + (vflux - av) * tm2)
     return flux_lo, -expr - flux_lo
 
 
@@ -216,6 +296,116 @@ def adv_ver_qr4c(t, w, Z3, zb3, mesh: MeshTables, num_ord, flux_prev=None):
     expr = torch.where(is_surf, _surface_flux(t, w, mesh)[..., None, :], expr)
     expr = torch.where(is_bot, 0.0, expr)
     flux = -expr
+    if flux_prev is not None:
+        flux = flux - flux_prev
+    return flux
+
+
+def adv_ver_cdiff(t, w, mesh: MeshTables, flux_prev=None):
+    """Centred-difference vertical flux [.., nl, N] (ref adv_tra_ver_cdiff
+    :542-590)."""
+    nl = mesh.nl
+    nln = mesh.nlevels_node
+    uln0 = mesh.ulevels_node - 1
+    lev = torch.arange(nl, device=t.device)[:, None]
+    tm1 = torch.cat([t[..., :1, :], t], -2)[..., :nl, :]
+    t0 = torch.cat([t, t[..., -1:, :]], -2)[..., :nl, :]
+    interior = (0.5 * (tm1 + t0)) * w * mesh.area
+    expr = torch.where(lev == uln0[None, :],
+                       _surface_flux(t, w, mesh)[..., None, :], interior)
+    expr = torch.where(lev < uln0[None, :], 0.0, expr)
+    expr = torch.where(lev >= (nln - 1)[None, :], 0.0, expr)
+    flux = -expr
+    if flux_prev is not None:
+        flux = flux - flux_prev
+    return flux
+
+
+def _ppm_slope(hm, h0, hp, tm, t0, tp):
+    """The monotonised slope of layer 0 from its neighbours (ref :432-455)."""
+    d = h0 / (hm + h0 + hp) * (
+        (2.0 * hm + h0) / (hp + h0) * (tp - t0)
+        + (h0 + 2.0 * hp) / (hm + h0) * (t0 - tm))
+    lim = torch.minimum(torch.abs(d),
+                        torch.minimum(2.0 * torch.abs(tp - t0),
+                                      2.0 * torch.abs(t0 - tm))) * torch.sign(d)
+    return torch.where((tp - t0) * (t0 - tm) > 0.0, lim, 0.0)
+
+
+def adv_ver_ppm(t, w, hnode_old, hnode_new, mesh: MeshTables, dt,
+                flux_prev=None):
+    """Piecewise-parabolic vertical flux [.., nl, N] (Colella & Woodward
+    1984; ref adv_tra_vert_ppm oce_adv_tra_ver.F90:361-538): the interface
+    values of the non-uniform grid (eq. 1.6-1.8) on ``hnode_new``, the
+    monotonised parabola of each layer, and the CFL-weighted upwind flux
+    on ``hnode_old``.  Tracers on leading axes are independent (JAX maps
+    the function over them)."""
+    nl = mesh.nl
+    nln = mesh.nlevels_node
+    lev = torch.arange(nl, device=t.device)[:, None]
+    lmask = mesh.node_layer_mask
+    hN = torch.where(lmask, hnode_new, 1.0)
+    hO = torch.where(lmask, hnode_old, 1.0)
+
+    def iface(arr, s):
+        """Layer i-1+s on the interface axis [.., nl, N], edge-padded."""
+        first, last = arr[..., :1, :], arr[..., -1:, :]
+        padded = torch.cat([first, first, arr, last, last], -2)
+        return padded[..., 1 + s:1 + s + nl, :]
+
+    tA, tB, tC, tD = (iface(t, s) for s in (-1, 0, 1, 2))
+    hA, hB, hC, hD = (iface(hN, s) for s in (-1, 0, 1, 2))
+    deltaj = _ppm_slope(hA, hB, hC, tA, tB, tC)
+    deltajp1 = _ppm_slope(hB, hC, hD, tB, tC, tD)
+    tv = (tB + hB / (hB + hC) * (tC - tB)
+          + 1.0 / (hA + hB + hC + hD) * (
+              (2.0 * hC * hB) / (hB + hC)
+              * ((hA + hB) / (2.0 * hB + hC) - (hD + hC) / (2.0 * hC + hB))
+              * (tC - tB)
+              - hB * (hA + hB) / (2.0 * hB + hC) * deltajp1
+              + hC * (hC + hD) / (hB + 2.0 * hC) * deltaj))
+
+    # the special interfaces (ref :407-416); the surface row is ulevels-1
+    uln0 = (mesh.ulevels_node - 1).long()
+    t_up = torch.cat([t[..., :1, :], t], -2)[..., :nl, :]     # t[i-1]
+    t_dn = torch.cat([t, t[..., -1:, :]], -2)[..., :nl, :]    # t[i]
+    tv = torch.where(lev <= uln0[None, :], take_row(t, uln0)[..., None, :],
+                     tv)
+    tv = torch.where(lev == uln0[None, :] + 1, 0.5 * (t_up + t_dn), tv)
+    tv = torch.where(lev == (nln - 2)[None, :],
+                     torch.where(w >= 0, t_dn, t_up), tv)
+    bot_t = take_row(t_dn, (nln - 2).long())
+    tv = torch.where(lev >= (nln - 1)[None, :], bot_t[..., None, :], tv)
+
+    # the monotonised parabola of each layer (ref :499-520)
+    aL, aR = tv[..., :-1, :], tv[..., 1:, :]
+    over = (aR - t) * (t - aL) <= 0.0
+    aL = torch.where(over, t, aL)
+    aR = torch.where(over, t, aR)
+    steepL = (aR - aL) * (t - 0.5 * (aL + aR)) > (aR - aL) ** 2 / 6.0
+    aL = torch.where(steepL, 3.0 * t - 2.0 * aR, aL)
+    steepR = (aR - aL) * (t - 0.5 * (aR + aL)) < -(aR - aL) ** 2 / 6.0
+    aR = torch.where(steepR, 3.0 * t - 2.0 * aL, aR)
+    aj = 6.0 * (t - 0.5 * (aL + aR))
+
+    # the interface fluxes (ref :522-536): from the layer below where
+    # W > 0, from the layer above where W < 0
+    w_lay = w[:-1]
+    x_up = torch.clamp_max(w_lay * dt / hO, 1.0)
+    from_below = (-aL - 0.5 * x_up * (aR - aL + (1.0 - 2.0 / 3.0 * x_up) * aj)) \
+        * mesh.area[:-1] * w_lay
+    w_dn = w[1:]
+    x_dn = torch.clamp_max(-w_dn * dt / hO, 1.0)
+    from_above = (-aR + 0.5 * x_dn * (aR - aL - (1.0 - 2.0 / 3.0 * x_dn) * aj)) \
+        * mesh.area[1:] * w_dn
+    zrow = torch.zeros_like(t[..., :1, :])
+    tvert = torch.cat([torch.where(w_lay > 0, from_below, 0.0), zrow], -2) \
+        + torch.cat([zrow, torch.where(w_dn < 0, from_above, 0.0)], -2)
+    surf = -take_row(tv, uln0) * take_row(w, uln0) \
+        * take_row(mesh.area, uln0)
+    tvert = torch.where(lev == uln0[None, :], surf[..., None, :], tvert)
+    tvert = torch.where(lev < uln0[None, :], 0.0, tvert)
+    flux = torch.where(lev >= (nln - 1)[None, :], 0.0, tvert)
     if flux_prev is not None:
         flux = flux - flux_prev
     return flux
@@ -389,14 +579,16 @@ def fct_limiter(ttf, lo, adf_h, adf_v, mesh: MeshTables, dt):
     return adf_h * torch.clamp_max(ae_h, 1.0), adf_v
 
 
-def flux2dtracer(flux_h, flux_v, mesh: MeshTables, dt, ttf, lo, hnode,
-                 hnode_new):
-    """FCT fluxes -> tracer increments (dttf_h, dttf_v) (ref
-    oce_tra_adv_flux2dtracer :201-269)."""
+def flux2dtracer(flux_h, flux_v, mesh: MeshTables, dt, ttf=None, lo=None,
+                 hnode=None, hnode_new=None):
+    """Fluxes -> tracer increments (dttf_h, dttf_v) (ref
+    oce_tra_adv_flux2dtracer :201-269); with the FCT low-order solution
+    ``lo`` the vertical increment is taken against it."""
     av = torch.where(mesh.areasvol[:-1] > 0, mesh.areasvol[:-1], 1.0)
     nmask = mesh.node_layer_mask
     dttf_v = (flux_v[..., :-1, :] - flux_v[..., 1:, :]) * dt / av
-    dttf_v = dttf_v - ttf * hnode + lo * hnode_new
+    if lo is not None:
+        dttf_v = dttf_v - ttf * hnode + lo * hnode_new
     dttf_h = edge_divergence(flux_h, mesh) * dt / av
     return torch.where(nmask, dttf_h, 0.0), torch.where(nmask, dttf_v, 0.0)
 
@@ -535,16 +727,60 @@ def sw_3d_source(sw_3d, mesh: MeshTables, dt):
     return torch.where(mesh.node_layer_mask, src, 0.0)
 
 
+def salt_plume(S, state, mesh: MeshTables, forcing, cfg):
+    """Salt-plume parameterisation (ref cal_rejected_salt /
+    app_rejected_salt oce_spp.F90:1-69): in the Northern Hemisphere the
+    brine that growing ice rejects leaves the surface layer and is spread
+    over the mixed layer (the layers down to the first with drho/dz >=
+    0.01 or Z < -50 m, the Nguyen 2011 criterion) with (Z_1 - Z_k)^5
+    weights.  S [nl-1, N]; returns the new salinity.  Each column's salt
+    (S h areasvol summed) is kept to rounding."""
+    dt = cfg.dt
+    n_distr = 5
+    drhodz_cri = 0.01
+    S0 = S[0]
+    rej = torch.where(forcing.thdgr > 0.0,
+                      (S0 - cfg.ice.Sice) * forcing.thdgr * (rhoice / rhowat)
+                      * dt * mesh.area[0], 0.0)
+    apply = (rej > 0.0) & (S0 >= 10.0) & (mesh.geo_coords[:, 1] > 0.0)
+
+    # the mixed layer: down to the first layer of the criterion, above the
+    # bottom layer
+    drhodz = state.bvfreq[:-1] * density_0 / g
+    lay = torch.arange(mesh.nl - 1, device=S.device)[:, None]
+    cond = (drhodz >= drhodz_cri) | (state.Z_3d < -50.0) \
+        | (lay >= (mesh.nlevels_node - 2)[None, :])
+    n_cont = torch.argmax(cond.to(torch.uint8), 0)
+    recv = (lay >= 1) & (lay <= n_cont[None, :])
+
+    w = mesh.area[:-1] * state.hnode \
+        * (state.Z_3d[0][None, :] - state.Z_3d) ** n_distr
+    w = torch.where(recv, w, 0.0)
+    wsum = w.sum(0)
+    ok = apply & (n_cont >= 1) & (wsum > 0.0)
+    w = w / torch.where(wsum > 0, wsum, 1.0)[None, :]
+
+    hsafe = torch.where(mesh.node_layer_mask, state.hnode, 1.0)
+    asafe = torch.where(mesh.areasvol[:-1] > 0, mesh.areasvol[:-1], 1.0)
+    dS = rej[None, :] * w / asafe / hsafe
+    dS = torch.cat([(-rej / asafe[0] / hsafe[0])[None, :], dS[1:]], 0)
+    return torch.where(ok[None, :] & mesh.node_layer_mask, S + dS, S)
+
+
 def bc_surface(tracer_id: int, t_surf, forcing, dt, is_nonlinfs: float):
-    """Surface boundary source (ref bc_surface :1154-1195)."""
+    """Surface boundary source (ref bc_surface :1154-1195): heat and
+    salt, the rain-water tracer (id 101) fed by liquid precipitation
+    (ref :1178), none for the region-restored tracers (301-303) and any
+    other id."""
     if tracer_id == 0:
         return -dt * (forcing.heat_flux / vcpw
                       + t_surf * forcing.water_flux * is_nonlinfs)
     if tracer_id == 1:
         return dt * (forcing.virtual_salt + forcing.relax_salt
                      - forcing.real_salt_flux * is_nonlinfs)
-    raise NotImplementedError(f"tracer id {tracer_id}: passive tracers are "
-                              "not ported yet: ROADMAP queue 1 item 15")
+    if tracer_id == 101:
+        return dt * forcing.prec_rain
+    return torch.zeros_like(t_surf)
 
 
 def diff_ver_impl(t, Kv, hnode_new, zbar_n_bot, mesh: MeshTables, dt,

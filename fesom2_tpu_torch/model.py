@@ -21,9 +21,14 @@ penetration, mEVP sea ice on the polar-cap subdomain, FCT ice advection,
 ice thermodynamics, NCAR bulk forcing) and the fast one (the same on
 linfs with PP, full cells and no GM/Redi), each with ice-shelf cavities
 where a draft is given (``setup_pi_model(cavity_depth=...)``) and on a
-refined mesh (``n_refine``).  Configuration branches outside
-the port raise NotImplementedError naming the ROADMAP item that will port
-them.
+refined mesh (``n_refine``).  The column-physics menus of the JAX step
+run on any of them: every ``mix_scheme`` (PP, KPP and the CVMix schemes,
+``vertical_mixing``), every tracer advection scheme with or without the
+FCT limiter, explicit vertical viscosity and diffusion, passive tracers
+(``setup_passive_tracers``) and the salt plume.  A toy channel of
+another name than soufflet runs without the soufflet physics, as in the
+JAX package.  Configuration branches outside the port raise
+NotImplementedError naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from .config import ModelConfig
-from .constants import vcpw
+from .constants import rad, vcpw
 from .mesh import MeshTables, build_mesh, build_mesh_from_raw
 from .mesh.channel import channel_raw_mesh
 from .mesh.refine import refined_mesh
@@ -51,22 +56,30 @@ from .ice.step import ice_timestep
 from .ice.subdomain import IceSubdomain, build_ice_subdomain
 from .mesh.globe import globe_atm_fixtures, globe_fixtures
 from .core.tracer_setup import TracerStatics, build_tracer_statics
-from .core.mixing import kpp, pp as pp_mixing
+from .core.mixing import cvmix, kpp, pp as pp_mixing
 from .toy import soufflet
 
 # meshes up to this size solve SSH with a precomputed dense inverse
 DENSE_SSH_MAX_NODES = 16384
 
 
+MAIN_MIX_SCHEMES = ("KPP", "PP", "CVMIX_PP", "CVMIX_KPP", "CVMIX_TKE")
+MIX_ADDONS = ("CVMIX_IDEMIX", "CVMIX_TIDAL", "CVMIX_DDIFF", "CVMIX_CONV")
+
+
+def mix_schemes(cfg: ModelConfig):
+    """(main scheme or None, every component) of ``cfg.dyn.mix_scheme``,
+    its components joined by '+', upper case (``fesom2_tpu/model.py:139-145``)."""
+    schemes = [s.strip().upper() for s in cfg.dyn.mix_scheme.split("+")]
+    main = [s for s in schemes if s not in MIX_ADDONS]
+    return (main[0] if main else None), schemes
+
+
 def check_slice(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for every configuration branch the port
-    does not have yet, naming its ROADMAP item."""
+    does not have yet, naming its ROADMAP item; ValueError for a name the
+    JAX package does not know either."""
     missing = []
-    if cfg.run.toy_ocean and cfg.run.which_toy != "soufflet":
-        missing.append(f"the toy configuration '{cfg.run.which_toy}' "
-                       "(queue 1 item 15)")
-    if cfg.run.use_ice and cfg.run.toy_ocean:
-        missing.append("sea ice on a toy channel (item 15)")
     if cfg.run.use_ice and cfg.ice.whichEVP != 1:
         missing.append(f"whichEVP={cfg.ice.whichEVP}: standard and adaptive "
                        "EVP (item 17)")
@@ -79,23 +92,13 @@ def check_slice(cfg: ModelConfig) -> None:
     if cfg.ale.which_ALE not in ("linfs", "zlevel", "zstar"):
         raise ValueError(f"which_ALE='{cfg.ale.which_ALE}': linfs, zlevel "
                          "or zstar")
-    schemes = [s.strip().upper() for s in cfg.dyn.mix_scheme.split("+")]
-    if schemes not in (["PP"], ["KPP"]):
-        missing.append(f"mix_scheme='{cfg.dyn.mix_scheme}' (CVMix item 16)")
-    if not cfg.dyn.i_vert_visc or not cfg.tra.i_vert_diff:
-        missing.append("explicit vertical viscosity/diffusion (item 15)")
-    if cfg.dyn.SPP:
-        missing.append("salt plume (item 15)")
+    main, _ = mix_schemes(cfg)
+    if main is not None and main not in MAIN_MIX_SCHEMES:
+        raise ValueError(f"unknown mix_scheme {cfg.dyn.mix_scheme}")
     if cfg.diag.ldiag_DVD:
         missing.append("the DVD diagnostic (item 20)")
-    if cfg.tra.num_tracers != 2 or list(cfg.tra.tracer_ID[:2]) != [0, 1]:
-        missing.append("passive tracers (item 15)")
     if cfg.tra.clim_relax > 1e-8:
         missing.append("relaxation to climatology (item 19)")
-    if cfg.tra.tra_adv_hor not in ("MUSCL", "MFCT") \
-            or (cfg.tra.tra_adv_ver, cfg.tra.tra_adv_lim) != ("QR4C", "FCT"):
-        missing.append("tracer schemes other than MUSCL or MFCT with "
-                       "QR4C/FCT (item 15)")
     if missing:
         raise NotImplementedError("not ported yet (ROADMAP): "
                                   + "; ".join(missing))
@@ -131,6 +134,10 @@ class Model(nn.Module):
                 self._register(prefix, obj)
         self.register_buffer("density_ref", density_ref)
         self.register_buffer("ssh_dense_inv", ssh_dense_inv)
+        # the region-restored passive tracers: their indices in the tracer
+        # stack and node masks [P, N] (``setup_passive_tracers``)
+        self.ptr_idx, masks = passive_tracer_masks(mesh, cfg)
+        self.register_buffer("ptr_masks", masks)
         # the surface salinity the SSS relaxation restores to, [N]
         # (``pi_initial_state`` sets it)
         self.register_buffer("Ssurf", None)
@@ -193,22 +200,39 @@ class Model(nn.Module):
     def dtype(self):
         return self.density_ref.dtype
 
+    @property
+    def is_soufflet(self) -> bool:
+        """The soufflet channel's own physics runs (its zonal relaxation and
+        beta-plane Coriolis): a toy channel of another name runs without."""
+        run = self.cfg.run
+        return run.toy_ocean and run.which_toy == "soufflet"
+
+    def ptracer_masks(self):
+        """[(tracer index, node mask [N])] of the region-restored tracers,
+        or None."""
+        if not self.ptr_idx:
+            return None
+        return list(zip(self.ptr_idx, self.ptr_masks))
+
     # ------------------------------------------------------------------
     def initial_state(self) -> OceanState:
         """The unperturbed column at rest; the soufflet channel's initial
-        temperature, salinity and velocity where it runs, else zero tracers
-        for the caller to fill (``run.globe_ocean_inputs``)."""
+        temperature, salinity and velocity where it runs, else zero T/S
+        for the caller to fill (``run.globe_ocean_inputs``); the passive
+        tracers of ``setup_passive_tracers`` (``fesom2_tpu/model.py:62-74``)."""
         mesh = self.mesh
         state = allocate_state(mesh, self.cfg.tra.num_tracers, self.dtype,
                                with_gm=self.cfg.dyn.Fer_GM)
         state = init_thickness_linfs(state, mesh)
-        if self.soufflet_statics is None:
-            return state
-        T, U, _ = soufflet.setup_soufflet(mesh, self.dtype)
-        tr = state.tr.clone()
-        tr[0] = T
-        tr[1] = torch.where(mesh.node_layer_mask, 35.0, 0.0)
-        return replace(state, tr=tr, tr_old=tr, u=U)
+        if self.is_soufflet:
+            T, U, _ = soufflet.setup_soufflet(mesh, self.dtype)
+            tr = state.tr.clone()
+            tr[0] = T
+            tr[1] = torch.where(mesh.node_layer_mask, 35.0, 0.0)
+            state = replace(state, tr=tr, tr_old=tr, u=U)
+        if self.cfg.tra.num_tracers > 2:
+            state = setup_passive_tracers(self, state)
+        return state
 
     # ------------------------------------------------------------------
     def forward(self, state: OceanState, forcing: Forcing,
@@ -218,7 +242,7 @@ class Model(nn.Module):
         The named spans mark the step's layers for torch.profiler; they
         cost about a microsecond each when no profiler runs."""
         cfg = self.cfg
-        sst = self.soufflet_statics
+        sst = self.soufflet_statics if self.is_soufflet else None
         mesh = self.mesh
         if sst is not None:
             mesh = replace(mesh, coriolis=sst.coriolis)
@@ -229,13 +253,7 @@ class Model(nn.Module):
             state = eos.pressure_bv(state, mesh, cfg, self.density_ref)
             state = dynamics.pressure_force(state, mesh, cfg)
 
-        with record_function("step.mixing"):
-            # ref oce_ale.F90:2596-2660: the main scheme, then mo_convect
-            if cfg.dyn.mix_scheme.strip().upper() == "KPP":
-                state = kpp.oce_mixing_kpp(state, mesh, cfg, forcing)
-            else:
-                state = pp_mixing.oce_mixing_pp(state, mesh, cfg)
-            state = pp_mixing.mo_convect(state, mesh, cfg, forcing)
+        state = vertical_mixing(state, mesh, cfg, forcing, sw_3d)
 
         with record_function("step.momentum"):
             rhs_fn = dynamics.compute_vel_rhs_vinv if cfg.dyn.mom_adv == 3 \
@@ -243,8 +261,9 @@ class Model(nn.Module):
             state, u_rhs, v_rhs = rhs_fn(state, mesh, forcing, cfg)
             state, u_rhs, v_rhs = dynamics.viscosity_filter(state, mesh, cfg,
                                                             u_rhs, v_rhs)
-            u_rhs, v_rhs = dynamics.impl_vert_visc(state, mesh, cfg, forcing,
-                                                   u_rhs, v_rhs)
+            if cfg.dyn.i_vert_visc:
+                u_rhs, v_rhs = dynamics.impl_vert_visc(state, mesh, cfg,
+                                                       forcing, u_rhs, v_rhs)
 
         with record_function("step.ssh"):
             rhs = ssh.compute_ssh_rhs(state, mesh, cfg, forcing, u_rhs, v_rhs)
@@ -273,7 +292,8 @@ class Model(nn.Module):
         with record_function("step.tracers"):
             state = solve_tracers(state, mesh, cfg, st, forcing,
                                   0.0 if cfg.ale.which_ALE == "linfs" else 1.0,
-                                  sst, fer=fer, redi=redi, sw_3d=sw_3d)
+                                  sst, fer=fer, redi=redi, sw_3d=sw_3d,
+                                  ptr_masks=self.ptracer_masks())
         state = ale.update_thickness(state, mesh, cfg)
         return replace(state, step=state.step + 1)
 
@@ -281,6 +301,54 @@ class Model(nn.Module):
         """The step with the public signature
         step(state, forcing, sw_3d=None) -> state."""
         return self.forward
+
+
+def vertical_mixing(state: OceanState, mesh: MeshTables, cfg,
+                    forcing: Forcing, sw_3d=None, iw_surf=None, iw_bot=None,
+                    tidal_forc=None) -> OceanState:
+    """Kv, Av (and what the schemes carry: tke, iwe, the KPP nonlocal
+    flux) of ``cfg.dyn.mix_scheme`` (ref oce_ale.F90:2596-2660, as
+    ``fesom2_tpu/model.py:136-183``): IDEMIX first, then the main scheme,
+    then ``mo_convect`` where there is a main scheme, then tidal mixing,
+    then the double-diffusion and convection add-ons.  The IDEMIX and TKE
+    steps run under spans of their own (``step.mixing.idemix``,
+    ``step.mixing.tke``), the rest under ``step.mixing``.  ``iw_surf``,
+    ``iw_bot`` and ``tidal_forc`` default to zeros, as the JAX package
+    never sets them."""
+    main, schemes = mix_schemes(cfg)
+    if "CVMIX_IDEMIX" in schemes:
+        with record_function("step.mixing.idemix"):
+            state = cvmix.calc_cvmix_idemix(state, mesh, cfg, forcing,
+                                            iw_surf=iw_surf, iw_bot=iw_bot,
+                                            standalone=main is None)
+    if main == "CVMIX_TKE":
+        with record_function("step.mixing.tke"):
+            if "CVMIX_IDEMIX" in schemes:
+                state = cvmix.calc_cvmix_tke(
+                    state, mesh, cfg, forcing, iw_diss=state.iwe_diss,
+                    iwe=state.iwe, iwe_alpha_c=state.iwe_alpha_c)
+            else:
+                state = cvmix.calc_cvmix_tke(state, mesh, cfg, forcing)
+    with record_function("step.mixing"):
+        if main == "KPP":
+            state = kpp.oce_mixing_kpp(state, mesh, cfg, forcing)
+        elif main == "PP":
+            state = pp_mixing.oce_mixing_pp(state, mesh, cfg)
+        elif main == "CVMIX_PP":
+            state = cvmix.calc_cvmix_pp(state, mesh, cfg)
+        elif main == "CVMIX_KPP":
+            state = cvmix.calc_cvmix_kpp(state, mesh, cfg, forcing,
+                                         sw_3d=sw_3d)
+        if main is not None:
+            state = pp_mixing.mo_convect(state, mesh, cfg, forcing)
+        if "CVMIX_TIDAL" in schemes:
+            state = cvmix.calc_cvmix_tidal(state, mesh, cfg,
+                                           tidal_forc=tidal_forc)
+        if "CVMIX_DDIFF" in schemes:
+            state = cvmix.calc_cvmix_ddiff(state, mesh, cfg)
+        if "CVMIX_CONV" in schemes:
+            state = cvmix.calc_cvmix_convection(state, mesh, cfg)
+    return state
 
 
 def gm_redi_fields(state: OceanState, mesh: MeshTables, cfg):
@@ -307,24 +375,84 @@ def gm_redi_fields(state: OceanState, mesh: MeshTables, cfg):
 
 
 # --------------------------------------------------------------------------
+# passive tracers (ref oce_setup_step.F90:486-592)
+# --------------------------------------------------------------------------
+# the source regions of the 3D-restored passive tracers:
+# (lat0, lat1, lon0, lon1) in degrees
+PTRACER_REGIONS = {301: (77.5, 78.0, 0.0, 10.0),       # Fram Strait
+                   302: (65.6, 66.0, -172.0, -166.0),  # Bering Strait
+                   303: (69.5, 74.5, 19.0, 20.0)}      # Barents Sea Opening
+
+
+def passive_tracer_masks(mesh: MeshTables, cfg):
+    """(indices, masks [P, N] or None) of the tracers beyond T/S whose id
+    has a region in ``PTRACER_REGIONS`` (``fesom2_tpu/model.py:453-477``).
+    A region may hold no node of a coarse mesh."""
+    glon = mesh.geo_coords[:, 0] / rad
+    glat = mesh.geo_coords[:, 1] / rad
+    idx, masks = [], []
+    for i, tid in enumerate(cfg.tra.tracer_ID[:cfg.tra.num_tracers]):
+        if i >= 2 and tid in PTRACER_REGIONS:
+            la0, la1, lo0, lo1 = PTRACER_REGIONS[tid]
+            idx.append(i)
+            masks.append((glat > la0) & (glat < la1) & (glon > lo0)
+                         & (glon < lo1))
+    return idx, (torch.stack(masks) if masks else None)
+
+
+def setup_passive_tracers(model: "Model", state: OceanState) -> OceanState:
+    """The tracers beyond T/S by id (ref oce_setup_step.F90:486-592): 101,
+    the rain-water tracer, and any id without a region start at 0; 301,
+    302 and 303, the strait-release tracers, start at 1 in their region
+    (``model.ptr_masks``) and 0 elsewhere."""
+    tr = state.tr.clone()
+    tr[2:] = 0.0
+    for i, pmask in model.ptracer_masks() or ():
+        tr[i] = torch.where(pmask[None, :] & model.mesh.node_layer_mask,
+                            1.0, 0.0)
+    return replace(state, tr=tr, tr_old=tr)
+
+
+# --------------------------------------------------------------------------
 # tracer driver (ref solve_tracers_ale, oce_ale_tracer.F90:101-199)
 # --------------------------------------------------------------------------
+def _with_row(x: torch.Tensor, i: int, row: torch.Tensor) -> torch.Tensor:
+    """x with x[i] replaced by row, as a new tensor."""
+    return torch.cat([x[:i], row[None], x[i + 1:]], 0)
+
+
 def solve_tracers(state: OceanState, mesh: MeshTables, cfg,
                   st: TracerStatics, forcing: Forcing, is_nonlinfs: float,
                   sst: Optional[soufflet.SouffletStatics] = None, fer=None,
-                  redi=None, sw_3d=None) -> OceanState:
-    """All tracers advance together, stacked [T, nl-1, N]: MUSCL or MFCT
-    and QR4C advection with FCT (the low-order solution implicit in the w
-    split's w_i), horizontal diffusion with the Redi terms, implicit
-    vertical diffusion with the Redi K33, the shortwave and KPP nonlocal
-    sources, soufflet relaxation and the salinity clamp.  ``fer`` are the
-    GM bolus velocities, which advect tracers only (ref :126-136)."""
+                  redi=None, sw_3d=None, ptr_masks=None) -> OceanState:
+    """All tracers advance together, stacked [T, nl-1, N]
+    (``fesom2_tpu/model.py:481-758``): the salt plume; advection by the
+    horizontal scheme (MUSCL, MFCT or upwind) and the vertical one (QR4C,
+    PPM, CDIFF or upwind), with the FCT limiter (the low-order solution
+    implicit in the w split's w_i) or without it (``tra_adv_lim`` other
+    than 'FCT'; w_i then joins the implicit vertical diffusion);
+    horizontal diffusion with the Redi terms; implicit vertical diffusion
+    (none with ``i_vert_diff`` off) with the Redi K33, the shortwave and
+    KPP nonlocal sources and salinity on Kv_s under double diffusion; the
+    region-restored passive tracers held at 1 in their regions
+    (``ptr_masks``: [(index, node mask)]); soufflet relaxation and the
+    salinity clamp.  ``fer`` are the GM bolus velocities, which advect
+    tracers only (ref :126-136)."""
     dt = cfg.dt
+    if cfg.dyn.SPP:
+        # the brine of growing ice (ref oce_ale_tracer.F90:120-121)
+        state = replace(state, tr=_with_row(
+            state.tr, 1, tracers.salt_plume(state.tr[1], state, mesh,
+                                            forcing, cfg)))
     eps = cfg.dyn.epsilon
     nmask = mesh.node_layer_mask
     av = torch.where(mesh.areasvol[:-1] > 0, mesh.areasvol[:-1], 1.0)
     ntr = cfg.tra.num_tracers
-    tids = list(cfg.tra.tracer_ID[:ntr])
+    tids = [cfg.tra.tracer_ID[i] if i < len(cfg.tra.tracer_ID) else i
+            for i in range(ntr)]
+    use_fct = cfg.tra.tra_adv_lim == "FCT"
+    hor = cfg.tra.tra_adv_hor if cfg.tra.tra_adv_hor in ("MUSCL", "MFCT") \
+        else "UPW1"
     t = state.tr[:ntr]
     adv_u, adv_v, adv_we, adv_w = state.u, state.v, state.w_e, state.w
     if fer is not None:
@@ -336,31 +464,55 @@ def solve_tracers(state: OceanState, mesh: MeshTables, cfg,
     tAB = -(0.5 + eps) * state.tr_old[:ntr] + (1.5 + eps) * t
     gxc, gyc = tracers.tracer_gradient_elements(torch.cat([tAB, t], 0), mesh)
     gx, gy = gxc[ntr:], gyc[ntr:]
-    rec = tracers.fill_up_dn_grad_r(gxc[:ntr], gyc[:ntr], mesh, st)
+    rec = tracers.fill_up_dn_grad_r(gxc[:ntr], gyc[:ntr], mesh, st) \
+        if hor != "UPW1" else None
     vflux = tracers._edge_vflux(adv_u, adv_v, state.helem, mesh)
 
-    flux_v_lo = tracers.adv_ver_upw1(t, adv_we, mesh)
-    flux_h_lo, flux_h = tracers.adv_hor_lo_ho(t, tAB, vflux, mesh, st, rec,
-                                              cfg.tra.tra_adv_ph,
-                                              scheme=cfg.tra.tra_adv_hor)
-    lo_h = edge_divergence(flux_h_lo, mesh)
-    fct_lo = (t * state.hnode
-              + (lo_h + (flux_v_lo[..., :-1, :] - flux_v_lo[..., 1:, :]))
-              * dt / av) / torch.where(nmask, state.hnode_new, 1.0)
-    fct_lo = torch.where(nmask, fct_lo, 0.0)
-    if cfg.dyn.w_split:
-        # the low-order solution takes the implicit part too; the
-        # high-order flux is then taken against the full-w upwind flux
-        fct_lo = tracers.adv_vert_impl(fct_lo, state.w_i, state.hnode_new,
-                                       mesh, dt)
-        flux_v_lo = tracers.adv_ver_upw1(t, adv_w, mesh)
-    flux_v = tracers.adv_ver_qr4c(tAB, adv_w, state.Z_3d, state.zbar_3d,
-                                  mesh, cfg.tra.tra_adv_pv,
-                                  flux_prev=flux_v_lo)
-    flux_h, flux_v = tracers.fct_limiter(t, fct_lo, flux_h, flux_v, mesh, dt)
-    dttf_h, dttf_v = tracers.flux2dtracer(flux_h, flux_v, mesh, dt, ttf=t,
-                                          lo=fct_lo, hnode=state.hnode,
-                                          hnode_new=state.hnode_new)
+    if use_fct:
+        flux_v_lo = tracers.adv_ver_upw1(t, adv_we, mesh)
+        flux_h_lo, flux_h = tracers.adv_hor_lo_ho(t, tAB, vflux, mesh, st,
+                                                  rec, cfg.tra.tra_adv_ph,
+                                                  scheme=hor)
+        lo_h = edge_divergence(flux_h_lo, mesh)
+        fct_lo = (t * state.hnode
+                  + (lo_h + (flux_v_lo[..., :-1, :] - flux_v_lo[..., 1:, :]))
+                  * dt / av) / torch.where(nmask, state.hnode_new, 1.0)
+        fct_lo = torch.where(nmask, fct_lo, 0.0)
+        if cfg.dyn.w_split:
+            # the low-order solution takes the implicit part too; the
+            # high-order flux is then taken against the full-w upwind flux
+            fct_lo = tracers.adv_vert_impl(fct_lo, state.w_i,
+                                           state.hnode_new, mesh, dt)
+            flux_v_lo = tracers.adv_ver_upw1(t, adv_w, mesh)
+        w_ho, fp = adv_w, flux_v_lo
+    else:
+        w_ho, fp = adv_we, None
+        if hor != "UPW1":
+            flux_h = tracers.adv_hor_muscl_r(
+                tAB, vflux, mesh, st, rec, cfg.tra.tra_adv_ph,
+                boundary_fallback=(hor == "MUSCL"))
+        else:
+            flux_h = tracers.adv_hor_upw1(tAB, adv_u, adv_v, state.helem,
+                                          mesh, vflux=vflux)
+    ver = cfg.tra.tra_adv_ver
+    if ver == "QR4C":
+        flux_v = tracers.adv_ver_qr4c(tAB, w_ho, state.Z_3d, state.zbar_3d,
+                                      mesh, cfg.tra.tra_adv_pv, flux_prev=fp)
+    elif ver == "PPM":
+        flux_v = tracers.adv_ver_ppm(tAB, w_ho, state.hnode, state.hnode_new,
+                                     mesh, dt, flux_prev=fp)
+    elif ver == "CDIFF":
+        flux_v = tracers.adv_ver_cdiff(tAB, w_ho, mesh, flux_prev=fp)
+    else:
+        flux_v = tracers.adv_ver_upw1(tAB, w_ho, mesh, flux_prev=fp)
+    if use_fct:
+        flux_h, flux_v = tracers.fct_limiter(t, fct_lo, flux_h, flux_v, mesh,
+                                             dt)
+        dttf_h, dttf_v = tracers.flux2dtracer(
+            flux_h, flux_v, mesh, dt, ttf=t, lo=fct_lo, hnode=state.hnode,
+            hnode_new=state.hnode_new)
+    else:
+        dttf_h, dttf_v = tracers.flux2dtracer(flux_h, flux_v, mesh, dt)
     del_ttf = dttf_h + dttf_v
     if redi is not None:
         taper, Ki_l = redi
@@ -378,24 +530,45 @@ def solve_tracers(state: OceanState, mesh: MeshTables, cfg,
         nmask, t + del_ttf / torch.where(nmask, state.hnode_new, 1.0), 0.0)
 
     # ---- stage 2: surface sources + implicit vertical diffusion ----------
-    surf_bc = torch.stack([
-        tracers.bc_surface(tids[i], take_row(t_expl[i], mesh.ulevels_node - 1),
-                           forcing, dt, is_nonlinfs)
-        for i in range(ntr)])
-    src = _tracer_sources(t_expl, state, mesh, cfg, forcing, tids, av, sw_3d)
-    kw = dict(sw_source=src)
-    if redi is not None:
-        kw.update(Ki_layered=redi[1], slope3=redi[0][2])
-    if cfg.tra.double_diffusion and cfg.dyn.mix_scheme.upper() == "KPP":
-        # salinity diffuses with the double-diffusive Kv_s
-        tr = torch.cat([tracers.diff_ver_impl(
-            t_expl[i:i + 1], state.Kv_s if tids[i] == 1 else state.Kv,
-            state.hnode_new, mesh.zbar_n_bot, mesh, dt, surf_bc[i:i + 1],
-            **dict(kw, sw_source=None if src is None else src[i:i + 1]))
+    if cfg.tra.i_vert_diff:
+        surf_bc = torch.stack([
+            tracers.bc_surface(tids[i],
+                               take_row(t_expl[i], mesh.ulevels_node - 1),
+                               forcing, dt, is_nonlinfs)
             for i in range(ntr)])
+        src = _tracer_sources(t_expl, state, mesh, cfg, forcing, tids, av,
+                              sw_3d)
+        kw = dict(w_i=state.w_i if (not use_fct and cfg.dyn.w_split)
+                  else None)
+        if redi is not None:
+            kw.update(Ki_layered=redi[1], slope3=redi[0][2])
+        scheme = cfg.dyn.mix_scheme.upper()
+        use_dd = (cfg.tra.double_diffusion and scheme == "KPP") \
+            or "CVMIX_DDIFF" in scheme
+
+        def solve(sel, Kv):
+            return tracers.diff_ver_impl(
+                t_expl[sel], Kv, state.hnode_new, mesh.zbar_n_bot, mesh, dt,
+                surf_bc[sel], sw_source=None if src is None else src[sel],
+                **kw)
+        # salinity diffuses with the double-diffusive Kv_s, the others
+        # with Kv: one solve for each diffusivity
+        sal = [i for i in range(ntr) if use_dd and tids[i] == 1]
+        if sal:
+            rest = [i for i in range(ntr) if i not in sal]
+            tr = torch.empty_like(t_expl)
+            tr[sal] = solve(sal, state.Kv_s)
+            if rest:
+                tr[rest] = solve(rest, state.Kv)
+        else:
+            tr = solve(slice(None), state.Kv)
     else:
-        tr = tracers.diff_ver_impl(t_expl, state.Kv, state.hnode_new,
-                                   mesh.zbar_n_bot, mesh, dt, surf_bc, **kw)
+        tr = t_expl
+
+    # the region-restored passive tracers: held at 1 in their region
+    # (ref oce_ale_tracer.F90:159-161)
+    for i, pmask in ptr_masks or ():
+        tr = _with_row(tr, i, torch.where(pmask[None, :] & nmask, 1.0, tr[i]))
     state = replace(state, tr=tr, tr_old=t)
 
     # relax to the zonal profile (ref :149-155)
@@ -405,9 +578,11 @@ def solve_tracers(state: OceanState, mesh: MeshTables, cfg,
                                                             dt, ztem))
 
     # salinity clamp [3, 45] psu (ref :176-198)
-    tr = state.tr.clone()
-    tr[1] = torch.where(nmask, torch.clamp(state.tr[1], 3.0, 45.0), 0.0)
-    return replace(state, tr=tr)
+    if ntr >= 2:
+        state = replace(state, tr=_with_row(
+            state.tr, 1, torch.where(nmask, torch.clamp(state.tr[1], 3.0,
+                                                        45.0), 0.0)))
+    return state
 
 
 def _tracer_sources(t_expl, state: OceanState, mesh: MeshTables, cfg,

@@ -247,11 +247,57 @@ def test_run_pi_reports_ice_and_flags_it_outside_the_subdomain(pair, capsys):
     (("dyn", "i_vert_visc"), False, "item 15"),
     (("tra", "tra_adv_hor"), "UPW1", "item 15")])
 def test_check_slice_raises_for_what_is_not_ported(knob, value, item):
+    """Items 17-19 raise, naming the item; item 15's knobs (the salt
+    plume, explicit vertical viscosity, the upwind horizontal scheme) are
+    ported and pass."""
     cfg = pi_config()
     check_slice(cfg)                       # the CI configuration passes
     setattr(getattr(cfg, knob[0]), knob[1], value)
+    if item == "item 15":
+        check_slice(cfg)
+        return
     with pytest.raises(NotImplementedError, match=item):
         check_slice(cfg)
+
+
+@pytest.mark.parametrize("knob,value,item", [
+    (("diag", "ldiag_DVD"), True, "item 20"),
+    (("tra", "clim_relax"), 1e-6, "item 19"),
+    (("ice", "whichEVP"), 2, "item 17")])
+def test_check_slice_still_raises_for_items_17_to_21(knob, value, item):
+    cfg = pi_config()
+    cfg.dyn.mix_scheme = "cvmix_TKE+cvmix_IDEMIX"
+    cfg.dyn.SPP = True
+    cfg.tra.num_tracers = 6
+    cfg.tra.tracer_ID = [0, 1, 101, 301, 302, 303]
+    check_slice(cfg)
+    setattr(getattr(cfg, knob[0]), knob[1], value)
+    with pytest.raises(NotImplementedError, match=item):
+        check_slice(cfg)
+
+
+@pytest.mark.parametrize("knob,value", [
+    (("dyn", "mix_scheme"), "cvmix_TKE+cvmix_IDEMIX"),
+    (("dyn", "mix_scheme"), "cvmix_IDEMIX"),
+    (("dyn", "mix_scheme"), "cvmix_KPP"),
+    (("dyn", "mix_scheme"), "KPP+cvmix_TIDAL"),
+    (("dyn", "mix_scheme"), "PP+cvmix_DDIFF+cvmix_CONV"),
+    (("tra", "tra_adv_ver"), "PPM"),
+    (("tra", "tra_adv_ver"), "CDIFF"),
+    (("tra", "tra_adv_lim"), "NONE"),
+    (("tra", "i_vert_diff"), False),
+    (("tra", "num_tracers"), 4),
+    (("run", "use_cavity"), True)])
+def test_check_slice_passes_items_15_and_16(knob, value):
+    """CVMix (with cavities too, where the port matches the JAX package:
+    its columns start at interface 1 whatever their top), the vertical
+    schemes, the unlimited branch, explicit vertical diffusion, passive
+    tracers."""
+    cfg = pi_config()
+    setattr(getattr(cfg, knob[0]), knob[1], value)
+    if knob[1] == "use_cavity":
+        cfg.dyn.mix_scheme = "cvmix_TKE"
+    check_slice(cfg)
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -267,10 +313,18 @@ def test_check_slice_passes_the_cavity_configuration(knob, value):
 
 
 def test_check_slice_keeps_the_ice_off_the_toy_channel():
+    """Sea ice on the toy channel is what the JAX package does with it:
+    the channel's ocean step leaves the ice off (it ignores ``use_ice``),
+    and ``coupled_step_fn`` runs the ice on the whole channel
+    (``test_torch_menu_steps.py``), so check_slice lets it through."""
     cfg = soufflet_config()
     cfg.run.use_ice = True
-    with pytest.raises(NotImplementedError, match="toy channel"):
-        check_slice(cfg)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        check_slice(cfg)                   # the channel's whichEVP=0
+    cfg.ice.whichEVP = 1
+    check_slice(cfg)
+    cfg.run.which_toy = "channel"
+    check_slice(cfg)
 
 
 def test_pi_subcommand_runs_on_the_cpu(path):

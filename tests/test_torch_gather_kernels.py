@@ -13,8 +13,8 @@ the tables they walk:
 * ``node_edge_reduce`` walks the static ``edge_slot`` table (a word per
   slot: edge and sign).  ``cluster.edge_reduce_emulation`` equals, bit for
   bit, the plain version's signed terms summed in slot order (the order of
-  the kernel and of the first design's kernel) and the plain version itself
-  (whose ``sum`` torch may order otherwise) to a few ulp; on the channel
+  the kernel and of the first design's kernel) and the plain version itself,
+  which sums its slots in that order too (``ops.slot_order_sum``); on the channel
   and the level-3 globe, ``KE`` as it is and padded with two empty slots,
   for one row and for ``[2, nl, Ed]``.
 * the globe's curve numbering is the subdivision numbering's mesh under a
@@ -151,8 +151,12 @@ def _padded(mesh, extra: int):
 
 
 def _slot_order_sums(flux, mesh, pair):
-    """The plain version's signed terms, summed in the order k = 0..KE-1."""
-    terms = ops._signed_edge_values(flux, mesh)
+    """sign * flux at each node's incident edges, summed in the order
+    k = 0..KE-1 (the JAX package's reduce over its slot axis)."""
+    ne = mesh.node_edges.T
+    valid = ne >= 0
+    sign = torch.where(valid, mesh.node_edge_sign.T, 0.0)
+    terms = flux[..., torch.where(valid, ne, 0)] * sign
     plus = torch.zeros_like(terms[..., 0, :])
     minus = torch.zeros_like(plus)
     for k in range(terms.shape[-2]):
@@ -184,8 +188,7 @@ def test_edge_slot_walk_matches_plain(meshes, name, extra, pair, rows):
     for g, w, p in zip(got, _slot_order_sums(flux, mesh, pair), plain):
         assert g.shape == shape + (N,)
         assert torch.equal(g, w)
-        assert float((g - p).abs().max()) <= 4 * 2.0 ** -52 * float(
-            p.abs().max())
+        assert torch.equal(g, p)
 
 
 @pytest.mark.parametrize("name", ["channel", "globe"])

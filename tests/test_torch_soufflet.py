@@ -114,7 +114,22 @@ def test_cuda_requested_without_card_raises(mesh_dir):
     (("tra", "tra_adv_ver"), "PPM"), (("run", "use_ice"), True),
     (("diag", "ldiag_DVD"), True), (("dyn", "SPP"), True)])
 def test_out_of_slice_config_raises(mesh_dir, knob, value):
+    """A knob outside the port raises, naming its ROADMAP item.  The
+    knobs of queue 1 items 15 and 16 are ported (CVMix, the tracer
+    schemes, explicit vertical viscosity, the salt plume): they set up
+    and step (``test_torch_menu_steps.py`` holds each against JAX).  Sea
+    ice on the channel is ported too, but the channel's configuration
+    selects ``whichEVP=0``, the standard EVP of item 17, which raises."""
     cfg = soufflet_config()
     setattr(getattr(cfg, knob[0]), knob[1], value)
+    if knob[1] in PORTED_KNOBS:
+        m = setup_soufflet_model(mesh_dir, device="cpu", cfg=cfg)
+        s = m(m.initial_state(), zero_forcing(m.mesh))
+        assert bool(torch.isfinite(s.tr).all()) and int(s.step) == 1
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         setup_soufflet_model(mesh_dir, device="cpu", cfg=cfg)
+
+
+PORTED_KNOBS = ("mix_scheme", "tra_adv_hor", "i_vert_visc", "tra_adv_ver",
+                "SPP")
