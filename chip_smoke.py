@@ -53,7 +53,10 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    in one launch, bitwise against 120 of ``mevp_subcycle_plain`` and timed
    beside its bound, then held bit for bit after 1, 8 and 120 subcycles,
    with its launch plan and its latency floor (an empty cooperative kernel
-   on the same grid crossing the same grid barriers); ``ring_spmv``
+   on the same grid crossing the same grid barriers); the same for the
+   kernel's standard- and adaptive-EVP instantiations (``evp_subcycles``,
+   ``aevp_subcycles``) on the same state's subdomain tables, each against
+   its plain loop (no library call computes either); ``ring_spmv``
    bitwise at both rings (the channel's [8, N], the globe's [10, N]);
    the shapes the ocean dynamics menus add on the level-7 globe:
    ``ring_spmv`` bitwise on the fast configuration's static linfs ring,
@@ -206,6 +209,31 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     (``coupled_step_fn``).  Phase 3 also times the shapes these menus
     add: ``tridiag_solve`` [48, N] with one right-hand side and [6, 47,
     N], ``fct_bounds`` [6, 47, N].
+
+21. standard (``whichEVP=0``) and adaptive (2) EVP on the CI coupled step
+    at full width (phase 12's tables and atmosphere, the subdomain
+    poleward of 40 degrees): 10 float64 steps each gated on phase 12's
+    ocean and ice bounds, the rheology's kernel once a step and
+    ``mevp_subcycles`` never, under aEVP ``alpha_aevp`` and ``beta_aevp``
+    finite and >= 50; coupled steps/s in both dtypes and a 3-step profile
+    per dtype with ``step.ice.evp``'s device and host ms a step;
+22. forcing and initial state from files at full width: NetCDF3 files
+    written from a seed (``forcing/synthetic.py``: the NCEP test-set
+    layout on the T62 grid's 192 x 94, latitudes descending, 8 six-hourly
+    wind records, 2 of radiation and precipitation, CF units; a WOA18
+    climatology of 72 x 36 columns to 7,000 m with missing values) read by
+    ``setup_pi_model(forcing_path=...)`` and ``pi_initial_state(model,
+    forcing_path=...)`` with ``use_global_tides``, ``l_mslp`` and
+    ``clim_relax`` on and a ``relax2clim`` sponge poleward of 60 degrees:
+    10 float64 steps gated on phase 12's bounds, ``ssh_gp`` finite and not
+    zero; setup seconds split into loading and building, coupled steps/s
+    and a 3-step profile with the spans;
+23. card against CPU on the level-3 globe, 3 float64 coupled steps each,
+    every field within 1e-8 of max|CPU| and no kernel launched on the CPU
+    path: ``whichEVP`` 0 and 2 on the subdomain and on the whole mesh, the
+    tides with ``l_mslp``, the relaxation sponge, forcing and initial
+    state from phase 22's files; and one ``ice_timestep_cpl`` (the
+    coupled-mode thermodynamics) on seeded ``CoupledAtmFluxes``.
 
 Any failure exits non-zero before the last line.  Before it come one
 JSON line with the gather kernels' device times on both numberings, one
@@ -962,6 +990,7 @@ def main():
         return out
 
     ice_tables = {}
+    variant_tables = {}  # the EVP and aEVP kernels' tables by dtype
     ecn_calls = {}      # elem_contrib_to_nodes: calls a coupled step by shape
 
     def ecn_case(label, tables, lead, vertex_major, dtype, calls, site):
@@ -1084,6 +1113,39 @@ def main():
                     evp.mevp_subcycles_work(Ns, Es, Ks, size, n_sub), None,
                     lambda: evp.mevp_subcycles(uv_t, sig_t, tab, cap,
                                                n_sub)))
+        # the standard- and adaptive-EVP variants of the subcycle kernel on
+        # the same state's subdomain tables (aEVP with the state's alpha
+        # and beta); no library call computes either function
+        with torch.no_grad():
+            ice_a, forc_a, surf_a = evp.subdomain_inputs(ice, cap, iforc,
+                                                         surf, aevp=True)
+            variants = {}
+            for which, name, setup_v in ((0, "evp_subcycles", evp.evp_setup),
+                                         (2, "aevp_subcycles",
+                                          evp.aevp_setup)):
+                cfg_v = copy.deepcopy(m.cfg)
+                cfg_v.ice.whichEVP = which
+                variants[name] = setup_v(ice_a if which == 2 else ice_l, cap,
+                                         forc_a if which == 2 else forc_l,
+                                         surf_a if which == 2 else surf_l,
+                                         cfg_v)
+        variant_tables[dtype] = variants
+        for name, kern_v, plain_v, work_v in (
+                ("evp_subcycles", evp.evp_subcycles, evp.evp_subcycles_plain,
+                 evp.evp_subcycles_work),
+                ("aevp_subcycles", evp.aevp_subcycles,
+                 evp.aevp_subcycles_plain, evp.aevp_subcycles_work)):
+            tab_v = variants[name]
+            uv_v, sig_v = uv0.clone(), sig0.clone()
+            out.append((name, f"subdomain uv {[2, Ns]} sig {[3, Es]} "
+                        f"x{n_sub}",
+                        lambda k=kern_v, t=tab_v: k(uv0.clone(), sig0.clone(),
+                                                    t, cap, n_sub),
+                        lambda p=plain_v, t=tab_v: p(uv0, sig0, t, cap,
+                                                     n_sub), True,
+                        work_v(Ns, Es, Ks, size, n_sub), None,
+                        lambda k=kern_v, t=tab_v, u=uv_v, g=sig_v: k(
+                            u, g, t, cap, n_sub)))
         return out
 
     for label, mesh in (("channel", mesh64), ("globe", gmesh)):
@@ -1138,6 +1200,10 @@ def main():
                 + ice_cases(dtype)):
             # an in-place kernel is timed on buffers of its own
             kern_t = own[0] if own else kern
+            # the subcycle loops' plain versions (some 5,400 eager ops a
+            # call) are timed over fewer calls
+            light = name.endswith("_subcycles")
+            t_case = time.perf_counter()
             got, want = kern(), plain()
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
@@ -1173,7 +1239,7 @@ def main():
                     fail(f"{name} {label} {tag}: the library call computes "
                          f"another function ({lib_rel:.3e} of max|plain|)")
             k_ms = timed(kern_t)
-            p_ms = timed(plain)
+            p_ms = timed(plain, reps=3, warmup=1) if light else timed(plain)
             l_ms = timed(library) if library is not None else None
             b_ms, bound_by = kernels.bound_ms(work, dtype)
             k_dev, l_dev = device_us(kern_t), None
@@ -1185,8 +1251,9 @@ def main():
                 f"library_us={'none' if l_ms is None else f'{l_ms * 1e3:.1f}'} "
                 f"bound_us={b_ms * 1e3:.1f} ({bound_by}) "
                 f"device: kernel_us={us_text(k_dev)} "
-                f"plain_us={us_text(device_us(plain))} library_us="
-                f"{'none' if library is None else us_text(l_dev)}")
+                f"plain_us={us_text(device_us(plain, calls=1 if light else 20))}"
+                f" library_us={'none' if library is None else us_text(l_dev)}"
+                f" ({time.perf_counter() - t_case:.1f} s)")
             # every shape of the kernels whose step calls take several
             if (name in ("tridiag_solve", "elem_to_node_mean")
                     and label.startswith("globe")) \
@@ -1224,38 +1291,46 @@ def main():
                     f"one-hot, 50 calls between one pair of events: "
                     f"{lb_ms * 1e3:.1f} us a call")
 
-    # mevp_subcycles against the plain loop after 1, 8 and 120 subcycles,
-    # from the ice state after one coupled step; its launch plan and the
-    # latency floor of its grid barriers
+    # the subcycle kernel's three rheologies against their plain loops after
+    # 1, 8 and 120 subcycles, from the ice state after one coupled step;
+    # each variant's launch plan and the latency floor of its grid barriers
+    subcycle_variants = (
+        ("mevp_subcycles", "mevp", evp.mevp_subcycles,
+         evp.mevp_subcycles_plain),
+        ("evp_subcycles", "evp", evp.evp_subcycles, evp.evp_subcycles_plain),
+        ("aevp_subcycles", "aevp", evp.aevp_subcycles,
+         evp.aevp_subcycles_plain))
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).replace("torch.", "")
         tab, uv0, sig0, cap = ice_tables[dtype]
         Ns, Es, Ks = cap.n_nodes, cap.n_elems, cap.elem_slot.shape[0]
-        for n in (1, 8, 120):
-            uv_p, sig_p = evp.mevp_subcycles_plain(uv0, sig0, tab, cap, n)
-            uv_k, sig_k = evp.mevp_subcycles(uv0.clone(), sig0.clone(), tab,
-                                             cap, n)
-            torch.cuda.synchronize()
-            bitwise = torch.equal(uv_k, uv_p) and torch.equal(sig_k, sig_p)
-            moved = float((uv_p - uv0).abs().max())
-            say(f"phase 3 mevp_subcycles {tag} {n} subcycles: bit-equal to "
-                f"the plain loop: {bitwise} (uv {max_abs(uv_k, uv_p):.3e}, "
-                f"sig {max_abs(sig_k, sig_p):.3e}); the velocities moved by "
-                f"{moved:.3e} m/s")
-            if not (bitwise and moved > 0.0):
-                fail(f"phase 3: mevp_subcycles {tag} after {n} subcycles is "
-                     f"not the plain loop")
         n_sub = gm[dtype].cfg.ice.evp_rheol_steps
-        plan = evp.mevp_subcycles_plan(dev, dtype, Ns, Es, Ks)
         nb = evp.mevp_subcycles_barriers(n_sub)
-        floor_us = device_us(lambda: evp.mevp_barrier_floor(
-            dev, dtype, Ns, Es, Ks, nb), calls=5)
-        say(f"phase 3 mevp_subcycles {tag} {n_sub} subcycles: plan {plan}, "
-            f"latency floor ({nb} grid barriers, an empty kernel on the same "
-            f"grid) device_us={us_text(floor_us)} ({card})")
-        summary["mevp_subcycles"].setdefault("plan", {})[tag] = plan
-        summary["mevp_subcycles"].setdefault("barrier_floor_ms", {})[tag] = (
-            floor_us and floor_us / 1e3)
+        for name, rheo, kern_v, plain_v in subcycle_variants:
+            tab_v = tab if rheo == "mevp" else variant_tables[dtype][name]
+            for n in (1, 8, 120):
+                uv_p, sig_p = plain_v(uv0, sig0, tab_v, cap, n)
+                uv_k, sig_k = kern_v(uv0.clone(), sig0.clone(), tab_v, cap, n)
+                torch.cuda.synchronize()
+                bitwise = torch.equal(uv_k, uv_p) and torch.equal(sig_k,
+                                                                  sig_p)
+                moved = float((uv_p - uv0).abs().max())
+                say(f"phase 3 {name} {tag} {n} subcycles: bit-equal to the "
+                    f"plain loop: {bitwise} (uv {max_abs(uv_k, uv_p):.3e}, "
+                    f"sig {max_abs(sig_k, sig_p):.3e}); the velocities moved "
+                    f"by {moved:.3e} m/s")
+                if not (bitwise and moved > 0.0):
+                    fail(f"phase 3: {name} {tag} after {n} subcycles is not "
+                         f"the plain loop")
+            plan = evp.mevp_subcycles_plan(dev, dtype, Ns, Es, Ks, rheo)
+            floor_us = device_us(lambda: evp.mevp_barrier_floor(
+                dev, dtype, Ns, Es, Ks, nb, rheo), calls=5)
+            say(f"phase 3 {name} {tag} {n_sub} subcycles: plan {plan}, "
+                f"latency floor ({nb} grid barriers, an empty kernel on the "
+                f"same grid) device_us={us_text(floor_us)} ({card})")
+            summary[name].setdefault("plan", {})[tag] = plan
+            summary[name].setdefault("barrier_floor_ms", {})[tag] = (
+                floor_us and floor_us / 1e3)
 
     # the three gather kernels on both numberings of the level-7 globe:
     # held against plain on the subdivision numbering too, then timed once
@@ -2533,6 +2608,322 @@ def main():
             f"; {n_card} kernel launches on the card")
     say(f"phase 20 {len(cases20)} cases in {time.perf_counter() - t20:.1f} s")
 
+    # phase 21 -----------------------------------------------------------
+    say(f"phase 21 starts at {time.perf_counter() - t_start:.1f} s")
+    # standard (whichEVP=0) and adaptive (2) EVP on the CI coupled step at
+    # full width: phase 12's tables (shared buffers) and atmosphere, the
+    # subdomain poleward of 40 degrees, the rheology's instantiation of
+    # the subcycle kernel once a step and mevp_subcycles never
+
+    def rheology_model(m, which):
+        cfg = copy.deepcopy(m.cfg)
+        cfg.ice.whichEVP = which
+        return Model(m.mesh, cfg, m.tracer_statics, m.density_ref,
+                     ice_sub=m.ice_sub, ssh_dense_inv=m.ssh_dense_inv,
+                     ssh_ring=m.ssh_ring, ssh_block_pc=m.ssh_block_pc)
+
+    area = gmesh.area[0]
+    rheo_report = {}
+    for which, kname in ((0, "evp_subcycles"), (2, "aevp_subcycles")):
+        label = f"phase 21 whichEVP={which}"
+        rm = {dtype: rheology_model(m, which) for dtype, m in gm.items()}
+        rm64 = rm[torch.float64]
+        step21 = pi_coupled_step_fn(rm64, gatm[torch.float64])
+        st, ice = pi_initial_state(rm64)
+        ice0 = ice
+        kernels.reset_launches()
+        hbar_expected = 0.0
+        t0 = time.perf_counter()
+        for k in range(10):
+            st, ice, oforc = step21(st, ice, k)
+            hbar_expected = hbar_expected - rm64.cfg.dt * (
+                oforc.water_flux * area).sum() / area.sum()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launch = {k: kernels.LAUNCHES[k] for k in coupled_kernels + (kname,)}
+        say(f"{label} 10 steps float64 on the level-7 globe: {wall:.3f} s, "
+            f"launches {launch}")
+        check_globe(label, rm64, st, {k: launch[k] for k in launch
+                                      if k != "mevp_subcycles"},
+                    float(hbar_expected))
+        check_ice(label, rm64, st, ice, ice0, n_steps=10)
+        if launch[kname] != 10 or launch["mevp_subcycles"] != 0:
+            fail(f"{label}: {kname} launched {launch[kname]} times in 10 "
+                 f"steps, mevp_subcycles {launch['mevp_subcycles']}")
+        path_launches[kname] = launch[kname]
+        rep = {}
+        if which == 2:
+            al, be = ice.alpha_aevp, ice.beta_aevp
+            rep["alpha"] = [float(al.min()), float(al.max())]
+            rep["beta"] = [float(be.min()), float(be.max())]
+            rep["alpha_elements_moved"] = int((al != ice0.alpha_aevp).sum())
+            say(f"{label} alpha_aevp in {rep['alpha']} ("
+                f"{rep['alpha_elements_moved']} elements refreshed), "
+                f"beta_aevp in {rep['beta']}")
+            if not (bool(torch.isfinite(al).all())
+                    and bool(torch.isfinite(be).all())
+                    and min(rep["alpha"][0], rep["beta"][0]) >= 50.0):
+                fail(f"{label}: alpha_aevp or beta_aevp not finite or under "
+                     f"50")
+        # coupled steps a second in both dtypes, 10 steps each after 2
+        runs, rates = {}, {}
+        for dtype, m in rm.items():
+            s_, i_ = pi_initial_state(m)
+            s_, i_ = run_pi(m, gatm[dtype], s_, i_, 2)
+            runs[dtype] = [m, s_, i_, 2]
+        for dtype in (torch.float32, torch.float64):
+            mdl, s_, i_, k0 = runs[dtype]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_, i_ = run_pi(mdl, gatm[dtype], s_, i_, 10, first_step=k0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[dtype][1:] = [s_, i_, k0 + 10]
+            if not (torch.isfinite(s_.eta).all()
+                    and torch.isfinite(i_.u_ice).all()):
+                fail(f"{label}: eta or u_ice is not finite")
+            tag = str(dtype).replace("torch.", "")
+            rates[tag] = 10 / wall
+            say(f"{label} throughput {tag}: {10 / wall:.3f} coupled steps/s, "
+                f"{wet * 10 / wall:.6e} wet node-levels/s ({card})")
+        # a 3-step profile per dtype: step.ice.evp's device and host ms
+        evp_span = {}
+        for dtype, (mdl, s_, i_, k0) in runs.items():
+            tag = str(dtype).replace("torch.", "")
+            dev_sp, host_sp, cnt_sp = {}, {}, {}
+            kernels.reset_launches()
+            profile_steps(label, mdl, s_, 3, card,
+                          run=lambda m, st_, k, a=gatm[dtype], i=i_, k0=k0:
+                          run_pi(m, a, st_, i, k, first_step=k0),
+                          also=("subcycles",), spans=dev_sp,
+                          host_spans=host_sp, span_counts=cnt_sp)
+            if kernels.LAUNCHES[kname] != 3 \
+                    or kernels.LAUNCHES["mevp_subcycles"]:
+                fail(f"{label} {tag}: {kname} not once a profiled step, or "
+                     f"mevp_subcycles launched")
+            evp_span[tag] = {"device_ms": dev_sp.get("step.ice.evp"),
+                             "host_ms": host_sp.get("step.ice.evp"),
+                             "kernels": cnt_sp.get("step.ice.evp")}
+            span_ms.setdefault(f"whichEVP={which}", {})[tag] = dev_sp
+            say(f"{label} step.ice.evp {tag} a step: device "
+                f"{us_text(evp_span[tag]['device_ms'])} ms, host "
+                f"{us_text(evp_span[tag]['host_ms'])} ms, "
+                f"{evp_span[tag]['kernels']} kernels ({card})")
+        rep.update(coupled_steps_per_s=rates, step_ice_evp=evp_span)
+        rheo_report[f"whichEVP={which}"] = rep
+
+    # phase 22 -----------------------------------------------------------
+    say(f"phase 22 starts at {time.perf_counter() - t_start:.1f} s")
+    # forcing and initial state from files at full width: the NCEP
+    # test-set layout on the T62 grid's shape (192 x 94, latitudes
+    # descending, 8 six-hourly wind records, 2 of radiation and of
+    # precipitation, CF units) and a WOA18-style climatology (72 x 36
+    # columns down to 7,000 m, missing values), written from a seed; the
+    # tidal potential and the sea-level pressure term on, the relaxation
+    # to climatology in a sponge poleward of 60 degrees
+    from fesom2_tpu_torch.forcing import synthetic
+    from fesom2_tpu_torch.forcing.atmos import load_sbc_forcing
+    fdir = str(Path(__file__).resolve().parent / "build" / "chip_smoke"
+               / "forcing")
+    t0 = time.perf_counter()
+    synthetic.write_ncep_test_set(fdir, seed=22)
+    synthetic.write_woa18(fdir, seed=22)
+    t_write = time.perf_counter() - t0
+    cfg22 = port_model.pi_config()
+    cfg22.run.use_global_tides = True
+    cfg22.run.l_mslp = True
+    cfg22.tra.clim_relax = 1.0 / (30.0 * 86400.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fm, fatm = setup_pi_model(globe_path, device=dev, cfg=cfg22,
+                              forcing_path=fdir)
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    st, ice = pi_initial_state(fm, forcing_path=fdir)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    # the loading: the initial state (the WOA climatology to the nodes)
+    # and the forcing files (read, interpolated and copied to the card),
+    # timed once more alone; building: the rest of setup_pi_model
+    t0 = time.perf_counter()
+    load_sbc_forcing(fm.mesh, fm.sbc, year=1948)
+    torch.cuda.synchronize()
+    t_forcing = time.perf_counter() - t0
+    t_load = (t_setup - t_model) + t_forcing
+    glat = fm.mesh.geo_coords[:, 1].abs()
+    fm.relax2clim = torch.where(glat > np.radians(60.0),
+                                torch.full_like(glat, cfg22.tra.clim_relax),
+                                torch.zeros_like(glat))
+    setup22 = {"total_s": t_setup, "loading_s": t_load,
+               "building_s": t_setup - t_load, "forcing_files_s": t_forcing,
+               "climatology_s": t_setup - t_model,
+               "writing_files_s": t_write}
+    say(f"phase 22 setup from files {t_setup:.3f} s: loading {t_load:.3f} "
+        f"s (the forcing files, read, interpolated and copied to the card, "
+        f"{t_forcing:.3f} s; the WOA climatology to the nodes, "
+        f"{t_setup - t_model:.3f} s), building (mesh tables, statics, SSH "
+        f"solver, subdomain) {t_setup - t_load:.3f} s; the "
+        f"files written in {t_write:.3f} s; forcing records "
+        f"{list(fatm.u_wind.shape)}, {list(fatm.swdn.shape)}, "
+        f"{list(fatm.prec.shape)}; sbc y_perpetual {fm.sbc.y_perpetual}; "
+        f"sponge nodes {int((fm.relax2clim > 0).sum())}; nodes with ice "
+        f"{int((ice.a_ice > 0).sum())} ({card})")
+    step22 = pi_coupled_step_fn(fm, fatm)
+    ice0 = ice
+    kernels.reset_launches()
+    hbar_expected = 0.0
+    t0 = time.perf_counter()
+    for k in range(10):
+        st, ice, oforc = step22(st, ice, k)
+        hbar_expected = hbar_expected - fm.cfg.dt * (
+            oforc.water_flux * area).sum() / area.sum()
+    torch.cuda.synchronize()
+    wall22 = time.perf_counter() - t0
+    launch = {k: kernels.LAUNCHES[k] for k in coupled_kernels}
+    say(f"phase 22 10 steps float64 from files: {wall22:.3f} s, "
+        f"{10 / wall22:.3f} coupled steps/s, launches {launch}")
+    check_globe("phase 22", fm, st, launch, float(hbar_expected))
+    check_ice("phase 22", fm, st, ice, ice0, n_steps=10)
+    gp = oforc.ssh_gp
+    say(f"phase 22 ssh_gp in [{float(gp.min()):.4f}, {float(gp.max()):.4f}] "
+        f"m^2/s^2, press_air max|{float(oforc.press_air.abs().max()):.1f}| "
+        f"(not carried, as in the JAX package); T in the sponge against "
+        f"Tclim: max|T - Tclim| "
+        f"{float(((st.tr[0] - fm.Tclim) * (fm.relax2clim > 0)).abs().max()):.4f}")
+    if not (bool(torch.isfinite(gp).all()) and float(gp.abs().max()) > 0.0):
+        fail("phase 22: ssh_gp is zero or not finite")
+    span22, host22, cnt22 = {}, {}, {}
+    profile_steps("phase 22", fm, st, 3, card,
+                  run=lambda m, st_, k, i=ice: run_pi(m, fatm, st_, i, k,
+                                                      first_step=10),
+                  spans=span22, host_spans=host22, span_counts=cnt22)
+    span_ms["files"] = {"float64": span22}
+    files_report = {"setup": setup22, "coupled_steps_per_s_float64":
+                    10 / wall22,
+                    "step.forcing": {"device_ms": span22.get("step.forcing"),
+                                     "host_ms": host22.get("step.forcing")}}
+
+    # phase 23 -----------------------------------------------------------
+    say(f"phase 23 starts at {time.perf_counter() - t_start:.1f} s")
+    # card against CPU on the level-3 globe, 3 float64 coupled steps each:
+    # every field within 1e-8 of max|CPU|, no kernel launched on the CPU
+    from fesom2_tpu_torch.ice.coupling import ocean2ice as o2i
+    from fesom2_tpu_torch.ice.step import ice_timestep_cpl
+    from fesom2_tpu_torch.ice.thermo_cpl import CoupledAtmFluxes
+
+    def cfg23(**knobs):
+        cfg = port_model.pi_config()
+        for k, v in knobs.items():
+            sec = next(s for s in ("ice", "run", "tra") if hasattr(
+                getattr(cfg, s), k))
+            setattr(getattr(cfg, sec), k, v)
+        return cfg
+
+    cases23 = []
+    for which in (0, 2):
+        cases23 += [(f"whichEVP={which} subdomain", cfg23(whichEVP=which),
+                     None, False),
+                    (f"whichEVP={which} whole mesh",
+                     cfg23(whichEVP=which, evp_subdomain_lat=None), None,
+                     False)]
+    cases23 += [("tides + l_mslp", cfg23(use_global_tides=True, l_mslp=True),
+                 None, False),
+                ("relaxation sponge", cfg23(clim_relax=1.0 / 86400.0), None,
+                 True),
+                ("forcing and initial state from files", cfg23(), fdir,
+                 False)]
+    ice_names = ("u_ice", "v_ice", "m_ice", "a_ice", "m_snow", "sigma11",
+                 "sigma12", "sigma22", "alpha_aevp", "beta_aevp", "t_skin",
+                 "net_heat_flux", "fresh_wa_flux")
+    rheo_cpu = {}
+
+    def compare23(label, pairs):
+        worst = 0.0
+        for obj_gpu, obj_cpu, names in pairs:
+            for name in names:
+                ref = getattr(obj_cpu, name)
+                rel = max_abs(getattr(obj_gpu, name).cpu(), ref) \
+                    / max(float(ref.abs().max()), 1e-300)
+                if not rel <= 1e-8:
+                    fail(f"phase 23: {label} {name} card vs CPU {rel:.3e} "
+                         f"> 1e-8")
+                worst = max(worst, rel)
+        return worst
+
+    t23 = time.perf_counter()
+    for label, cfg, fpath, sponge in cases23:
+        kernels.reset_launches()
+        outs = []
+        for i, d in enumerate((dev, "cpu")):
+            m, a = setup_pi_model(small, device=d, cfg=copy.deepcopy(cfg),
+                                  forcing_path=fpath)
+            s_, i_ = pi_initial_state(m, forcing_path=fpath)
+            if sponge:
+                lat = m.mesh.geo_coords[:, 1].abs()
+                m.relax2clim = torch.where(
+                    lat > np.radians(60.0),
+                    torch.full_like(lat, cfg.tra.clim_relax),
+                    torch.zeros_like(lat))
+                m.Tclim = torch.where(m.mesh.node_layer_mask, m.Tclim + 1.0,
+                                      0.0)
+            s_, i_ = run_pi(m, a, s_, i_, 3)
+            outs.append((s_, i_, m))
+            if i == 0:
+                n_card = sum(kernels.LAUNCHES.values())
+        if n_card <= 0 or sum(kernels.LAUNCHES.values()) != n_card:
+            fail(f"phase 23: {label}: the card's path launched no kernel, or "
+                 f"the CPU path launched one")
+        (s_gpu, i_gpu, m_gpu), (s_cpu, i_cpu, m_cpu) = outs
+        if not (float(i_cpu.a_ice.max()) > 0.5
+                and float(i_cpu.u_ice.abs().max()) > 0.0):
+            fail(f"phase 23: {label}: no moving ice")
+        rheo_cpu[label] = compare23(label, [
+            (s_gpu, s_cpu, ("u", "v", "eta", "hbar", "tr", "w", "hnode",
+                            "Kv", "Av", "fer_u")),
+            (i_gpu, i_cpu, ice_names)])
+        say(f"phase 23 {label}: worst field card vs cpu "
+            f"{rheo_cpu[label]:.3e} of max|cpu|; {n_card} kernel launches on "
+            f"the card")
+    # one coupled-mode ice step (the Dorn 2009 thermodynamics on seeded
+    # atmosphere-model fluxes) on the whole level-3 globe
+    kernels.reset_launches()
+    outs = []
+    rng23 = np.random.default_rng(23)
+    for i, d in enumerate((dev, "cpu")):
+        m, a = setup_pi_model(small, device=d)
+        s_, i_ = pi_initial_state(m)
+        n_ = m.mesh.n_nodes
+        if i == 0:
+            fluxes = {k: rng23.uniform(lo, hi, n_) for k, (lo, hi) in dict(
+                oce_heat_flux=(-300.0, 100.0), ice_heat_flux=(-150.0, 80.0),
+                shortwave=(0.0, 250.0), evap_no_ifrac=(-5e-8, 0.0),
+                sublimation=(-1e-8, 0.0), prec_rain=(0.0, 3e-8),
+                prec_snow=(0.0, 2e-8), runoff=(0.0, 1e-9)).items()}
+        put = lambda v: torch.as_tensor(v, device=d, dtype=torch.float64)
+        surf = o2i(s_, m.mesh)
+        ifc = update_atm_forcing(a, 0.0, i_.u_ice, i_.v_ice, surf.u_w,
+                                 surf.v_w, surf.T_oc,
+                                 zero_ice_forcing(m.mesh))
+        cfg_c = copy.deepcopy(m.cfg)
+        cfg_c.ice.evp_rheol_steps = 120
+        outs.append(ice_timestep_cpl(
+            i_, m.mesh, ifc, CoupledAtmFluxes(**{k: put(v) for k, v in
+                                                 fluxes.items()}),
+            surf, cfg_c, False, ref_sss=34.0, ref_sss_local=True))
+        if i == 0:
+            n_card = sum(kernels.LAUNCHES.values())
+    if n_card <= 0 or sum(kernels.LAUNCHES.values()) != n_card:
+        fail("phase 23: ice_timestep_cpl: the card's path launched no "
+             "kernel, or the CPU path launched one")
+    rheo_cpu["ice_timestep_cpl"] = compare23(
+        "ice_timestep_cpl", [(outs[0], outs[1], ice_names + (
+            "thdgr", "flice", "evaporation"))])
+    say(f"phase 23 ice_timestep_cpl: worst field card vs cpu "
+        f"{rheo_cpu['ice_timestep_cpl']:.3e} of max|cpu|; {n_card} kernel "
+        f"launches on the card")
+    say(f"phase 23 {len(cases23) + 1} cases in "
+        f"{time.perf_counter() - t23:.1f} s")
+
     # result -------------------------------------------------------------
     sources = {"node_edge_reduce": "fesom2_tpu/core/ops.py:154",
                "elem_to_node_mean": "fesom2_tpu/core/ops.py:328",
@@ -2545,7 +2936,9 @@ def main():
                "pressure_bv": "fesom2_tpu/core/eos.py:88",
                "kpp_column": "fesom2_tpu/core/mixing/kpp.py:157",
                "elem_contrib_to_nodes": "fesom2_tpu/core/ops.py:283",
-               "mevp_subcycles": "fesom2_tpu/ice/evp.py:83"}
+               "mevp_subcycles": "fesom2_tpu/ice/evp.py:83",
+               "evp_subcycles": "fesom2_tpu/ice/evp.py:192",
+               "aevp_subcycles": "fesom2_tpu/ice/evp.py:305"}
     # tridiag_solve's four calls a coupled step priced at phase 3's times
     # of their shapes (momentum on elements, gm_redi's nl rows, the tracers'
     # two solves), beside the profile's time
@@ -2585,7 +2978,10 @@ def main():
                                    "span_kernels_a_step": tke_counts,
                                    "passive_bounds_redi": bounds,
                                    "passive_bounds_no_redi": nr_bounds},
-                    "slice_menus_card_vs_cpu": slice_report}))
+                    "slice_menus_card_vs_cpu": slice_report,
+                    "evp_variants": rheo_report,
+                    "forcing_from_files": files_report,
+                    "slice14_card_vs_cpu": rheo_cpu}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "fesom2_tpu_torch/csrc/"

@@ -569,19 +569,11 @@ def momentum_adv_scalar(state: OceanState, mesh: MeshTables,
     return u_rhsAB, v_rhsAB
 
 
-def _check_surface_pressure(cfg):
-    if cfg.run.l_mslp or cfg.run.use_global_tides:
-        raise NotImplementedError("sea-level pressure and the tidal "
-                                  "potential are not ported yet: ROADMAP "
-                                  "queue 1 item 19")
-
-
 def compute_vel_rhs(state: OceanState, mesh: MeshTables, forcing: Forcing,
                     cfg):
     """AB2 momentum rhs (ref compute_vel_rhs :43-137), with flux-form
     advection where ``mom_adv`` is 2 (3 takes ``compute_vel_rhs_vinv``).
     Returns (state with the new AB memory, u_rhs, v_rhs)."""
-    _check_surface_pressure(cfg)
     eps = cfg.dyn.epsilon
     lmask = mesh.elem_layer_mask
     area = mesh.elem_area
@@ -589,11 +581,17 @@ def compute_vel_rhs(state: OceanState, mesh: MeshTables, forcing: Forcing,
     u_rhs = -(0.5 + eps) * state.u_rhsAB
     v_rhs = -(0.5 + eps) * state.v_rhsAB
 
-    # surface pressure, with floating-ice loading off linfs (ref :60-96)
+    # surface pressure: -(g eta + p_ice + p_air) - ssh_gp (ref :60-96):
+    # floating-ice loading off linfs, sea-level pressure under l_mslp, the
+    # tidal potential under use_global_tides
     pre2d = -g * state.eta
     if cfg.run.use_floatice and cfg.ale.which_ALE != "linfs":
         p_ice = (forcing.m_ice * rhoice + forcing.m_snow * rhosno) / rhowat
         pre2d = pre2d - g * torch.clamp_max(p_ice, cfg.ale.max_ice_loading)
+    if cfg.run.l_mslp:
+        pre2d = pre2d - forcing.press_air / 1000.0
+    if cfg.run.use_global_tides:
+        pre2d = pre2d - forcing.ssh_gp
     gx, gy = scalar_gradient(pre2d, mesh)                   # [E]
     Fx = gx[None, :] - state.pgf_x
     Fy = gy[None, :] - state.pgf_y
@@ -632,10 +630,10 @@ def compute_vel_rhs_vinv(state: OceanState, mesh: MeshTables,
     gradient of the kinetic energy; pressure as the plain -grad(g eta +
     hpressure / rho0).  The reference's vertical block multiplies by a w
     that is never set (:119, :225-243), so it is left out, as in
-    ``fesom2_tpu/core/dynamics.py``.  The kinetic energy is assembled to
+    ``fesom2_tpu/core/dynamics.py``; neither takes the sea-level pressure
+    or the tidal potential here.  The kinetic energy is assembled to
     nodes by ``elem_contrib_to_nodes`` ([nl-1, E, 3]), the vorticity by
     ``node_edge_reduce``."""
-    _check_surface_pressure(cfg)
     eps = cfg.dyn.epsilon
     lmask = mesh.elem_layer_mask
     area = mesh.elem_area

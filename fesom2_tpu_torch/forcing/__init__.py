@@ -1,2 +1,3 @@
-"""Atmospheric forcing: bulk formulae and the time interpolation of nodal
-series (the port of ``fesom2_tpu/forcing``, without its file readers)."""
+"""Atmospheric forcing: the file loaders, bulk formulae, the time
+interpolation of nodal series, the tidal potential (the port of
+``fesom2_tpu/forcing``)."""

@@ -21,9 +21,13 @@ import torch
 KERNELS = ("node_edge_reduce", "elem_to_node_mean", "tridiag_solve",
            "fct_bounds", "ring_spmv", "block_schwarz", "window_gather",
            "onehot_gather", "pressure_bv", "kpp_column",
-           "elem_contrib_to_nodes", "mevp_subcycles")
-# the source of each kernel under csrc/, where it is not <name>.cu
-SOURCES = {"mevp_subcycles": "mevp_subcycle.cu"}
+           "elem_contrib_to_nodes", "mevp_subcycles", "evp_subcycles",
+           "aevp_subcycles")
+# the source of each kernel under csrc/, where it is not <name>.cu (the
+# three EVP rheologies are instantiations of one kernel)
+SOURCES = {"mevp_subcycles": "mevp_subcycle.cu",
+           "evp_subcycles": "mevp_subcycle.cu",
+           "aevp_subcycles": "mevp_subcycle.cu"}
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -46,9 +50,12 @@ _ARGTYPES = {
     "kpp_column": [_P] * 15 + [_I] * 3 + [_D] * 8 + [_P] * 4 + [_I, _P],
     "elem_contrib_to_nodes": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P],
     "mevp_subcycles": [_P] * 7 + [_I] * 4 + [_D] * 7 + [_I, _P],
-    # no stream: the launch mevp_subcycles would make, into a host int32 [4]
-    "mevp_subcycles_plan": [_I] * 4 + [_P],
-    "mevp_barrier_floor": [_I] * 5 + [_P],
+    "evp_subcycles": [_P] * 7 + [_I] * 4 + [_D] * 9 + [_I, _P],
+    "aevp_subcycles": [_P] * 7 + [_I] * 4 + [_D] * 5 + [_I, _P],
+    # no stream: the launch the subcycle kernel of a rheology (ice/evp.py:
+    # RHEOLOGY) would make, into a host int32 [4]
+    "subcycles_plan": [_I] * 5 + [_P],
+    "subcycles_barrier_floor": [_I] * 6 + [_P],
 }
 _LIB = None
 BLOCK_THREADS = 256     # threads per block of the one-thread-per-item kernels

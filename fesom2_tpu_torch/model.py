@@ -27,12 +27,19 @@ run on any of them: every ``mix_scheme`` (PP, KPP and the CVMix schemes,
 FCT limiter, explicit vertical viscosity and diffusion, passive tracers
 (``setup_passive_tracers``) and the salt plume.  A toy channel of
 another name than soufflet runs without the soufflet physics, as in the
-JAX package.  Configuration branches outside the port raise
-NotImplementedError naming the ROADMAP item that will port them.
+JAX package.  The ice runs any of the three EVP rheologies (``whichEVP``
+0, 1, 2); the forcing and the initial state come from files where a
+``forcing_path`` is given (the NCEP test set or the ``&nam_sbc`` layout,
+and the WOA18 climatology), else they are built in code; the tidal
+potential, the sea-level pressure term and the relaxation to climatology
+run where the configuration asks for them.  Configuration branches outside
+the port raise NotImplementedError naming the ROADMAP item that will port
+them.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import replace
 from typing import Optional
 
@@ -49,7 +56,11 @@ from .core import eos, dynamics, ssh, ale, tracers, gm_redi, cavity
 from .core.ops import edge_divergence, take_row
 from .core.state import (OceanState, Forcing, allocate_state, initial_z3d,
                          init_thickness_linfs, zero_forcing)
-from .forcing.atmos import AtmData, update_atm_forcing
+from .forcing import tides
+from .forcing.atmos import (AtmData, load_sbc_forcing, ncep_test_sbc,
+                            update_atm_forcing)
+from .core.ic import climatology_ic
+from .utils.support import host
 from .ice import coupling as ice_cpl
 from .ice.state import IceState, IceForcing, allocate_ice, zero_ice_forcing
 from .ice.step import ice_timestep
@@ -80,15 +91,8 @@ def check_slice(cfg: ModelConfig) -> None:
     does not have yet, naming its ROADMAP item; ValueError for a name the
     JAX package does not know either."""
     missing = []
-    if cfg.run.use_ice and cfg.ice.whichEVP != 1:
-        missing.append(f"whichEVP={cfg.ice.whichEVP}: standard and adaptive "
-                       "EVP (item 17)")
     if cfg.run.use_icepack:
         missing.append("Icepack (item 18)")
-    if cfg.run.use_global_tides:
-        missing.append("the tidal potential (item 19)")
-    if cfg.run.l_mslp:
-        missing.append("sea-level pressure forcing (item 19)")
     if cfg.ale.which_ALE not in ("linfs", "zlevel", "zstar"):
         raise ValueError(f"which_ALE='{cfg.ale.which_ALE}': linfs, zlevel "
                          "or zstar")
@@ -97,8 +101,6 @@ def check_slice(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown mix_scheme {cfg.dyn.mix_scheme}")
     if cfg.diag.ldiag_DVD:
         missing.append("the DVD diagnostic (item 20)")
-    if cfg.tra.clim_relax > 1e-8:
-        missing.append("relaxation to climatology (item 19)")
     if missing:
         raise NotImplementedError("not ported yet (ROADMAP): "
                                   + "; ".join(missing))
@@ -141,6 +143,17 @@ class Model(nn.Module):
         # the surface salinity the SSS relaxation restores to, [N]
         # (``pi_initial_state`` sets it)
         self.register_buffer("Ssurf", None)
+        # the climatology of relax_to_clim, T and S [nl-1, N], and its
+        # nodal relaxation rate [N] in 1/s (ref Tclim, Sclim, relax2clim,
+        # oce_modules.F90:249,255; ``pi_initial_state`` sets them, the rate
+        # to 0: a caller sets the sponge); the relaxation runs where
+        # ``cfg.tra.clim_relax`` > 1e-8
+        self.register_buffer("Tclim", None)
+        self.register_buffer("Sclim", None)
+        self.register_buffer("relax2clim", None)
+        # the forcing source of ``setup_pi_model(forcing_path=...)``
+        # (an SbcConfig), for ``run.run_pi``'s year switch; None otherwise
+        self.sbc = None
         # CG iterations of the last step's SSH solve (0 for the dense solve)
         self.ssh_iters = 0
 
@@ -206,6 +219,15 @@ class Model(nn.Module):
         beta-plane Coriolis): a toy channel of another name runs without."""
         run = self.cfg.run
         return run.toy_ocean and run.which_toy == "soufflet"
+
+    def climatology(self):
+        """(Tclim, Sclim, relax2clim) of relax_to_clim, or None: where all
+        three are set and ``cfg.tra.clim_relax`` > 1e-8
+        (``fesom2_tpu/model.py:115-116``)."""
+        if (self.Tclim is None or self.relax2clim is None
+                or self.cfg.tra.clim_relax <= 1e-8):
+            return None
+        return self.Tclim, self.Sclim, self.relax2clim
 
     def ptracer_masks(self):
         """[(tracer index, node mask [N])] of the region-restored tracers,
@@ -293,6 +315,7 @@ class Model(nn.Module):
             state = solve_tracers(state, mesh, cfg, st, forcing,
                                   0.0 if cfg.ale.which_ALE == "linfs" else 1.0,
                                   sst, fer=fer, redi=redi, sw_3d=sw_3d,
+                                  clim=self.climatology(),
                                   ptr_masks=self.ptracer_masks())
         state = ale.update_thickness(state, mesh, cfg)
         return replace(state, step=state.step + 1)
@@ -424,7 +447,8 @@ def _with_row(x: torch.Tensor, i: int, row: torch.Tensor) -> torch.Tensor:
 def solve_tracers(state: OceanState, mesh: MeshTables, cfg,
                   st: TracerStatics, forcing: Forcing, is_nonlinfs: float,
                   sst: Optional[soufflet.SouffletStatics] = None, fer=None,
-                  redi=None, sw_3d=None, ptr_masks=None) -> OceanState:
+                  redi=None, sw_3d=None, clim=None,
+                  ptr_masks=None) -> OceanState:
     """All tracers advance together, stacked [T, nl-1, N]
     (``fesom2_tpu/model.py:481-758``): the salt plume; advection by the
     horizontal scheme (MUSCL, MFCT or upwind) and the vertical one (QR4C,
@@ -434,9 +458,10 @@ def solve_tracers(state: OceanState, mesh: MeshTables, cfg,
     horizontal diffusion with the Redi terms; implicit vertical diffusion
     (none with ``i_vert_diff`` off) with the Redi K33, the shortwave and
     KPP nonlocal sources and salinity on Kv_s under double diffusion; the
-    region-restored passive tracers held at 1 in their regions
-    (``ptr_masks``: [(index, node mask)]); soufflet relaxation and the
-    salinity clamp.  ``fer`` are the GM bolus velocities, which advect
+    relaxation of T and S to climatology in the sponge (``clim``: (Tclim,
+    Sclim, relax2clim)); the region-restored passive tracers held at 1 in
+    their regions (``ptr_masks``: [(index, node mask)]); soufflet
+    relaxation and the salinity clamp.  ``fer`` are the GM bolus velocities, which advect
     tracers only (ref :126-136)."""
     dt = cfg.dt
     if cfg.dyn.SPP:
@@ -564,6 +589,14 @@ def solve_tracers(state: OceanState, mesh: MeshTables, cfg,
             tr = solve(slice(None), state.Kv)
     else:
         tr = t_expl
+
+    # relax to the T/S climatology in the sponge (ref relax_to_clim,
+    # oce_tracer_mod.F90:87-119)
+    if clim is not None:
+        for i in range(min(2, ntr)):
+            if tids[i] in (0, 1):
+                t_i = tr[i] + clim[2][None, :] * dt * (clim[tids[i]] - tr[i])
+                tr = _with_row(tr, i, torch.where(nmask, t_i, 0.0))
 
     # the region-restored passive tracers: held at 1 in their region
     # (ref oce_ale_tracer.F90:159-161)
@@ -718,11 +751,21 @@ def pi_coupled_parts(model: Model, atm: AtmData, ice_update: bool = True):
     """The coupled step with its forcing update, and what it reads beside
     the model: impl(state, ice, step_idx, SP) -> (state, ice,
     ocean_forcing), with SP = {"atm", "base_ice_forcing",
-    "base_oce_forcing"} returned alongside.  Model time is step_idx * dt
-    from the start of the forcing's time axes."""
+    "base_oce_forcing", "tide_offset"} returned alongside.  Model time is
+    step_idx * dt from the start of the forcing's time axes.  Under
+    ``use_global_tides`` the ocean forcing carries the tidal potential of
+    the step (``forcing/tides.py``; ``fesom2_tpu/model.py:964-1003``),
+    counted in steps from 2000-01-01 from the start of
+    ``cfg.clock.yearnew``'s month of ``daynew``."""
     cfg = model.cfg
     check_slice(cfg)
     coupled = coupled_step_impl(model, ice_update=ice_update)
+    use_tides = cfg.run.use_global_tides
+    tide_offset = None
+    if use_tides:
+        start_month = 1 + (cfg.clock.daynew - 1) // 31
+        tide_offset = tides.foreph_offset(cfg.clock.yearnew, start_month,
+                                          cfg.dt)
 
     def step_impl(state: OceanState, ice: IceState, step_idx, SP):
         mesh = model.mesh
@@ -734,11 +777,22 @@ def pi_coupled_parts(model: Model, atm: AtmData, ice_update: bool = True):
             ice_forcing = update_atm_forcing(
                 SP["atm"], t_sec, ice.u_ice, ice.v_ice, surf.u_w, surf.v_w,
                 surf.T_oc, SP["base_ice_forcing"])
-        return coupled(state, ice, SP["base_oce_forcing"], ice_forcing)
+            oce_forcing = SP["base_oce_forcing"]
+            if use_tides:
+                # ref fvom_main.F90:199-202: foreph increments mmccdt first;
+                # the counter in the model's dtype, as in the JAX package
+                idx = step_idx if isinstance(step_idx, torch.Tensor) \
+                    else torch.full((), float(step_idx), dtype=model.dtype)
+                ssh_gp = tides.tidal_potential(
+                    SP["tide_offset"] + idx + 1.0, cfg.dt,
+                    mesh.geo_coords[:, 0], mesh.geo_coords[:, 1])
+                oce_forcing = replace(oce_forcing, ssh_gp=ssh_gp)
+        return coupled(state, ice, oce_forcing, ice_forcing)
 
     SP = dict(atm=atm,
               base_ice_forcing=zero_ice_forcing(model.mesh, model.dtype),
-              base_oce_forcing=zero_forcing(model.mesh, model.dtype))
+              base_oce_forcing=zero_forcing(model.mesh, model.dtype),
+              tide_offset=tide_offset)
     return step_impl, SP
 
 
@@ -920,7 +974,8 @@ def pi_config(parity: str = "ci", step_per_day: int = 96) -> ModelConfig:
 def setup_pi_model(mesh_path: str, *, device, dtype=torch.float64,
                    step_per_day: int = 96, parity: str = "ci",
                    cfg: Optional[ModelConfig] = None, atm_seed: int = 0,
-                   cavity_depth=None, n_refine: int = 0):
+                   cavity_depth=None, n_refine: int = 0,
+                   forcing_path: Optional[str] = None):
     """The global ocean + ice configuration on ``device``, as
     ``fesom2_tpu/model.py:setup_pi_model`` and ``_finish_pi_setup``
     (:764-911) build it.  Returns (Model, AtmData):
@@ -942,9 +997,15 @@ def setup_pi_model(mesh_path: str, *, device, dtype=torch.float64,
        ring (linfs: ring) of the CG solve above ``DENSE_SSH_MAX_NODES``;
     5. the ice subdomain where ``cfg.ice.evp_subdomain_lat`` is set and
        the ice is on;
-    6. the atmosphere: no forcing files come with the repository, so the
-       series are built in code on the mesh (``globe_atm_data`` with
-       ``atm_seed``).
+    6. the atmosphere.  With ``forcing_path`` it is read from files as
+       the JAX package reads it (``fesom2_tpu/model.py:890-911``): the
+       ``&nam_sbc`` layout of ``cfg.sbc`` where it is configured and its
+       file of ``cfg.clock.yearnew`` exists, else the NCEP test set under
+       ``forcing_path`` (``ncep_test_sbc``: ``u_10.<year>.nc``, ...,
+       ``runoff.nc``), for 1948 and with ``y_perpetual`` where the clock's
+       year has no file; ``model.sbc`` keeps the source for ``run_pi``'s
+       year switch.  Without it no files are read and the series are
+       built in code on the mesh (``globe_atm_data`` with ``atm_seed``).
 
     ``cfg`` defaults to ``pi_config(parity, step_per_day)``.
     """
@@ -972,18 +1033,28 @@ def setup_pi_model(mesh_path: str, *, device, dtype=torch.float64,
         sub = build_ice_subdomain(mesh, lat_deg=cfg.ice.evp_subdomain_lat)
     model = Model(mesh, cfg, tst, dref, ice_sub=sub,
                   **_ssh_solver(mesh, cfg, dtype))
-    return model, globe_atm_data(model, seed=atm_seed)
-
-
-def _host(x: torch.Tensor):
-    return x.detach().cpu().numpy()
+    if forcing_path is None:
+        return model, globe_atm_data(model, seed=atm_seed)
+    year = cfg.clock.yearnew
+    if cfg.sbc.configured and os.path.exists(
+            f"{cfg.sbc.nm_xwind_file}{year}.nc"):
+        sbc = cfg.sbc
+    else:
+        sbc = ncep_test_sbc(forcing_path)
+        if not os.path.exists(f"{sbc.nm_xwind_file}{year}.nc"):
+            # the test set covers 1948 only: other clock years reuse it
+            # (&nam_sbc y_perpetual), so run_pi builds no provider
+            sbc = replace(sbc, y_perpetual=True)
+            year = 1948
+    model.sbc = sbc
+    return model, load_sbc_forcing(mesh, sbc, year=year, dtype=dtype)
 
 
 def globe_atm_data(model: Model, seed: int = 0, n_records: int = 4) -> AtmData:
     """The code-built atmosphere of ``mesh.globe.globe_atm_fixtures`` on
     ``model``'s mesh, at its dtype and device."""
     mesh = model.mesh
-    fx = globe_atm_fixtures(_host(mesh.geo_coords[:, 1]), seed=seed,
+    fx = globe_atm_fixtures(host(mesh.geo_coords[:, 1]), seed=seed,
                             n_records=n_records)
     return AtmData(**{k: torch.as_tensor(v, device=mesh.zbar.device)
                       .to(model.dtype) for k, v in fx.items()})
@@ -993,32 +1064,46 @@ def globe_ocean_fixtures(model: Model, seed: int = 0) -> dict:
     """``mesh.globe.globe_fixtures`` (T, S and the surface forcing, numpy)
     on ``model``'s mesh."""
     mesh = model.mesh
-    return globe_fixtures(_host(mesh.geo_coords[:, 1]), _host(mesh.elem_nodes),
-                          _host(mesh.Z), _host(mesh.nlevels_node),
-                          _host(mesh.area[0]), seed=seed)
+    return globe_fixtures(host(mesh.geo_coords[:, 1]), host(mesh.elem_nodes),
+                          host(mesh.Z), host(mesh.nlevels_node),
+                          host(mesh.area[0]), seed=seed)
 
 
-def pi_initial_state(model: Model, seed: int = 0):
+def pi_initial_state(model: Model, seed: int = 0,
+                     forcing_path: Optional[str] = None):
     """Ocean + ice initial state (``fesom2_tpu/model.py:914-948``): the
-    column at rest with temperature and salinity of the globe fixtures (in
-    place of the WOA18 climatology, which is not in the repository), and
-    the reference's ice_initial_state (``ice_setup_step.F90:284-330``): ice
-    where the surface is colder than 0 C, 1 m (north) or 2 m (south) thick
-    under 0.1 m or 0.5 m of snow, at a concentration of 0.9.  Sets
-    ``model.Ssurf`` (the SSS relaxation's target).  Returns (state, ice)."""
+    column at rest with the temperature and salinity of the WOA18
+    climatology ``forcing_path/woa18_netcdf_5deg.nc`` (``core/ic.py``:
+    ``climatology_ic``, potential temperature), or without a path those of
+    the globe fixtures of ``seed``; and the reference's ice_initial_state
+    (``ice_setup_step.F90:284-330``): ice where the surface is colder than
+    0 C, 1 m (north) or 2 m (south) thick under 0.1 m or 0.5 m of snow, at
+    a concentration of 0.9.  Sets ``model.Ssurf`` (the SSS relaxation's
+    target) and the climatology of relax_to_clim, ``model.Tclim`` and
+    ``model.Sclim``, to the initial T and S with ``model.relax2clim`` 0
+    (ref oce_setup_step.F90:479-484): a sponge is the caller's to set.
+    Returns (state, ice)."""
     mesh = model.mesh
     dev, dtype = mesh.zbar.device, model.dtype
-    fx = globe_ocean_fixtures(model, seed)
     state = model.initial_state()
     tr = state.tr.clone()
-    # no water above an ice-shelf cavity's top
-    nmask = mesh.node_layer_mask
-    tr[0] = torch.where(nmask, torch.as_tensor(fx["T"], device=dev).to(dtype),
-                        0.0)
-    tr[1] = torch.where(nmask, torch.as_tensor(fx["S"], device=dev).to(dtype),
-                        0.0)
+    if forcing_path is not None:
+        T, S = climatology_ic(mesh, os.path.join(forcing_path,
+                                                 "woa18_netcdf_5deg.nc"))
+        tr[0] = torch.from_numpy(T).to(device=dev, dtype=dtype)
+        tr[1] = torch.from_numpy(S).to(device=dev, dtype=dtype)
+    else:
+        fx = globe_ocean_fixtures(model, seed)
+        # no water above an ice-shelf cavity's top
+        nmask = mesh.node_layer_mask
+        tr[0] = torch.where(nmask, torch.as_tensor(fx["T"], device=dev)
+                            .to(dtype), 0.0)
+        tr[1] = torch.where(nmask, torch.as_tensor(fx["S"], device=dev)
+                            .to(dtype), 0.0)
     state = replace(state, tr=tr, tr_old=tr)
     model.Ssurf = tr[1, 0].clone()
+    model.Tclim, model.Sclim = tr[0].clone(), tr[1].clone()
+    model.relax2clim = torch.zeros_like(tr[1, 0])
 
     ice = allocate_ice(mesh, dtype)
     cold = tr[0, 0] < 0.0

@@ -3,7 +3,8 @@
     python -m fesom2_tpu_torch.run soufflet --steps N --device cuda \\
         [--f32] [--mesh DIR]
     python -m fesom2_tpu_torch.run pi --steps N --device cuda \\
-        [--f32] [--level 7] [--seed 0] [--mesh DIR] [--parity ci|fast]
+        [--f32] [--level 7] [--seed 0] [--mesh DIR] [--parity ci|fast] \\
+        [--forcing DIR]
 
 The port of ``fesom2_tpu/run.py:run_soufflet`` and of the time loop of
 ``run_pi``.  ``--device`` defaults to cuda and raises where CUDA is
@@ -17,7 +18,11 @@ directory.  Output streams, restarts and ``mkrun`` are not ported yet
 ``run_pi`` takes coupled ocean + ice steps of the global configuration
 (``model.setup_pi_model``, ``model.pi_initial_state``,
 ``model.pi_coupled_step_fn``) and raises where ice shows up outside the
-EVP subdomain.  ``run_pi_ocean`` drives its ocean alone, with shortwave
+EVP subdomain.  With forcing from files (``--forcing DIR``: the NCEP test
+set and ``woa18_netcdf_5deg.nc`` in DIR) it switches the forcing year as
+``fesom2_tpu/run.py:108-156`` does: the step index it hands the step
+counts from the start of the clock's year, and at a year's end the next
+year's series, read ahead on a host thread (``SbcProvider``), replace it.  ``run_pi_ocean`` drives its ocean alone, with shortwave
 penetration and no ice, as the coupled step of
 ``fesom2_tpu/model.py:396-407`` does below open water;
 ``globe_ocean_inputs`` gives that run's initial state and forcing on a
@@ -35,12 +40,14 @@ import torch
 
 from .core import tracers
 from .core.state import OceanState, Forcing, zero_forcing
+from .forcing.atmos import SbcProvider
 from .mesh import MeshTables
 from .mesh.globe import write_globe
 from .ice.state import IceState
 from .model import (Model, globe_atm_data, globe_ocean_fixtures,
                     pi_coupled_step_fn, pi_initial_state, setup_pi_model,
                     setup_soufflet_model)
+from .utils.clock import Clock
 
 # the inputs of a run on the code-built globe, under one roof:
 # ``globe_atm_data`` (defined beside ``setup_pi_model``, which needs it)
@@ -197,22 +204,58 @@ def run_pi(model: Model, atm, state: OceanState, ice: IceState,
     from step index ``first_step`` (model time ``first_step * dt``).
     Prints the step norms every ``logfile_outfreq`` steps when ``verbose``;
     raises where ice lies outside the EVP subdomain at such a step or at
-    the end.  Returns (state, ice)."""
+    the end.  Returns (state, ice).
+
+    Where the forcing came from files (``model.sbc``), the clock starts on
+    Jan 1 of ``cfg.clock.yearnew`` at step 0 and the step index counts from
+    the start of the clock's year (``fesom2_tpu/run.py:108-156``); ``atm``
+    is the series of the year ``first_step`` falls in.  A run that crosses
+    a year's end switches to the next year's series: read ahead on a host
+    thread by ``SbcProvider`` (evict the old year, get the new one,
+    prefetch the one after), or the same series again under
+    ``y_perpetual``."""
     step = pi_coupled_step_fn(model, atm)
     mesh = model.mesh
     dev = mesh.zbar.device
+    dt = model.cfg.dt
+    clock = Clock(0.0, 1, model.cfg.clock.yearnew)
+    for _ in range(first_step):
+        clock.advance(dt)
+    provider, steps_per_year, k_off = None, None, 0
+    sbc = model.sbc
+    if sbc is not None and n_steps > 0:
+        steps_per_year = int(round(365 * 86400.0 / dt))
+        k_off = (first_step // steps_per_year) * steps_per_year
+        if (first_step + n_steps > steps_per_year
+                and not sbc.y_perpetual):
+            provider = SbcProvider(mesh, sbc, model.dtype)
+            provider._cache[clock.yearnew] = atm
+            provider.prefetch(clock.yearnew + 1)
     for k in range(first_step, first_step + n_steps):
         if timers is None:
             # no host wait between steps: the host queues the next step's
             # forcing and ice while the card finishes the ocean's
-            state, ice, _ = step(state, ice, k)
+            state, ice, _ = step(state, ice, k - k_off)
         else:
             _sync(dev)
             t0 = time.perf_counter()
-            state, ice, _ = step(state, ice, k)
+            state, ice, _ = step(state, ice, k - k_off)
             _sync(dev)
             timers.step += time.perf_counter() - t0
             timers.n_steps += 1
+        year = clock.yearnew
+        clock.advance(dt)
+        if steps_per_year is not None and clock.yearnew != year:
+            k_off = k + 1
+            if provider is not None:
+                provider.evict(year)
+                atm = provider.get(clock.yearnew)
+                provider.prefetch(clock.yearnew + 1)
+                step = pi_coupled_step_fn(model, atm)
+            if verbose:
+                print(f" --> forcing year switched to {clock.yearnew}"
+                      f"{' (perpetual)' if provider is None else ''}",
+                      flush=True)
         last = k + 1 == first_step + n_steps
         if last or (verbose and (k + 1) % logfile_outfreq == 0):
             outside = ice_outside_subdomain(ice, model)
@@ -244,6 +287,10 @@ def main(argv=None):
     p.add_argument("--parity", choices=["ci", "fast"], default="ci",
                    help="pi: the CI configuration or the fast one (linfs + "
                         "PP), as bench.py's BENCH_PARITY")
+    p.add_argument("--forcing", default=None,
+                   help="pi: a directory with the NCEP test-set forcing "
+                        "(u_10.1948.nc, ..., runoff.nc, NetCDF3) and "
+                        "woa18_netcdf_5deg.nc (default: both built in code)")
     args = p.parse_args(argv)
     dtype = torch.float32 if args.f32 else torch.float64
     if args.config == "soufflet":
@@ -254,8 +301,10 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         path = args.mesh or write_globe(tmp, level=args.level)
         model, atm = setup_pi_model(path, device=args.device, dtype=dtype,
-                                    parity=args.parity, atm_seed=args.seed)
-    state, ice = pi_initial_state(model, seed=args.seed)
+                                    parity=args.parity, atm_seed=args.seed,
+                                    forcing_path=args.forcing)
+    state, ice = pi_initial_state(model, seed=args.seed,
+                                  forcing_path=args.forcing)
     timers = RunTimers(setup=time.perf_counter() - t_all)
     state, ice = run_pi(model, atm, state, ice, args.steps, verbose=True,
                         timers=timers)

@@ -1,6 +1,7 @@
 """Time ``mevp_subcycles`` (the mEVP subcycle loop in one cooperative
-launch) against another checkout's two kernels a subcycle, and
-``ring_spmv`` at the repository's two ring widths against its kernel.
+launch) against another checkout's kernel, the EVP and aEVP
+instantiations beside it, and ``ring_spmv`` at the repository's two ring
+widths against its kernel.
 
     python -m fesom2_tpu_torch.scripts.evp_kernel_times [--parent DIR]
         [--level 7] [--n-sub 120] [--reps 10] [--out FILE]
@@ -15,10 +16,11 @@ nodes, 70,523 elements), as the coupled step builds them.
 
 * ``mevp_subcycles`` after 1, 8 and ``--n-sub`` subcycles, held bit for
   bit against the loop of ``mevp_subcycle_plain`` and, with ``--parent``,
-  against the other checkout's ``fesom_mevp_stress`` and
-  ``fesom_mevp_node`` (the first design: two launches a subcycle), with the
-  SHA-256 of the outputs; the launch plan (grid, shared bytes, whether the
-  constants are staged);
+  against the other checkout's kernel: its ``fesom_mevp_subcycles`` where
+  it has one (one launch, the same arguments; its plan beside this one's),
+  else its ``fesom_mevp_stress`` and ``fesom_mevp_node`` (the first
+  design: two launches a subcycle), with the SHA-256 of the outputs; the
+  launch plan (grid, shared bytes, whether the constants are staged);
 * both timed in turns (new, parent, parent, new) for ``--n-sub``
   subcycles: the profiler's device microseconds (hot: the
   tables in L2 from the call before; cold: a 256 MB overwrite before each
@@ -26,11 +28,16 @@ nodes, 70,523 elements), as the coupled step builds them.
   the last, by CUDA events (the loop's wall time as a step sees it; the
   parent's pair is called through ctypes here, without its Python
   wrappers, so ``--loop-only`` gives the loop as the step runs it);
-* beside them, never on the path: a CUDA-graph replay of the parent's
-  2 x ``--n-sub`` launches, and the latency floor, an empty cooperative
+* beside them, never on the path: a CUDA-graph replay of the first
+  design's 2 x ``--n-sub`` launches, and the latency floor, an empty cooperative
   kernel on the same grid crossing the same barriers;
 * the bounds: ``mevp_subcycles_work``'s, and the first design's two
   per-subcycle bounds summed over the subcycles;
+* the kernel's standard- and adaptive-EVP instantiations
+  (``evp_subcycles``, ``aevp_subcycles``) on the same seeded inputs (aEVP
+  with the state's alpha and beta): bit for bit against their plain
+  loops after 1, 8 and ``--n-sub`` subcycles, device us hot and cold and
+  events ms twice each, plan, barrier floor and bound;
 * ``ring_spmv`` on the ALE ring of the 46,000-node zstar channel [8, N]
   and of the level-7 globe [10, N] (values rebuilt from a 0.5 m hbar
   perturbation, as a step does), bit for bit against the plain version
@@ -68,9 +75,10 @@ MESH = dict(force_rotation=True, cyclic_length_deg=360.0,
             use_partial_cell=True)
 
 
-def seeded_subdomain_tables(path: str, dtype, seed: int = 5):
-    """(tab, uv, sig, sub): mEVP's tables on the globe's ice subdomain from
-    a seeded ice state, forcing and ocean surface."""
+def seeded_subdomain_inputs(path: str, dtype, seed: int = 5,
+                            aevp: bool = False):
+    """(ice, forcing, surf, sub): a seeded ice state, forcing and ocean
+    surface on the globe's ice subdomain (with aEVP's alpha and beta)."""
     from fesom2_tpu_torch.ice import evp
     from fesom2_tpu_torch.ice.state import (OceanSurface, allocate_ice,
                                             zero_ice_forcing)
@@ -94,10 +102,117 @@ def seeded_subdomain_tables(path: str, dtype, seed: int = 5):
     surf = OceanSurface(T_oc=u(-1.0, 1.0), S_oc=u(33.0, 35.0),
                         u_w=u(-0.05, 0.05), v_w=u(-0.05, 0.05),
                         elevation=u(-0.3, 0.3))
-    ice, forcing, surf = evp.subdomain_inputs(ice, sub, forcing, surf)
+    if aevp:
+        return (*evp.subdomain_inputs(ice, sub, forcing, surf, aevp=True),
+                sub)
+    return (*evp.subdomain_inputs(ice, sub, forcing, surf), sub)
+
+
+def seeded_subdomain_tables(path: str, dtype, seed: int = 5):
+    """(tab, uv, sig, sub): mEVP's tables on the globe's ice subdomain from
+    the seeded inputs of ``seeded_subdomain_inputs``."""
+    from fesom2_tpu_torch.ice import evp
+    from fesom2_tpu_torch.model import pi_config
+    ice, forcing, surf, sub = seeded_subdomain_inputs(path, dtype, seed)
     tab = evp.mevp_setup(ice, sub, forcing, surf, pi_config())
     return (tab, torch.stack([ice.u_ice, ice.v_ice]),
             torch.stack([ice.sigma11, ice.sigma12, ice.sigma22]), sub)
+
+
+def variant_rows(path, dtype, n, reps, flush):
+    """The standard- and adaptive-EVP instantiations of the subcycle kernel
+    on the seeded inputs: bit for bit against their plain loops after 1, 8
+    and n subcycles, device us hot and cold and events ms for n (two
+    readings each), the plan and the barrier floor of each one's grid, the
+    bound.  Yields one dict a variant."""
+    from fesom2_tpu_torch import kernels
+    from fesom2_tpu_torch.ice import evp
+    from fesom2_tpu_torch.model import pi_config
+    size = torch.empty((), dtype=dtype).element_size()
+    for which, rheo, setup, kern, plain, work in (
+            (0, "evp", evp.evp_setup, evp.evp_subcycles,
+             evp.evp_subcycles_plain, evp.evp_subcycles_work),
+            (2, "aevp", evp.aevp_setup, evp.aevp_subcycles,
+             evp.aevp_subcycles_plain, evp.aevp_subcycles_work)):
+        ice, forcing, surf, sub = seeded_subdomain_inputs(
+            path, dtype, aevp=which == 2)
+        cfg = pi_config()
+        cfg.ice.whichEVP = which
+        tab = setup(ice, sub, forcing, surf, cfg)
+        uv0 = torch.stack([ice.u_ice, ice.v_ice])
+        sig0 = torch.stack([ice.sigma11, ice.sigma12, ice.sigma22])
+        N, E, K = sub.n_nodes, sub.n_elems, sub.elem_slot.shape[0]
+        bitwise = {}
+        for m in sorted({1, 8, n}):
+            want = plain(uv0, sig0, tab, sub, m)
+            got = kern(uv0.clone(), sig0.clone(), tab, sub, m)
+            torch.cuda.synchronize()
+            bitwise[m] = same_bits(got[0], want[0]) \
+                and same_bits(got[1], want[1])
+        uv, sig = uv0.clone(), sig0.clone()
+        f = lambda: kern(uv, sig, tab, sub, n)
+        name = f"{rheo}_subcycles"
+        times = [{"device_us": kernel_us(f, f"{name}_kernel", calls=5),
+                  "cold_device_us": kernel_us(f, f"{name}_kernel", calls=5,
+                                              flush=flush),
+                  "events_ms": events_ms(f, reps=reps, warmup=2)}
+                 for _ in range(2)]
+        nb = evp.mevp_subcycles_barriers(n)
+        b_ms, bound_by = kernels.bound_ms(work(N, E, K, size, n), dtype)
+        yield dict(
+            kernel=name, dtype=str(dtype).replace("torch.", ""), n_sub=n,
+            shape=f"uv [2, {N}] sig [3, {E}] K={K}", bitwise_plain=bitwise,
+            plan=evp.mevp_subcycles_plan("cuda", dtype, N, E, K, rheo),
+            bound_us=b_ms * 1e3, bound_by=bound_by, times=times,
+            barrier_floor={"barriers": nb, "device_us": kernel_us(
+                lambda: evp.mevp_barrier_floor("cuda", dtype, N, E, K, nb,
+                                               rheo), "barrier_kernel",
+                calls=5)})
+
+
+def parent_launch(lib, tab, sub):
+    """The other checkout's loop on these tables, in place on (uv, sig):
+    a function of (uv, sig, m) for m subcycles, and its plan (or None).
+    A checkout with ``fesom_mevp_subcycles`` (one launch for all m) is
+    called with this checkout's arguments; an older one through its pair
+    of kernels a subcycle."""
+    if not hasattr(lib, "fesom_mevp_subcycles"):
+        old = parent_pair(lib, tab, sub)
+
+        def loop(uv, sig, m):
+            for _ in range(m):
+                old(uv, sig)
+            return uv, sig
+        return loop, None
+    from fesom2_tpu_torch import kernels
+    from fesom2_tpu_torch.constants import density_0
+    from fesom2_tpu_torch.core.ops import elem_slot_of
+    fn = lib.fesom_mevp_subcycles
+    fn.argtypes = kernels._ARGTYPES["mevp_subcycles"]
+    fn.restype = ctypes.c_int
+    slot = elem_slot_of(sub)
+    N, E, K = sub.n_nodes, sub.n_elems, slot.shape[0]
+    code = int(tab.elem_c.dtype == torch.float64)
+
+    def loop(uv, sig, m):
+        err = fn(uv.data_ptr(), sig.data_ptr(), tab.fuv.data_ptr(),
+                 tab.en.data_ptr(), slot.data_ptr(), tab.elem_c.data_ptr(),
+                 tab.node_c.data_ptr(), N, E, K, m, tab.det1, tab.vale,
+                 tab.delta_min, tab.rdt, tab.rdt_cd, density_0, tab.beta,
+                 code, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent mevp_subcycles: CUDA error {err}")
+        return uv, sig
+    out = (ctypes.c_int * 4)()
+    if hasattr(lib, "fesom_subcycles_plan"):        # the rheology first
+        lib.fesom_subcycles_plan.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.fesom_subcycles_plan(1, N, E, K, code, ctypes.addressof(out))
+    else:
+        lib.fesom_mevp_subcycles_plan.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        lib.fesom_mevp_subcycles_plan(N, E, K, code, ctypes.addressof(out))
+    return loop, dict(zip(("grid", "block", "smem_bytes", "staged"), out))
 
 
 def parent_pair(lib, tab, sub):
@@ -208,12 +323,9 @@ def main(argv=None) -> int:
         size = torch.empty((), dtype=dtype).element_size()
         tab, uv0, sig0, sub = seeded_subdomain_tables(path, dtype)
         N, E, K = sub.n_nodes, sub.n_elems, sub.elem_slot.shape[0]
-        old = parent_pair(parent, tab, sub) if parent else None
-
-        def old_loop(uv, sig, m):
-            for _ in range(m):
-                old(uv, sig)
-            return uv, sig
+        old_loop, parent_plan = parent_launch(parent, tab, sub) \
+            if parent else (None, None)
+        old = old_loop
 
         # bit for bit: the kernel and the parent against the plain loop
         for m in sorted({1, 8, n}):
@@ -258,7 +370,7 @@ def main(argv=None) -> int:
                 "cuda", dtype, N, E, K, nb), "barrier_kernel", calls=5)
             for _ in range(2)]}
         graph = None
-        if old:
+        if old and parent_plan is None:
             uv, sig = uv0.clone(), sig0.clone()
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -271,8 +383,12 @@ def main(argv=None) -> int:
             graph = {"device_us": kernel_us(g.replay, "mevp_", calls=5),
                      "events_ms": events_ms(g.replay, reps=args.reps,
                                             warmup=2)}
+        for row in variant_rows(path, dtype, n, args.reps, flush):
+            failed |= not all(row["bitwise_plain"].values())
+            emit(**row)
         emit(kernel="mevp_subcycles", dtype=tag, n_sub=n,
              plan=evp.mevp_subcycles_plan("cuda", dtype, N, E, K),
+             parent_plan=parent_plan,
              bound_us=b_ms * 1e3, bound_by=bound_by,
              parent_bounds_summed_us=parent_bound * 1e3, times=times,
              barrier_floor=floor, parent_graph_replay=graph)

@@ -124,7 +124,7 @@ def jit(fn, *args):
 def test_setup_needs_the_ice_off(pair):
     """The ocean-only model of this file has the ice off and no ice
     subdomain; with the ice on (``pi_config()`` as it stands) the setup
-    builds the subdomain, and raises only for ice that is not ported."""
+    builds the subdomain, under any of the three EVP rheologies."""
     assert not pair.cfg.run.use_ice and pair.tm.ice_sub is None
     cfg = pi_config()
     assert cfg.run.use_ice
@@ -132,8 +132,8 @@ def test_setup_needs_the_ice_off(pair):
     assert coupled.ice_sub is not None
     assert atm.tair.shape[1] == coupled.mesh.n_nodes
     cfg.ice.whichEVP = 2
-    with pytest.raises(NotImplementedError, match="item 17"):
-        setup_pi_model(pair.path, device="cpu", cfg=cfg)
+    adaptive, _ = setup_pi_model(pair.path, device="cpu", cfg=cfg)
+    assert adaptive.ice_sub is not None
     with pytest.raises(ValueError, match="parity"):
         pi_config(parity="bogus")
 

@@ -246,15 +246,29 @@ def test_run_pi_reports_ice_and_flags_it_outside_the_subdomain(pair, capsys):
     (("run", "l_mslp"), True, "item 19"),
     (("dyn", "i_vert_visc"), False, "item 15"),
     (("tra", "tra_adv_hor"), "UPW1", "item 15")])
-def test_check_slice_raises_for_what_is_not_ported(knob, value, item):
-    """Items 17-19 raise, naming the item; item 15's knobs (the salt
-    plume, explicit vertical viscosity, the upwind horizontal scheme) are
-    ported and pass."""
+def test_check_slice_raises_for_what_is_not_ported(path, knob, value, item):
+    """Icepack (item 18) raises, naming the item; item 15's knobs (the
+    salt plume, explicit vertical viscosity, the upwind horizontal scheme)
+    are ported and pass; items 17 and 19 (standard and adaptive EVP, the
+    tidal potential, the sea-level pressure) are ported: the configuration
+    sets up and takes a coupled step (``test_torch_evp_steps.py`` holds
+    three steps of each against JAX)."""
     cfg = pi_config()
     check_slice(cfg)                       # the CI configuration passes
     setattr(getattr(cfg, knob[0]), knob[1], value)
     if item == "item 15":
         check_slice(cfg)
+        return
+    if item in ("item 17", "item 19"):
+        check_slice(cfg)
+        cfg.ice.evp_rheol_steps = 8
+        tm, tatm = setup_pi_model(path, device="cpu", cfg=cfg)
+        ts, tice = pi_initial_state(tm)
+        ts, tice, tof = pi_coupled_step_fn(tm, tatm)(ts, tice, 0)
+        assert bool(torch.isfinite(ts.tr).all()) and int(ts.step) == 1
+        assert bool(torch.isfinite(tice.u_ice).all())
+        if knob[1] == "use_global_tides":
+            assert float(tof.ssh_gp.abs().max()) > 0.0
         return
     with pytest.raises(NotImplementedError, match=item):
         check_slice(cfg)
@@ -263,8 +277,12 @@ def test_check_slice_raises_for_what_is_not_ported(knob, value, item):
 @pytest.mark.parametrize("knob,value,item", [
     (("diag", "ldiag_DVD"), True, "item 20"),
     (("tra", "clim_relax"), 1e-6, "item 19"),
-    (("ice", "whichEVP"), 2, "item 17")])
+    (("ice", "whichEVP"), 2, "item 17"),
+    (("run", "use_icepack"), True, "item 18")])
 def test_check_slice_still_raises_for_items_17_to_21(knob, value, item):
+    """On the column-physics menus' configuration: the DVD diagnostic
+    (item 20) and Icepack (item 18) still raise; the relaxation to
+    climatology and adaptive EVP (items 19 and 17) pass."""
     cfg = pi_config()
     cfg.dyn.mix_scheme = "cvmix_TKE+cvmix_IDEMIX"
     cfg.dyn.SPP = True
@@ -272,6 +290,9 @@ def test_check_slice_still_raises_for_items_17_to_21(knob, value, item):
     cfg.tra.tracer_ID = [0, 1, 101, 301, 302, 303]
     check_slice(cfg)
     setattr(getattr(cfg, knob[0]), knob[1], value)
+    if item in ("item 17", "item 19"):
+        check_slice(cfg)
+        return
     with pytest.raises(NotImplementedError, match=item):
         check_slice(cfg)
 
@@ -316,11 +337,12 @@ def test_check_slice_keeps_the_ice_off_the_toy_channel():
     """Sea ice on the toy channel is what the JAX package does with it:
     the channel's ocean step leaves the ice off (it ignores ``use_ice``),
     and ``coupled_step_fn`` runs the ice on the whole channel
-    (``test_torch_menu_steps.py``), so check_slice lets it through."""
+    (``test_torch_menu_steps.py``), so check_slice lets it through, with
+    the channel's whichEVP=0 (standard EVP) as with mEVP."""
     cfg = soufflet_config()
     cfg.run.use_ice = True
-    with pytest.raises(NotImplementedError, match="item 17"):
-        check_slice(cfg)                   # the channel's whichEVP=0
+    assert cfg.ice.whichEVP == 0
+    check_slice(cfg)
     cfg.ice.whichEVP = 1
     check_slice(cfg)
     cfg.run.which_toy = "channel"

@@ -406,12 +406,19 @@ def test_ice_dynamics_on_the_subdomain(case, n_sub):
 
 
 def test_ice_dynamics_raises_for_what_is_not_ported(case):
+    """Standard and adaptive EVP are ported (item 17): the dispatch runs
+    them (``test_torch_evp.py`` holds them against JAX), and mEVP for any
+    other whichEVP, as the JAX dispatch does; the icepack strength field
+    (item 18) still raises."""
     c = case
-    for which in (0, 2):
-        cfg = pi_config()
+    for which, fn in ((0, evp.evp_dynamics), (2, evp.aevp_dynamics),
+                      (3, evp.mevp_dynamics)):
+        cfg = subcycle_config(2)
         cfg.ice.whichEVP = which
-        with pytest.raises(NotImplementedError, match="item 17"):
-            evp.ice_dynamics(c.tice, c.tmesh, c.tforcing, c.tsurf, cfg)
+        got = evp.ice_dynamics(c.tice, c.tmesh, c.tforcing, c.tsurf, cfg)
+        want = fn(c.tice, c.tmesh, c.tforcing, c.tsurf, cfg)
+        assert torch.equal(got.u_ice, want.u_ice)
+        assert bool(torch.isfinite(got.sigma11).all())
     with pytest.raises(NotImplementedError, match="item 18"):
         evp.ice_dynamics(c.tice, c.tmesh, c.tforcing, c.tsurf, c.cfg,
                          strength_node=c.tice.m_ice)

@@ -5,7 +5,8 @@ kpp_column on the level-3 globe with 20 layers, partial cells; the cluster
 kernels elem_to_node_mean and fct_bounds there too, with 19 layers; the
 sea ice's elem_contrib_to_nodes and mevp_subcycles on the level-3 globe
 and its ice subdomain, mevp_subcycles also on the whole level-7 globe, more
-elements than the resident grid has threads; ring_spmv at every ring width
+elements than the resident grid has threads, and the EVP and aEVP
+variants of the subcycle kernel on all three; ring_spmv at every ring width
 with a kernel of its own and at two the generic kernel takes).
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
@@ -595,6 +596,96 @@ def test_mevp_subcycles_whole_globe_on_card(tmp_path, rng, dtype):
         got = evp.mevp_subcycles(uv0.clone(), sig0.clone(), tab, m, n)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert kernels.LAUNCHES["mevp_subcycles"] == 3
+
+
+def _random_ice(m, rng, dtype, alpha=False):
+    """A seeded ice state, forcing and ocean surface on mesh ``m``, on the
+    card in ``dtype``: ice on half the nodes, some just under 0.01."""
+    from fesom2_tpu_torch.ice.state import (OceanSurface, allocate_ice,
+                                            zero_ice_forcing)
+    N, E = m.n_nodes, m.n_elems
+    put = lambda a: torch.as_tensor(a, device="cuda").to(dtype)
+    u = lambda lo, hi, n=N: put(rng.uniform(lo, hi, n))
+    a_ice = np.where(rng.uniform(size=N) < 0.5, rng.uniform(0.2, 1.0, N), 0.0)
+    a_ice[rng.uniform(size=N) < 0.05] = 0.009
+    m_ice = np.where(a_ice > 0, rng.uniform(0.2, 2.5, N), 0.0)
+    ice = dataclasses.replace(
+        allocate_ice(m, dtype), u_ice=u(-0.1, 0.1), v_ice=u(-0.1, 0.1),
+        m_ice=put(m_ice), a_ice=put(a_ice), m_snow=u(0.0, 0.3),
+        sigma11=u(-100.0, 100.0, E), sigma12=u(-100.0, 100.0, E),
+        sigma22=u(-100.0, 100.0, E))
+    if alpha:
+        ice = dataclasses.replace(ice, alpha_aevp=u(30.0, 400.0, E),
+                                  beta_aevp=u(30.0, 400.0))
+    forcing = dataclasses.replace(zero_ice_forcing(m, dtype),
+                                  stress_atmice_x=u(-0.2, 0.2),
+                                  stress_atmice_y=u(-0.2, 0.2))
+    surf = OceanSurface(T_oc=u(-1.0, 1.0), S_oc=u(33.0, 35.0),
+                        u_w=u(-0.05, 0.05), v_w=u(-0.05, 0.05),
+                        elevation=u(-0.3, 0.3))
+    return ice, forcing, surf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("which", [0, 2])
+def test_evp_and_aevp_subcycles_on_card(tmp_path, rng, dtype, which):
+    """evp_subcycles (whichEVP = 0) and aevp_subcycles (2) on the level-3
+    globe, its ice subdomain and the whole level-7 globe (more elements
+    than the resident grid has threads) after 1, 8 and 120 subcycles,
+    bit-equal to the plain loops; a build or launch that fails raises
+    for a CUDA tensor, and the plain loop is never taken."""
+    _need_card()
+    from fesom2_tpu_torch.ice import evp
+    from fesom2_tpu_torch.ice.subdomain import build_ice_subdomain
+    setup, plain, kernel, name = {
+        0: (evp.evp_setup, evp.evp_subcycles_plain, evp.evp_subcycles,
+            "evp_subcycles"),
+        2: (evp.aevp_setup, evp.aevp_subcycles_plain, evp.aevp_subcycles,
+            "aevp_subcycles")}[which]
+    cfg = pi_config()
+    cfg.ice.whichEVP = which
+    kernels.reset_launches()
+    launched = 0
+    for level in (3, 7):
+        path = globe.write_globe(str(tmp_path / f"l{level}"), level=level)
+        m = build_mesh(path, force_rotation=True, use_partial_cell=True,
+                       device="cuda", dtype=dtype)
+        tables = [m] if level == 7 else [m, build_ice_subdomain(m, 40.0)]
+        for t in tables:
+            ice, forcing, surf = _random_ice(m, rng, dtype, which == 2)
+            if t is not m:
+                ice, forcing, surf = evp.subdomain_inputs(
+                    ice, t, forcing, surf, aevp=which == 2)
+            tab = setup(ice, t, forcing, surf, cfg)
+            uv0 = torch.stack([ice.u_ice, ice.v_ice])
+            sig0 = torch.stack([ice.sigma11, ice.sigma12, ice.sigma22])
+            K = evp.elem_slot_of(t).shape[0]
+            print(f"{name} level {level} {dtype} N={t.n_nodes}: "
+                  f"{evp.mevp_subcycles_plan('cuda', dtype, t.n_nodes, t.n_elems, K, ('evp', 'mevp', 'aevp')[which])}")
+            for n in (1, 8, 120):
+                want = plain(uv0, sig0, tab, t, n)
+                got = kernel(uv0.clone(), sig0.clone(), tab, t, n)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]), (level, n)
+                assert torch.equal(got[1], want[1]), (level, n)
+                launched += 1
+    assert kernels.LAUNCHES[name] == launched
+    assert kernels.LAUNCHES["mevp_subcycles"] == 0
+
+    def broken():
+        raise RuntimeError("nvcc failed: the build broke")
+    saved = kernels.library
+    kernels.library = broken
+    try:
+        with pytest.raises(RuntimeError, match="build broke"):
+            kernel(uv0.clone(), sig0.clone(), tab, t, 2)
+    finally:
+        kernels.library = saved
+    with pytest.raises(ValueError, match="node_c"):
+        bad = dataclasses.replace(tab, node_c=tab.node_c[:-1].contiguous(),
+                                  checked=False)
+        kernel(uv0.clone(), sig0.clone(), bad, t, 2)
 
 
 @pytest.mark.cuda

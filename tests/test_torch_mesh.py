@@ -155,6 +155,14 @@ def test_port_imports_no_jax():
             "fesom2_tpu_torch.ice.evp, fesom2_tpu_torch.ice.fct, "
             "fesom2_tpu_torch.ice.step, fesom2_tpu_torch.forcing.bulk, "
             "fesom2_tpu_torch.forcing.atmos, "
+            "fesom2_tpu_torch.forcing.interp, "
+            "fesom2_tpu_torch.forcing.prefetch, "
+            "fesom2_tpu_torch.forcing.tides, "
+            "fesom2_tpu_torch.forcing.gotm_bulk, "
+            "fesom2_tpu_torch.forcing.synthetic, "
+            "fesom2_tpu_torch.io.netcdf, fesom2_tpu_torch.utils.clock, "
+            "fesom2_tpu_torch.utils.support, fesom2_tpu_torch.core.ic, "
+            "fesom2_tpu_torch.ice.thermo_cpl, "
             "fesom2_tpu_torch.scripts.gather_cost_model, "
             "fesom2_tpu_torch.scripts.cluster_kernel_times, "
             "fesom2_tpu_torch.mesh.cluster, "

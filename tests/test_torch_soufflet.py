@@ -114,12 +114,13 @@ def test_cuda_requested_without_card_raises(mesh_dir):
     (("tra", "tra_adv_ver"), "PPM"), (("run", "use_ice"), True),
     (("diag", "ldiag_DVD"), True), (("dyn", "SPP"), True)])
 def test_out_of_slice_config_raises(mesh_dir, knob, value):
-    """A knob outside the port raises, naming its ROADMAP item.  The
-    knobs of queue 1 items 15 and 16 are ported (CVMix, the tracer
-    schemes, explicit vertical viscosity, the salt plume): they set up
-    and step (``test_torch_menu_steps.py`` holds each against JAX).  Sea
-    ice on the channel is ported too, but the channel's configuration
-    selects ``whichEVP=0``, the standard EVP of item 17, which raises."""
+    """A knob outside the port raises, naming its ROADMAP item (the DVD
+    diagnostic, item 20).  The knobs of queue 1 items 15, 16, 17 and 19
+    are ported (CVMix, the tracer schemes, explicit vertical viscosity,
+    the salt plume, the tidal potential; sea ice on the channel with the
+    channel's ``whichEVP=0``, standard EVP, which the channel's ocean step
+    leaves off as the JAX package does): they set up and step
+    (``test_torch_menu_steps.py`` holds the menus against JAX)."""
     cfg = soufflet_config()
     setattr(getattr(cfg, knob[0]), knob[1], value)
     if knob[1] in PORTED_KNOBS:
@@ -132,4 +133,4 @@ def test_out_of_slice_config_raises(mesh_dir, knob, value):
 
 
 PORTED_KNOBS = ("mix_scheme", "tra_adv_hor", "i_vert_visc", "tra_adv_ver",
-                "SPP")
+                "SPP", "use_global_tides", "use_ice")
