@@ -72,7 +72,14 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    ``pressure_bv``
    (columns whose top lies below the surface), each with its bound and
    library call and whether it is bitwise, beside the same kernels'
-   times on the shelf-free globe;
+   times on the shelf-free globe; the Icepack step's kernels on the
+   inputs its second coupled step hands them on the level-7 globe
+   (``ice.icepack.driver.recording_kernel_inputs``): ``bl99_temperature_
+   solve`` on the [5, 114033] columns (1e-12 / 1e-5, the same sweep count
+   in float64; a float32 sweep count or melting flag that differs is
+   reported), ``itd_remap``'s two calls (the remap with the rebin, the
+   rebin alone; bitwise) and ``mevp_subcycles`` on the whole mesh with
+   the strength field (bitwise), each with its bound and no library call;
 4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
    linfs, dense SSH) through ``run.run_soufflet``, with sanity bounds,
    linfs volume conservation and a launch count above 0 for every kernel
@@ -234,6 +241,27 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     tides with ``l_mslp``, the relaxation sponge, forcing and initial
     state from phase 22's files; and one ``ice_timestep_cpl`` (the
     coupled-mode thermodynamics) on seeded ``CoupledAtmFluxes``.
+
+24. the Icepack CI coupled step at full width (phase 12's tables and
+    atmosphere, ``cfg.run.use_icepack`` with the default IcepackConfig:
+    5 categories, 4 ice and 4 snow layers; its mEVP on the whole mesh):
+    10 gated steps in each dtype (every field of the ocean, the ice and
+    the IcepackState finite; phase 12's ocean bounds with the area-mean
+    hbar against the summed water flux; aicen in [0, 1] with its category
+    sum at most 1 + 1e-12 in float64, 1 + 2^-22 in float32 (its rounding);
+    vicen, vsnon >= 0; some a_ice > 0.5; every kernel of the path
+    launched, ``bl99_temperature_solve`` once a step, ``itd_remap`` twice,
+    ``mevp_subcycles`` once), the BL99 sweeps a step, the peak memory,
+    Icepack coupled steps/s beside phase 12's and a 3-step profile with
+    the device and host ms a step of ``step.icepack.thermo1``,
+    ``.thermo2``, ``.dynamics``, ``.advection``, ``.ridging`` and
+    ``.aggregate``;
+25. card against CPU on the level-3 globe, 3 float64 Icepack coupled
+    steps each (4 with ``ice_ave_steps = 2``), every field of the ocean,
+    the ice and the IcepackState within 1e-8 of max|CPU|, no kernel on the
+    CPU path: the default IcepackConfig, ponds + age + first-year +
+    level ice, dEdd, the floe-size distribution, the biogeochemistry and
+    ``ice_ave_steps = 2``.
 
 Any failure exits non-zero before the last line.  Before it come one
 JSON line with the gather kernels' device times on both numberings, one
@@ -571,6 +599,13 @@ def main():
     from fesom2_tpu_torch.run import (globe_ocean_inputs, run_pi,
                                       run_pi_ocean, run_soufflet)
     from fesom2_tpu_torch.scripts import gather_cost_model as probe
+    from fesom2_tpu_torch.model import Model
+    from fesom2_tpu_torch.ice.icepack import (IcepackConfig,
+                                              init_icepack_state)
+    from fesom2_tpu_torch.ice.icepack import driver as icepack_driver
+    from fesom2_tpu_torch.ice.icepack import itd as icepack_itd
+    from fesom2_tpu_torch.ice.icepack import thermo_vertical as tvert
+    icepack_models, bl99_report, icepack_cpu = {}, {}, {}
 
     # phase 1 ------------------------------------------------------------
     t_start = time.perf_counter()
@@ -1148,6 +1183,106 @@ def main():
                             u, g, t, cap, n_sub)))
         return out
 
+    def icepack_model(m, **opts):
+        """The Icepack CI model (``cfg.run.use_icepack``, an IcepackConfig
+        of ``opts``) on the tables of the CI model ``m``."""
+        cfg = copy.deepcopy(m.cfg)
+        cfg.run.use_icepack = True
+        cfg.icepack = IcepackConfig(**opts)
+        return Model(m.mesh, cfg, m.tracer_statics, m.density_ref,
+                     ice_sub=m.ice_sub, ssh_dense_inv=m.ssh_dense_inv,
+                     ssh_ring=m.ssh_ring, ssh_block_pc=m.ssh_block_pc)
+
+    def icepack_start(m):
+        st_, ice_ = pi_initial_state(m)
+        return st_, ice_, init_icepack_state(
+            m.cfg.icepack, ice_.a_ice, ice_.m_ice, ice_.m_snow, ice_.t_skin,
+            dtype=m.dtype)
+
+    def icepack_cases(dtype):
+        """The Icepack step's kernels on the level-7 globe, on the inputs
+        the second coupled step hands them (the state after one step):
+        bl99_temperature_solve on the [5, N] columns (within the tolerance,
+        the same sweep count in float64; in float32 a sweep count or a
+        melting flag that differs is reported), itd_remap's two calls
+        (the remap with the rebin after thermo2, the rebin after ridging;
+        bitwise) and mevp_subcycles on the whole mesh with the strength
+        field (bitwise).  No PyTorch call computes any of them."""
+        if dtype not in icepack_models:
+            icepack_models[dtype] = icepack_model(gm[dtype])
+        m = icepack_models[dtype]
+        step = pi_coupled_step_fn(m, gatm[dtype])
+        st_, ice_, ipk_ = icepack_start(m)
+        st_, ice_, ipk_, _ = step(st_, ice_, 0, ipk_)
+        with icepack_driver.recording_kernel_inputs() as rec:
+            step(st_, ice_, 1, ipk_)
+        tag = str(dtype).replace("torch.", "")
+        size = torch.empty((), dtype=dtype).element_size()
+        args, kw = rec["temperature_solve"][0]
+        ncat, n_nodes = args[1].shape
+        got = tvert.temperature_solve(*args, **kw)
+        want = tvert.temperature_solve_plain(*args, **kw)
+        n_k, n_p = int(got["niter"]), int(want["niter"])
+        melt = int((got["melting"] != want["melting"]).sum())
+        bl99_report[tag] = {"sweeps_kernel": n_k, "sweeps_plain": n_p,
+                            "melting_columns_differ": melt,
+                            "melting_columns": int(want["melting"].sum()),
+                            "plan": tvert.bl99_plan(dev, dtype,
+                                                    ncat * n_nodes)}
+        say(f"phase 3 bl99_temperature_solve {tag}: {ncat} x {n_nodes} "
+            f"columns, sweeps kernel {n_k} plain {n_p}, columns melting "
+            f"{bl99_report[tag]['melting_columns']}, melting flags that "
+            f"differ {melt}; launch {bl99_report[tag]['plan']}")
+        if dtype == torch.float64 and (n_k != n_p or melt):
+            fail(f"bl99_temperature_solve float64: sweeps {n_k} against the "
+                 f"plain version's {n_p}, {melt} melting flags differ")
+        outs = ("Tsf", "Tsn", "Tin", "fsurf", "fcondtop", "fcondbot",
+                "fsens", "flat", "flwout")
+        pick = lambda sol: tuple(sol[k] for k in outs)
+        out = [("bl99_temperature_solve",
+                f"level-7 Icepack columns [{ncat}, {n_nodes}] x{n_p} sweeps",
+                lambda: pick(tvert.temperature_solve(*args, **kw)),
+                lambda: pick(tvert.temperature_solve_plain(*args, **kw)),
+                False,
+                tvert.temperature_solve_work(
+                    ncat, n_nodes, args[0].nilyr, args[0].nslyr, size, n_p,
+                    kw.get("shcoef") is not None, args[0].conduct),
+                None)]
+        # the rebin after ridging, then the remap after thermo2 (the larger
+        # call: a kernel's last float64 case stands for it in the summary)
+        for (pack, *rest), _ in reversed(rec["itd_remap"]):
+            nc, rows, nn = pack.shape
+            buf = pack.clone()
+            what = "remap + rebin" if rest[-1] else "rebin"
+            out.append(("itd_remap", f"{what} pack {[nc, rows, nn]}",
+                        lambda p=pack, r=rest: icepack_itd.itd_remap(
+                            p.clone(), *r),
+                        lambda p=pack, r=rest: icepack_itd.itd_remap_plain(
+                            p, *r), True,
+                        icepack_itd.itd_remap_work(nc, rows, nn, size,
+                                                   rest[-1]), None,
+                        lambda b=buf, r=rest: icepack_itd.itd_remap(b, *r)))
+        (ice_d, mesh_d, forc_d, surf_d, cfg_d), kw_d = \
+            rec["ice_dynamics"][0]
+        tab = evp.mevp_setup(ice_d, mesh_d, forc_d, surf_d, cfg_d,
+                             strength_node=kw_d["strength_node"])
+        uv0 = torch.stack([ice_d.u_ice, ice_d.v_ice])
+        sig0 = torch.stack([ice_d.sigma11, ice_d.sigma12, ice_d.sigma22])
+        Nw, Ew = mesh_d.n_nodes, mesh_d.n_elems
+        Kw = mesh_d.cluster.elem_slot.shape[0]
+        n_sub = cfg_d.ice.evp_rheol_steps
+        uv_t, sig_t = uv0.clone(), sig0.clone()
+        out.append(("mevp_subcycles", f"whole mesh with the Icepack strength "
+                    f"uv {[2, Nw]} sig {[3, Ew]} x{n_sub}",
+                    lambda: evp.mevp_subcycles(uv0.clone(), sig0.clone(),
+                                               tab, mesh_d, n_sub),
+                    lambda: evp.mevp_subcycles_plain(uv0, sig0, tab, mesh_d,
+                                                     n_sub), True,
+                    evp.mevp_subcycles_work(Nw, Ew, Kw, size, n_sub), None,
+                    lambda: evp.mevp_subcycles(uv_t, sig_t, tab, mesh_d,
+                                               n_sub)))
+        return out
+
     for label, mesh in (("channel", mesh64), ("globe", gmesh)):
         ct = mesh.cluster
         for what, ptr, ids in (
@@ -1197,12 +1332,15 @@ def main():
                 + cg_cases(dtype)
                 + (probe_cases() if dtype == torch.float32 else [])
                 + menu_cases(dtype) + shelf_cases(dtype) + globe_cases(dtype)
-                + ice_cases(dtype)):
+                + icepack_cases(dtype) + ice_cases(dtype)):
             # an in-place kernel is timed on buffers of its own
             kern_t = own[0] if own else kern
-            # the subcycle loops' plain versions (some 5,400 eager ops a
-            # call) are timed over fewer calls
-            light = name.endswith("_subcycles")
+            # the plain versions of the subcycle loops (some 5,400 eager
+            # ops a call) and of the Icepack kernels (a host read a BL99
+            # sweep; some 1,500 eager ops a remap) are timed over fewer
+            # calls
+            light = name.endswith("_subcycles") \
+                or name in ("bl99_temperature_solve", "itd_remap")
             t_case = time.perf_counter()
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -1260,7 +1398,8 @@ def main():
                     or " six " in label \
                     or label.startswith("shelf") \
                     or name in ("block_schwarz", "elem_contrib_to_nodes",
-                                "kpp_column", "ring_spmv"):
+                                "kpp_column", "ring_spmv",
+                                "mevp_subcycles", "itd_remap"):
                 summary[name].setdefault("shapes", {})[f"{tag} {label}"] = {
                     "ms": k_ms, "device_ms": k_dev and k_dev / 1e3,
                     "bitwise": bitwise,
@@ -1697,7 +1836,7 @@ def main():
     for k in ice_kernels:
         path_launches[k] = launches[k]
 
-    cruns = {}
+    cruns, ci_rates = {}, {}
     for dtype, m in gm.items():
         s_, i_ = pi_initial_state(m)
         s_, i_ = run_pi(m, gatm[dtype], s_, i_, 2)
@@ -1718,6 +1857,7 @@ def main():
             say(f"phase 12 throughput {str(dtype).replace('torch.', '')}: "
                 f"{n / wall:.3f} coupled steps/s, {wet * n / wall:.6e} wet "
                 f"node-levels/s ({wet} wet node-levels; {card})")
+            ci_rates[str(dtype).replace('torch.', '')] = n / wall
     # the 3-step profiles, each dtype's launches a coupled step counted in
     # them (the CG kernels' with the CG iterations of each dtype's steps)
     step_us, launches_dtype = {}, {}
@@ -2924,6 +3064,174 @@ def main():
     say(f"phase 23 {len(cases23) + 1} cases in "
         f"{time.perf_counter() - t23:.1f} s")
 
+    # phase 24 -----------------------------------------------------------
+    say(f"phase 24 starts at {time.perf_counter() - t_start:.1f} s")
+    # the Icepack CI coupled step at full width: phase 12's tables and
+    # atmosphere, cfg.run.use_icepack with the default IcepackConfig (5
+    # categories, 4 ice and 4 snow layers), its EVP on the whole mesh
+    icepack_kernels = ("bl99_temperature_solve", "itd_remap")
+    path24 = coupled_kernels + icepack_kernels
+    sweeps = []
+    solve = icepack_driver._KERNELS["temperature_solve"]
+
+    def counted_solve(*a, **k):
+        out = solve(*a, **k)
+        sweeps.append(out["niter"])
+        return out
+    icepack_driver._KERNELS["temperature_solve"] = counted_solve
+    icepack_report = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        label = f"phase 24 {tag}"
+        m = icepack_models[dtype]
+        step24 = pi_coupled_step_fn(m, gatm[dtype])
+        st, ice, ipk = icepack_start(m)
+        sweeps.clear()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        hbar_expected = 0.0
+        t0 = time.perf_counter()
+        for k in range(10):
+            st, ice, ipk, oforc = step24(st, ice, k, ipk)
+            hbar_expected = hbar_expected - m.cfg.dt * (
+                oforc.water_flux * area).sum() / area.sum()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launch = {k: kernels.LAUNCHES[k] for k in path24}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_sweeps = [int(x) for x in sweeps]
+        say(f"{label} 10 Icepack coupled steps on the level-7 globe: "
+            f"{wall:.3f} s, launches {launch}, BL99 sweeps a step "
+            f"{n_sweeps}, peak memory allocated {peak:.2f} GiB, "
+            f"{peak - base:.2f} GiB above the {base:.2f} held before the "
+            f"steps ({card})")
+        check_globe(label, m, st, launch, float(hbar_expected))
+        for name_, obj in (("ice", ice), ("ipk", ipk)):
+            for f in dataclasses.fields(obj):
+                v = getattr(obj, f.name)
+                if v is not None and not bool(torch.isfinite(v).all()):
+                    fail(f"{label}: {name_}.{f.name} is not finite")
+        asum = float(ipk.aicen.sum(0).max())
+        # the category sum of a float32 state is bounded by its rounding
+        a_lim = 1.0 + (1e-12 if dtype == torch.float64 else 2.0 ** -22)
+        say(f"{label} aicen in [{float(ipk.aicen.min()):.3e}, "
+            f"{float(ipk.aicen.max()):.6f}], category sum up to {asum!r}, "
+            f"min vicen {float(ipk.vicen.min()):.3e}, min vsnon "
+            f"{float(ipk.vsnon.min()):.3e}, ice area "
+            f"{float((ice.a_ice * area).sum()):.6e} m^2, volume "
+            f"{float((ice.m_ice * area).sum()):.6e} m^3, max|u_ice| "
+            f"{float(ice.u_ice.abs().max()):.4f} m/s")
+        if not (float(ipk.aicen.min()) >= 0.0 and float(ipk.aicen.max())
+                <= 1.0 and asum <= a_lim and float(ipk.vicen.min()) >= 0.0
+                and float(ipk.vsnon.min()) >= 0.0):
+            fail(f"{label}: aicen, its category sum, vicen or vsnon out of "
+                 f"range")
+        if not float(ice.a_ice.max()) > 0.5:
+            fail(f"{label}: no node with a_ice > 0.5")
+        want = {"bl99_temperature_solve": 10, "itd_remap": 20,
+                "mevp_subcycles": 10}
+        bad = {k: launch[k] for k, v in want.items() if launch[k] != v}
+        if bad:
+            fail(f"{label}: launches in 10 steps {bad}, expected {want}")
+        if dtype == torch.float64:
+            for k in icepack_kernels:
+                path_launches[k] = launch[k]
+        # coupled steps a second: 10 steps after these 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, ice, ipk = run_pi(m, gatm[dtype], st, ice, 10, first_step=10,
+                              ipk=ipk)
+        torch.cuda.synchronize()
+        rate = 10 / (time.perf_counter() - t0)
+        say(f"{label} throughput: {rate:.3f} Icepack coupled steps/s "
+            f"(phase 12's CI step: {ci_rates.get(tag, 0.0):.3f}; {card})")
+        # a 3-step profile: device and host ms a step per span
+        dev_sp, host_sp, cnt_sp = {}, {}, {}
+        kernels.reset_launches()
+        profile_steps(label, m, st, 3, card,
+                      run=lambda m_, st_, k, a=gatm[dtype], i=ice, p=ipk:
+                      run_pi(m_, a, st_, i, k, first_step=20, ipk=p),
+                      also=("bl99", "itd_remap", "mevp"), spans=dev_sp,
+                      host_spans=host_sp, span_counts=cnt_sp)
+        prof_launch = {k: kernels.LAUNCHES[k] / 3 for k in path24}
+        if prof_launch["bl99_temperature_solve"] != 1 \
+                or prof_launch["itd_remap"] != 2:
+            fail(f"{label}: in the profiled steps {prof_launch}")
+        spans = {k: {"device_ms": dev_sp.get(k), "host_ms": host_sp.get(k),
+                     "kernels": cnt_sp.get(k)}
+                 for k in sorted(set(dev_sp) | set(host_sp))
+                 if k.startswith("step.icepack")}
+        for k, v in spans.items():
+            say(f"{label} {k}: device {us_text(v['device_ms'])} ms, host "
+                f"{us_text(v['host_ms'])} ms, {v['kernels']} kernels a step")
+        span_ms.setdefault("icepack", {})[tag] = dev_sp
+        icepack_report[tag] = dict(
+            coupled_steps_per_s=rate, ci_coupled_steps_per_s=ci_rates.get(tag),
+            sweeps_a_step=n_sweeps, launches_10_steps=launch,
+            launches_per_profiled_step=prof_launch, peak_memory_gib=peak,
+            memory_before_gib=base,
+            icepack_spans=spans, aicen_category_sum_max=asum)
+    icepack_driver._KERNELS["temperature_solve"] = solve
+
+    # phase 25 -----------------------------------------------------------
+    say(f"phase 25 starts at {time.perf_counter() - t_start:.1f} s")
+    # card against CPU on the level-3 globe, 3 float64 Icepack coupled
+    # steps each (4 with ice_ave_steps = 2): every field of the ocean, the
+    # ice and the IcepackState within 1e-8 of max|CPU|, no kernel on the
+    # CPU path
+    cases25 = (("default", {}, {}),
+               ("ponds + age + FY + lvl", dict(tr_pond_cesm=True,
+                                               tr_iage=True, tr_FY=True,
+                                               tr_lvl=True), {}),
+               ("dEdd", dict(shortwave="dEdd"), {}),
+               ("fsd", dict(tr_fsd=True), {}),
+               ("bgc", dict(tr_bgc=True), {}),
+               ("ice_ave_steps = 2", {}, dict(ice_ave_steps=2)))
+    t25 = time.perf_counter()
+    for label, opts, ice_knobs in cases25:
+        cfg = port_model.pi_config()
+        for k, v in ice_knobs.items():
+            setattr(cfg.ice, k, v)
+        cfg.run.use_icepack = True
+        cfg.icepack = IcepackConfig(**opts)
+        n = 4 if ice_knobs else 3
+        kernels.reset_launches()
+        outs = []
+        for i, d in enumerate((dev, "cpu")):
+            m, a = setup_pi_model(small, device=d, cfg=copy.deepcopy(cfg))
+            s_, i_, p_ = icepack_start(m)
+            outs.append(run_pi(m, a, s_, i_, n, ipk=p_))
+            if i == 0:
+                n_card = sum(kernels.LAUNCHES.values())
+                n24 = {k: kernels.LAUNCHES[k] for k in icepack_kernels}
+        if n_card <= 0 or sum(kernels.LAUNCHES.values()) != n_card \
+                or min(n24.values()) <= 0:
+            fail(f"phase 25: {label}: the card's path launched no Icepack "
+                 f"kernel, or the CPU path launched one")
+        (s_gpu, i_gpu, p_gpu), (s_cpu, i_cpu, p_cpu) = outs
+        pairs = [(s_gpu, s_cpu, ("u", "v", "eta", "hbar", "tr", "w",
+                                 "hnode", "Kv", "Av")),
+                 (i_gpu, i_cpu, ice_names),
+                 (p_gpu, p_cpu, tuple(f.name for f in dataclasses.fields(
+                     p_cpu) if getattr(p_cpu, f.name) is not None
+                     and getattr(p_cpu, f.name).numel()))]
+        worst = 0.0
+        for obj_gpu, obj_cpu, names in pairs:
+            for name in names:
+                ref = getattr(obj_cpu, name)
+                rel = max_abs(getattr(obj_gpu, name).cpu(), ref) \
+                    / max(float(ref.abs().max()), 1e-300)
+                if not rel <= 1e-8:
+                    fail(f"phase 25: {label} {name} card vs CPU {rel:.3e} "
+                         f"> 1e-8")
+                worst = max(worst, rel)
+        icepack_cpu[label] = worst
+        say(f"phase 25 {label}: worst field card vs cpu {worst:.3e} of "
+            f"max|cpu|; {n_card} kernel launches on the card ({n24})")
+    say(f"phase 25 {len(cases25)} cases in {time.perf_counter() - t25:.1f} s")
+
     # result -------------------------------------------------------------
     sources = {"node_edge_reduce": "fesom2_tpu/core/ops.py:154",
                "elem_to_node_mean": "fesom2_tpu/core/ops.py:328",
@@ -2938,7 +3246,10 @@ def main():
                "elem_contrib_to_nodes": "fesom2_tpu/core/ops.py:283",
                "mevp_subcycles": "fesom2_tpu/ice/evp.py:83",
                "evp_subcycles": "fesom2_tpu/ice/evp.py:192",
-               "aevp_subcycles": "fesom2_tpu/ice/evp.py:305"}
+               "aevp_subcycles": "fesom2_tpu/ice/evp.py:305",
+               "bl99_temperature_solve":
+                   "fesom2_tpu/ice/icepack/thermo_vertical.py:142",
+               "itd_remap": "fesom2_tpu/ice/icepack/itd.py:167"}
     # tridiag_solve's four calls a coupled step priced at phase 3's times
     # of their shapes (momentum on elements, gm_redi's nl rows, the tracers'
     # two solves), beside the profile's time
@@ -2981,7 +3292,9 @@ def main():
                     "slice_menus_card_vs_cpu": slice_report,
                     "evp_variants": rheo_report,
                     "forcing_from_files": files_report,
-                    "slice14_card_vs_cpu": rheo_cpu}))
+                    "slice14_card_vs_cpu": rheo_cpu,
+                    "icepack": {"bl99": bl99_report, "steps": icepack_report,
+                                "card_vs_cpu": icepack_cpu}}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "fesom2_tpu_torch/csrc/"

@@ -7,7 +7,9 @@ port's dataclasses of tensors.
 
 The ice state, the ice forcing, an atmosphere and the ice subdomain cross
 the same way (``ice_state_from_numpy``, ``ice_forcing_from_numpy``,
-``atm_from_numpy``, ``ice_subdomain_from_numpy``).
+``atm_from_numpy``, ``ice_subdomain_from_numpy``), and so does Icepack's
+state (``icepack_state_from_numpy``); ``icepack_config_from`` builds the
+port's IcepackConfig from the fields of the JAX package's.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from .core.state import OceanState, Forcing
 from .forcing.atmos import AtmData
+from .ice.icepack.state import IcepackConfig, IcepackState
 from .ice.state import IceForcing, IceState
 from .ice.subdomain import IceSubdomain
 from .mesh import MeshTables
@@ -79,6 +82,22 @@ def ice_subdomain_from_numpy(arrays: dict, device,
                            int(arrays["n_elems"]))
     return _from_numpy(IceSubdomain, {**arrays, "elem_slot": slot}, device,
                        dtype)
+
+
+def icepack_state_from_numpy(arrays: dict, device,
+                             dtype=torch.float64) -> IcepackState:
+    """IcepackState from {field name: array or None} (the aux stacks ta,
+    tv are None without aux tracers)."""
+    return _from_numpy(IcepackState, arrays, device, dtype)
+
+
+def icepack_config_from(obj) -> IcepackConfig:
+    """The port's IcepackConfig with the init fields of ``obj`` (the JAX
+    package's ``IcepackConfig``, or any object with those attributes); the
+    derived layout (bounds, aux-tracer stacks) is computed anew."""
+    return IcepackConfig(**{f.name: getattr(obj, f.name)
+                            for f in dataclasses.fields(IcepackConfig)
+                            if f.init})
 
 
 def mesh_from_numpy(arrays: dict, device, dtype=torch.float64) -> MeshTables:

@@ -22,7 +22,12 @@ tensor goes through the kernel or the call raises.  Adaptive EVP then
 refreshes its per-element alpha and per-node beta from the converged
 velocities (``aevp_refresh``, plain torch, once a step).
 
-The icepack strength field is not ported: ``ice_dynamics`` raises for it.
+With Icepack the strength of its ridging closure (``ridge.ice_strength``,
+a field on the nodes) replaces mEVP's Hibler P* closure: the element
+pressure is the node mean of the strength (``mevp_setup``'s
+``strength_node``, ``fesom2_tpu/ice/evp.py:67-70``); standard and adaptive
+EVP drop the field, as the JAX package's ``evp_dynamics`` and
+``aevp_dynamics`` do.
 """
 from __future__ import annotations
 
@@ -71,11 +76,14 @@ def _scratch(dt, device, n_elems):
 
 
 def mevp_setup(ice: IceState, mesh, forcing: IceForcing,
-               ocean: OceanSurface, cfg) -> MevpTables:
+               ocean: OceanSurface, cfg, strength_node=None) -> MevpTables:
     """The per-step precomputes of mEVP (``fesom2_tpu/ice/evp.py:33-81``):
     the elevation rhs, the node masses and thickness factors, the element
     pressure factor; ``mesh`` is the mesh or the ice subdomain, and the
-    fields of ``ice``, ``forcing`` and ``ocean`` are numbered as it is."""
+    fields of ``ice``, ``forcing`` and ``ocean`` are numbered as it is.
+    ``strength_node`` [N] (Icepack's ice strength) makes the element
+    pressure the mean of its three nodes' strengths in place of the Hibler
+    P* closure (ref ice_maEVP.F90:97-98, the __icepack branch)."""
     icfg = cfg.ice
     ice_dt = cfg.dt * icfg.ice_ave_steps
     alpha = icfg.alpha_evp
@@ -112,7 +120,10 @@ def mevp_setup(ice: IceState, mesh, forcing: IceForcing,
     msum = ice.m_ice[en].mean(-1)
     asum = ice.a_ice[en].mean(-1)
     has_ice_e = msum > 0.01
-    p_e = icfg.Pstar * msum * torch.exp(-icfg.c_pressure * (1.0 - asum))
+    if strength_node is not None:
+        p_e = strength_node[en].mean(-1)
+    else:
+        p_e = icfg.Pstar * msum * torch.exp(-icfg.c_pressure * (1.0 - asum))
     pressure_fac = torch.where(has_ice_e, det2 * p_e, 0.0)
     ice_area = torch.where(has_ice_e, mesh.elem_area, 0.0)
 
@@ -332,10 +343,12 @@ def mevp_barrier_floor(device, dtype, n_nodes: int, n_elems: int,
 
 
 def mevp_dynamics(ice: IceState, mesh, forcing: IceForcing,
-                  ocean: OceanSurface, cfg) -> IceState:
+                  ocean: OceanSurface, cfg, strength_node=None) -> IceState:
     """``cfg.ice.evp_rheol_steps`` subcycles from the state's velocities
-    and stresses; ``mesh`` is the mesh or the ice subdomain."""
-    tab = mevp_setup(ice, mesh, forcing, ocean, cfg)
+    and stresses; ``mesh`` is the mesh or the ice subdomain;
+    ``strength_node``: Icepack's strength field (``mevp_setup``)."""
+    tab = mevp_setup(ice, mesh, forcing, ocean, cfg,
+                     strength_node=strength_node)
     uv = torch.stack([ice.u_ice, ice.v_ice])
     sig = torch.stack([ice.sigma11, ice.sigma12, ice.sigma22])
     uv, sig = mevp_subcycles(uv, sig, tab, mesh, cfg.ice.evp_rheol_steps)
@@ -763,14 +776,22 @@ def ice_dynamics(ice: IceState, mesh, forcing: IceForcing,
                  sub=None) -> IceState:
     """Dispatch on whichEVP (ref ice_setup_step.F90:195-208): 0 standard,
     2 adaptive, any other value modified EVP, as in the JAX package.
-    ``sub`` (IceSubdomain) restricts the subcycle loop to the polar caps,
-    exact while all ice stays inside (ice/subdomain.py)."""
-    if strength_node is not None:
-        raise NotImplementedError("the icepack strength field is not ported "
-                                  "yet (ROADMAP queue 1 item 18)")
+    ``strength_node`` (Icepack builds): the node strength mEVP takes in
+    place of the P* closure; standard and adaptive EVP drop it, as the JAX
+    package does.  ``sub`` (IceSubdomain) restricts the subcycle loop to
+    the polar caps, exact while all ice stays inside (ice/subdomain.py)."""
     if sub is not None:
-        return ice_dynamics_sub(ice, mesh, sub, forcing, ocean, cfg)
-    return dynamics_of(cfg)(ice, mesh, forcing, ocean, cfg)
+        return ice_dynamics_sub(ice, mesh, sub, forcing, ocean, cfg,
+                                strength_node=strength_node)
+    return _dynamics(cfg, ice, mesh, forcing, ocean, strength_node)
+
+
+def _dynamics(cfg, ice, mesh, forcing, ocean, strength_node):
+    """The rheology of ``cfg``, with the strength field under mEVP."""
+    fn = dynamics_of(cfg)
+    if fn is mevp_dynamics and strength_node is not None:
+        return fn(ice, mesh, forcing, ocean, cfg, strength_node=strength_node)
+    return fn(ice, mesh, forcing, ocean, cfg)
 
 
 def subdomain_inputs(ice: IceState, sub, forcing: IceForcing,
@@ -802,7 +823,7 @@ def subdomain_inputs(ice: IceState, sub, forcing: IceForcing,
 
 
 def ice_dynamics_sub(ice: IceState, mesh, sub, forcing: IceForcing,
-                     ocean: OceanSurface, cfg) -> IceState:
+                     ocean: OceanSurface, cfg, strength_node=None) -> IceState:
     """The dynamics on the ice subdomain: the packed gather in, the
     unchanged functions on the restricted tables (adaptive EVP's refresh
     on the subdomain's ``nod_in_elem``, so a cap-edge node's beta is the
@@ -814,7 +835,8 @@ def ice_dynamics_sub(ice: IceState, mesh, sub, forcing: IceForcing,
     aevp = cfg.ice.whichEVP == 2
     ice_l, forcing_l, ocean_l = subdomain_inputs(ice, sub, forcing, ocean,
                                                  aevp)
-    out = dynamics_of(cfg)(ice_l, sub, forcing_l, ocean_l, cfg)
+    sn_l = None if strength_node is None else strength_node[gn]
+    out = _dynamics(cfg, ice_l, sub, forcing_l, ocean_l, sn_l)
 
     uv = torch.stack([ice.u_ice, ice.v_ice])
     uv[:, gn] = torch.stack([out.u_ice, out.v_ice])

@@ -1,0 +1,427 @@
+"""Ice-thickness-distribution machinery: category bounds, aggregation,
+linear remapping (Lipscomb 2001), rebinning and small-ice cleanup.
+
+The port of ``fesom2_tpu/ice/icepack/itd.py``.  Reference behavior: the
+icepack_itd module of the Icepack library, driven from
+``src/icepack_drivers/icedrv_step.F90`` (step_therm2 :296-384, update_state
+:391-477) with kitd=1, kcatbound=1 (``config/namelist.icepack:27,42``).
+
+``linear_itd`` and ``rebin`` are the plain versions of the hand-written
+kernel ``itd_remap`` (``csrc/itd_remap.cu``): one thread a node walks the
+categories of a packed state [ncat, rows, N] (``pack_itd`` /
+``unpack_itd``); ``itd_remap`` runs the remap and the rebin after the
+thermodynamics (``linear=True``) or the rebin alone after ridging.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ... import kernels
+from .constants import puny, ice_ref_salinity, rhoi, rhos
+
+
+# --------------------------------------------------------------------------
+# category boundaries
+# --------------------------------------------------------------------------
+def category_bounds(ncat: int, kcatbound: int = 1) -> np.ndarray:
+    """hin_max[0..ncat]: thickness boundaries [m].
+
+    kcatbound=1 ("new" round-number scheme, the reference default,
+    namelist.icepack:27): increments grow linearly, d_n = (3 + (n-1))/ncat,
+    giving 0, 0.6, 1.4, 2.4, 3.6 m for ncat=5.  kcatbound=0 is the original
+    tanh formula. The top boundary is open (huge)."""
+    b = np.zeros(ncat + 1)
+    if kcatbound == 0:
+        cc1 = 3.0 / ncat
+        cc2 = 15.0 * cc1
+        cc3 = 3.0
+        for n in range(1, ncat + 1):
+            x1 = (n - 1) / ncat
+            b[n] = b[n - 1] + cc1 + cc2 * (1.0 + np.tanh(cc3 * (x1 - 1.0)))
+    elif kcatbound == 1:
+        cc1 = 3.0 / ncat
+        cc2 = 1.0 / ncat
+        for n in range(1, ncat + 1):
+            b[n] = n * cc1 + cc2 * n * (n - 1) / 2.0
+    else:
+        raise ValueError(f"kcatbound={kcatbound} not supported")
+    b[ncat] = 999.9
+    return b
+
+
+# --------------------------------------------------------------------------
+# aggregation
+# --------------------------------------------------------------------------
+def aggregate(aicen, vicen, vsnon):
+    """Sum over categories -> (aice, vice, vsno), aice clipped to [0,1]."""
+    aice = torch.clamp(aicen.sum(0), 0.0, 1.0)
+    return aice, vicen.sum(0), vsnon.sum(0)
+
+
+def aggregate_tsfc(aicen, Tsfcn):
+    """Area-weighted mean surface temperature (0 where no ice)."""
+    a = aicen.sum(0)
+    return torch.where(a > puny,
+                       (aicen * Tsfcn).sum(0) / torch.clamp_min(a, puny), 0.0)
+
+
+# --------------------------------------------------------------------------
+# helpers
+# --------------------------------------------------------------------------
+def _mix(dst, w_dst, src, dw):
+    """Conservative mix of an intensive quantity when dw of weight moves
+    from src into a pool of weight w_dst."""
+    wt = w_dst + dw
+    return torch.where(wt > puny,
+                       (dst * w_dst + src * dw) / torch.clamp_min(wt, puny),
+                       dst)
+
+
+def _transfer(state_n, state_m, da, dv):
+    """Move (da area, dv ice volume) from category tuple state_n into
+    state_m.  Area-based tracers (Tsfc, snow volume+energy, ta) move with
+    fa=da/a; ice-volume tracers (ice energy, tv) move with fv=dv/v.
+    Returns updated tuples.
+
+    state_* = (a, v, vs, Tsf, qin[nilyr,N], qsn[nslyr,N],
+               ta[Ka,N], tv[Kv,N]) — ta/tv may be zero-size."""
+    a_n, v_n, vs_n, t_n, qi_n, qs_n, ta_n, tv_n = state_n
+    a_m, v_m, vs_m, t_m, qi_m, qs_m, ta_m, tv_m = state_m
+
+    da = torch.minimum(torch.clamp_min(da, 0.0), a_n * (1.0 - puny))
+    dv = torch.minimum(torch.clamp_min(dv, 0.0), v_n * (1.0 - puny))
+    # degenerate guards: only move when donor has substance
+    ok = (a_n > puny) & (v_n > puny)
+    da = torch.where(ok, da, 0.0)
+    dv = torch.where(ok, dv, 0.0)
+
+    fa = da / torch.clamp_min(a_n, puny)
+    dvs = vs_n * fa
+
+    t_m2 = _mix(t_m, a_m, t_n, da)
+    qi_m2 = _mix(qi_m, v_m[None], qi_n, dv[None])
+    qs_m2 = _mix(qs_m, vs_m[None], qs_n, dvs[None])
+    ta_m2 = _mix(ta_m, a_m[None], ta_n, da[None])
+    tv_m2 = _mix(tv_m, v_m[None], tv_n, dv[None])
+
+    new_n = (a_n - da, v_n - dv, vs_n - dvs, t_n, qi_n, qs_n, ta_n, tv_n)
+    new_m = (a_m + da, v_m + dv, vs_m + dvs, t_m2, qi_m2, qs_m2,
+             ta_m2, tv_m2)
+    return new_n, new_m
+
+
+def _aux_or_empty(ta, tv, like):
+    """Default zero-size aux stacks shaped [ncat, 0, N]."""
+    ncat, N = like.shape
+    if ta is None:
+        ta = like.new_zeros((ncat, 0, N))
+    if tv is None:
+        tv = like.new_zeros((ncat, 0, N))
+    return ta, tv
+
+
+def _unpack(aicen, vicen, vsnon, Tsfcn, qin, qsn, ta, tv, n):
+    return (aicen[n], vicen[n], vsnon[n], Tsfcn[n], qin[n], qsn[n],
+            ta[n], tv[n])
+
+
+def _pack(cats):
+    """cats: list of per-category tuples -> stacked arrays."""
+    return tuple(torch.stack([c[k] for c in cats]) for k in range(8))
+
+
+def _bounds(hin_max, like):
+    """hin_max as 0-d tensors of ``like``'s dtype: the boundaries round to
+    the working type before any arithmetic, as the JAX package's
+    ``jnp.asarray(hin_max[n], dtype)`` does."""
+    return [torch.tensor(float(h), dtype=like.dtype, device=like.device)
+            for h in hin_max]
+
+
+# --------------------------------------------------------------------------
+# linear remapping (Lipscomb 2001) — kitd=1
+# --------------------------------------------------------------------------
+# a third, as a product: torch divides by a Python number on the CPU but
+# multiplies by its reciprocal on CUDA, so ``x / 3.0`` would round apart on
+# the two; ``x * THIRD`` rounds alike on both and in ``itd_remap``
+THIRD = 1.0 / 3.0
+
+
+def _fit_line(a, hice, hL, hR):
+    """Fit g(h) = g0 + g1*(h-hL) on [hL,hR] with integral a and mean hice,
+    adjusting the support to keep g >= 0 (Lipscomb 2001 eq. 14-16)."""
+    # shrink support where the mean is in the outer thirds
+    eta = hice - hL
+    w = hR - hL
+    hR = torch.where(eta < w * THIRD, hL + 3.0 * eta, hR)
+    hL = torch.where(eta > 2.0 * w * THIRD, hR - 3.0 * (hR - hice), hL)
+    w = hR - hL
+    eta = hice - hL
+    ok = (a > puny) & (w > puny)
+    ws = torch.clamp_min(w, puny)
+    g0 = torch.where(ok, (a / ws) * (4.0 - 6.0 * eta / ws), 0.0)
+    g1 = torch.where(ok, (6.0 * a / ws ** 2) * (2.0 * eta / ws - 1.0), 0.0)
+    return g0, g1, hL, hR
+
+
+def _integrate_g(g0, g1, hL, hR, x0, x1):
+    """(area, volume) integrals of g over [x0,x1] clipped to [hL,hR];
+    eta coordinates are relative to hL."""
+    e0 = torch.minimum(torch.maximum(x0, hL), hR) - hL
+    e1 = torch.minimum(torch.maximum(x1, hL), hR) - hL
+    e1 = torch.maximum(e1, e0)
+    da = g0 * (e1 - e0) + 0.5 * g1 * (e1 ** 2 - e0 ** 2)
+    dv = hL * da + 0.5 * g0 * (e1 ** 2 - e0 ** 2) \
+        + g1 * (e1 ** 3 - e0 ** 3) * THIRD
+    da = torch.clamp_min(da, 0.0)
+    dv = torch.clamp_min(dv, 0.0)
+    return da, dv
+
+
+def _thick(a, v):
+    return torch.where(a > puny, v / torch.clamp_min(a, puny), 0.0)
+
+
+def linear_itd(aicen_init, vicen_init, aicen, vicen, vsnon, Tsfcn, qin, qsn,
+               hin_max, ta=None, tv=None):
+    """Linear remapping of the thickness distribution after thermodynamic
+    growth/melt (kitd=1).  *_init are pre-thermo values; the remap moves
+    ice across category boundaries displaced with the growth field.
+
+    Returns updated (aicen, vicen, vsnon, Tsfcn, qin, qsn[, ta, tv]) —
+    the aux stacks are returned iff one was passed."""
+    had_aux = ta is not None or tv is not None
+    ta, tv = _aux_or_empty(ta, tv, aicen)
+    ncat = aicen.shape[0]
+    hb = _bounds(hin_max, aicen)
+
+    h_init = [_thick(aicen_init[n], vicen_init[n]) for n in range(ncat)]
+    h_now = [_thick(aicen[n], vicen[n]) for n in range(ncat)]
+    dh = [torch.where((aicen_init[n] > puny) & (aicen[n] > puny),
+                      h_now[n] - h_init[n], 0.0) for n in range(ncat)]
+
+    # --- displaced boundaries (Lipscomb 2001 eq. 21-22) -------------------
+    hbnew = [None] * (ncat + 1)
+    hbnew[0] = torch.zeros_like(aicen[0])
+    hbnew[ncat] = torch.full_like(aicen[0], float(hin_max[ncat]))
+    for n in range(1, ncat):
+        lo, hi = n - 1, n
+        has_lo = aicen_init[lo] > puny
+        has_hi = aicen_init[hi] > puny
+        dspan = h_init[hi] - h_init[lo]
+        big = dspan.abs() > puny
+        slope = torch.where(big, (dh[hi] - dh[lo])
+                            / torch.where(big, dspan, 1.0), 0.0)
+        disp_both = dh[lo] + slope * (hb[n] - h_init[lo])
+        disp = torch.where(has_lo & has_hi, disp_both,
+                           torch.where(has_lo, dh[lo],
+                                       torch.where(has_hi, dh[hi], 0.0)))
+        # boundaries must stay ordered between the neighboring fixed bounds
+        hbnew[n] = torch.minimum(
+            torch.maximum(hb[n] + disp, hb[n - 1] * (1.0 + puny) + puny),
+            hb[n + 1] * (1.0 - puny))
+
+    # --- fit g(h) in each category over the displaced support -------------
+    fits = [_fit_line(aicen[n], h_now[n], hbnew[n], hbnew[n + 1])
+            for n in range(ncat)]
+
+    # --- transfer across each fixed boundary -------------------------------
+    cats = [_unpack(aicen, vicen, vsnon, Tsfcn, qin, qsn, ta, tv, n)
+            for n in range(ncat)]
+    for n in range(1, ncat):
+        bnd = hb[n]
+        moved_up = hbnew[n] > bnd          # ice grew past the boundary
+        # donor when moving up is category n-1 (index lo), integrating
+        # its g over [bnd, hbnew]; when moving down the donor is n.
+        da_up, dv_up = _integrate_g(*fits[n - 1], bnd, hbnew[n])
+        da_dn, dv_dn = _integrate_g(*fits[n], hbnew[n], bnd)
+
+        da_up = torch.where(moved_up, da_up, 0.0)
+        dv_up = torch.where(moved_up, dv_up, 0.0)
+        da_dn = torch.where(moved_up, 0.0, da_dn)
+        dv_dn = torch.where(moved_up, 0.0, dv_dn)
+
+        cats[n - 1], cats[n] = _transfer(cats[n - 1], cats[n], da_up, dv_up)
+        cats[n], cats[n - 1] = _transfer(cats[n], cats[n - 1], da_dn, dv_dn)
+
+    out = _pack(cats)
+    return out if had_aux else out[:6]
+
+
+# --------------------------------------------------------------------------
+# rebin — shift whole categories whose mean thickness escaped their bounds
+# --------------------------------------------------------------------------
+def rebin(aicen, vicen, vsnon, Tsfcn, qin, qsn, hin_max, ta=None, tv=None):
+    """Restore hin_max(n-1) <= vicen/aicen <= hin_max(n) by moving entire
+    category contents to the neighbor (used after ridging and as the
+    kitd=0 'delta-function' ITD)."""
+    had_aux = ta is not None or tv is not None
+    ta, tv = _aux_or_empty(ta, tv, aicen)
+    ncat = aicen.shape[0]
+    hb = _bounds(hin_max, aicen)
+    cats = [_unpack(aicen, vicen, vsnon, Tsfcn, qin, qsn, ta, tv, n)
+            for n in range(ncat)]
+
+    def hicen(c):
+        return _thick(c[0], c[1])
+
+    for n in range(ncat - 1):          # shift up
+        move = hicen(cats[n]) > hb[n + 1]
+        da = torch.where(move, cats[n][0], 0.0)
+        dv = torch.where(move, cats[n][1], 0.0)
+        cats[n], cats[n + 1] = _transfer(cats[n], cats[n + 1], da, dv)
+    for n in range(ncat - 1, 0, -1):   # shift down
+        move = hicen(cats[n]) < hb[n]
+        da = torch.where(move, cats[n][0], 0.0)
+        dv = torch.where(move, cats[n][1], 0.0)
+        cats[n], cats[n - 1] = _transfer(cats[n], cats[n - 1], da, dv)
+    out = _pack(cats)
+    return out if had_aux else out[:6]
+
+
+# --------------------------------------------------------------------------
+# the packed category state and the remap kernel
+# --------------------------------------------------------------------------
+def pack_itd(aicen, vicen, vsnon, Tsfcn, qin, qsn, ta, tv):
+    """The category state as one [ncat, 4 + nilyr + nslyr + Ka + Kv, N]
+    array, rows a, v, vs, Tsf, qin, qsn, ta, tv (``itd_remap``'s layout)."""
+    return torch.cat([torch.stack([aicen, vicen, vsnon, Tsfcn], 1), qin, qsn,
+                      ta, tv], 1).contiguous()
+
+
+def unpack_itd(pack, nilyr: int, nslyr: int, ka: int):
+    """The inverse of ``pack_itd``: (aicen, vicen, vsnon, Tsfcn, qin, qsn,
+    ta, tv), views of ``pack``."""
+    r = 4 + nilyr + nslyr
+    return (pack[:, 0], pack[:, 1], pack[:, 2], pack[:, 3],
+            pack[:, 4:4 + nilyr], pack[:, 4 + nilyr:r], pack[:, r:r + ka],
+            pack[:, r + ka:])
+
+
+def itd_remap_plain(pack, aicen_init, vicen_init, hin_max, nilyr: int,
+                    nslyr: int, ka: int, linear: bool):
+    """``linear_itd`` (when ``linear``) then ``rebin`` on the packed state:
+    a new pack."""
+    st = unpack_itd(pack, nilyr, nslyr, ka)
+    if linear:
+        st = linear_itd(aicen_init, vicen_init, *st[:6], hin_max, ta=st[6],
+                        tv=st[7])
+    st = rebin(*st[:6], hin_max, ta=st[6], tv=st[7])
+    return pack_itd(*st)
+
+
+def itd_remap_work(ncat: int, rows: int, n_nodes: int, itemsize: int,
+                   linear: bool) -> tuple:
+    """(bytes, flops) of one ``itd_remap`` call.  Bytes: the pack read once
+    and written once (and, for the remap, aicen_init and vicen_init read
+    once).  Flops a node: the rebin's 2 (ncat - 1) transfers, each about 20
+    operations and 6 a row it mixes; the remap adds about 60 a category
+    (thicknesses, fits) and 2 (ncat - 1) more transfers with their
+    integrals (about 50 each)."""
+    nbytes = (2 * ncat * rows + (2 * ncat if linear else 0)) * n_nodes \
+        * itemsize
+    transfer = 20 + 6 * (rows - 3)
+    flops = 2 * (ncat - 1) * transfer
+    if linear:
+        flops += 60 * ncat + 2 * (ncat - 1) * (transfer + 50)
+    return nbytes, flops * n_nodes
+
+
+_BOUNDS = {}
+
+
+def _bounds_on(hin_max, device) -> torch.Tensor:
+    """hin_max as a float64 tensor on ``device``, made once."""
+    key = (tuple(float(h) for h in hin_max), str(device))
+    if key not in _BOUNDS:
+        _BOUNDS[key] = torch.tensor(key[0], dtype=torch.float64,
+                                    device=device)
+    return _BOUNDS[key]
+
+
+def itd_remap(pack, aicen_init, vicen_init, hin_max, nilyr: int, nslyr: int,
+              ka: int, linear: bool):
+    """The remap (``linear``) and the rebin of the packed category state
+    [ncat, rows, N].  On CUDA tensors one launch of ``itd_remap`` updates
+    ``pack`` IN PLACE and returns it (``aicen_init``, ``vicen_init``
+    [ncat, N] are read only with ``linear``); on CPU tensors
+    ``itd_remap_plain`` returns a new pack."""
+    if pack.device.type == "cpu":
+        return itd_remap_plain(pack, aicen_init, vicen_init, hin_max, nilyr,
+                               nslyr, ka, linear)
+    kernels.cuda_only(pack, "itd_remap")
+    dev, dt = pack.device, pack.dtype
+    ncat, rows, N = pack.shape
+    if ncat > 8 or len(hin_max) != ncat + 1:
+        raise ValueError(f"itd_remap: {ncat} categories (at most 8) and "
+                         f"{len(hin_max)} bounds")
+    if rows - 4 - nilyr - nslyr - ka < 0:
+        raise ValueError(f"itd_remap: {rows} rows for nilyr {nilyr}, "
+                         f"nslyr {nslyr} and {ka} area tracers")
+    kernels.require(pack, "pack", (ncat, rows, N), dt, dev)
+    if linear:
+        kernels.require(aicen_init, "aicen_init", (ncat, N), dt, dev)
+        kernels.require(vicen_init, "vicen_init", (ncat, N), dt, dev)
+    kernels.launch("itd_remap", dev, pack,
+                   aicen_init if linear else None,
+                   vicen_init if linear else None, _bounds_on(hin_max, dev),
+                   ncat, rows, N, nilyr,
+                   nslyr, ka, int(linear), kernels.float_code(dt))
+    return pack
+
+
+# --------------------------------------------------------------------------
+# cleanup: zap tiny categories, bound total area
+# --------------------------------------------------------------------------
+def cleanup_itd(aicen, vicen, vsnon, Tsfcn, qin, qsn, dt, sss=None,
+                ta=None, tv=None):
+    """Zero categories with negligible area/volume, returning their water,
+    salt and (negative) heat to the ocean flux accumulators; rescale area
+    if the total exceeds 1 (cleanup_itd of icepack_itd).
+
+    Returns (arrays..., [ta, tv,] dfresh [kg/m^2/s], dfsalt [kg/m^2/s],
+    dfhocn [W/m^2]) — aux stacks appear iff one was passed."""
+    had_aux = ta is not None or tv is not None
+    nilyr = qin.shape[1]
+    nslyr = qsn.shape[1]
+    zap = (aicen <= puny) | (vicen <= puny)
+
+    # energy content of zapped ice/snow (J/m^2, negative)
+    ei = (qin * (vicen / nilyr)[:, None, :]).sum(1)       # [ncat, N]
+    es = (qsn * (vsnon / nslyr)[:, None, :]).sum(1)
+    dfhocn = torch.where(zap, ei + es, 0.0).sum(0) / dt
+    dfresh = torch.where(zap, rhoi * vicen + rhos * vsnon, 0.0).sum(0) / dt
+    dfsalt = torch.where(zap, rhoi * vicen * ice_ref_salinity * 1e-3,
+                         0.0).sum(0) / dt
+
+    keep = ~zap
+    aicen = torch.where(keep, aicen, 0.0)
+    vicen = torch.where(keep, vicen, 0.0)
+    vsnon = torch.where(keep, vsnon, 0.0)
+    Tsfcn = torch.where(keep, Tsfcn, 0.0)
+    qin = torch.where(keep[:, None, :], qin, 0.0)
+    qsn = torch.where(keep[:, None, :], qsn, 0.0)
+    if had_aux:
+        ta, tv = _aux_or_empty(ta, tv, aicen)
+        ta = torch.where(keep[:, None, :], ta, 0.0)
+        tv = torch.where(keep[:, None, :], tv, 0.0)
+
+    # bound the total area at 1 by proportional reduction (thickness kept:
+    # volume reduced with area, meltwater returned to the ocean)
+    aice = aicen.sum(0)
+    scale = torch.where(aice > 1.0, 1.0 / torch.clamp_min(aice, puny), 1.0)
+    da_fac = 1.0 - scale
+    dfresh = dfresh + (rhoi * vicen + rhos * vsnon).sum(0) * da_fac / dt
+    dfsalt = dfsalt + (rhoi * vicen).sum(0) * da_fac \
+        * ice_ref_salinity * 1e-3 / dt
+    dfhocn = dfhocn + (ei + es).sum(0) * da_fac / dt
+    aicen = aicen * scale
+    vicen = vicen * scale
+    vsnon = vsnon * scale
+    # aux tracers are intensive (per area / per volume): unchanged by the
+    # proportional area rescale
+    if had_aux:
+        return (aicen, vicen, vsnon, Tsfcn, qin, qsn, ta, tv,
+                dfresh, dfsalt, dfhocn)
+    return aicen, vicen, vsnon, Tsfcn, qin, qsn, dfresh, dfsalt, dfhocn

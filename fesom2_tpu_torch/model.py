@@ -28,9 +28,11 @@ FCT limiter, explicit vertical viscosity and diffusion, passive tracers
 (``setup_passive_tracers``) and the salt plume.  A toy channel of
 another name than soufflet runs without the soufflet physics, as in the
 JAX package.  The ice runs any of the three EVP rheologies (``whichEVP``
-0, 1, 2); the forcing and the initial state come from files where a
-``forcing_path`` is given (the NCEP test set or the ``&nam_sbc`` layout,
-and the WOA18 climatology), else they are built in code; the tidal
+0, 1, 2), or, with ``cfg.run.use_icepack``, the multi-category Icepack
+column physics (``ice/icepack``; its mEVP on the whole mesh); the forcing
+and the initial state come from files where a ``forcing_path`` is given
+(the NCEP test set or the ``&nam_sbc`` layout, and the WOA18
+climatology), else they are built in code; the tidal
 potential, the sea-level pressure term and the relaxation to climatology
 run where the configuration asks for them.  Configuration branches outside
 the port raise NotImplementedError naming the ROADMAP item that will port
@@ -91,8 +93,6 @@ def check_slice(cfg: ModelConfig) -> None:
     does not have yet, naming its ROADMAP item; ValueError for a name the
     JAX package does not know either."""
     missing = []
-    if cfg.run.use_icepack:
-        missing.append("Icepack (item 18)")
     if cfg.ale.which_ALE not in ("linfs", "zlevel", "zstar"):
         raise ValueError(f"which_ALE='{cfg.ale.which_ALE}': linfs, zlevel "
                          "or zstar")
@@ -665,21 +665,38 @@ def coupled_step_impl(model: Model, ice_update: bool = True):
     3-equation melt fluxes replace the heat and water fluxes at cavity
     nodes (no virtual, relaxation or real salt flux there) and no
     shortwave reaches the ocean through the shelf; the span
-    ``step.cavity`` holds this work.  The Icepack branch is not ported
-    (``check_slice``).
+    ``step.cavity`` holds this work.
 
-    Returns impl(state, ice, ocean_forcing, ice_forcing) -> (state, ice,
-    ocean_forcing)."""
+    With ``cfg.run.use_icepack`` the ice step is the multi-category Icepack
+    column physics (``ice/icepack``, ``cfg.icepack`` an IcepackConfig; ref
+    icedrv hook at ice_setup_step.F90:188-189), its EVP on the whole mesh,
+    and the impl takes and returns the IcepackState.
+
+    Returns impl(state, ice, ocean_forcing, ice_forcing[, ipk, yday]) ->
+    (state, ice[, ipk], ocean_forcing)."""
     cfg = model.cfg
     check_slice(cfg)
     use_virt_salt = cfg.ale.which_ALE == "linfs"
     use_cavity = cfg.run.use_cavity
+    use_icepack = cfg.run.use_icepack
+    if use_icepack:
+        from .ice.icepack import IcepackConfig, icepack_timestep
+        if not isinstance(cfg.icepack, IcepackConfig):
+            raise ValueError("cfg.run.use_icepack needs cfg.icepack, an "
+                             "ice.icepack.IcepackConfig")
 
     def step_impl(state: OceanState, ice: IceState, ocean_forcing: Forcing,
-                  ice_forcing: IceForcing):
+                  ice_forcing: IceForcing, ipk=None, yday=None):
         mesh = model.mesh
         surf = ice_cpl.ocean2ice(state, mesh)
-        if ice_update:
+        if not ice_update:
+            pass            # hold the ice state this step (sequential ice)
+        elif use_icepack:
+            ipk, ice = icepack_timestep(
+                ipk, ice, mesh, ice_forcing, surf, cfg, cfg.icepack,
+                use_virt_salt, ref_sss=cfg.tra.ref_sss,
+                ref_sss_local=cfg.tra.ref_sss_local, yday=yday)
+        else:
             ice = ice_timestep(ice, mesh, ice_forcing, surf, cfg,
                                use_virt_salt, ref_sss=cfg.tra.ref_sss,
                                ref_sss_local=cfg.tra.ref_sss_local,
@@ -736,38 +753,44 @@ def coupled_step_impl(model: Model, ice_update: bool = True):
                 ocean_forcing = replace(
                     ocean_forcing, heat_flux=ocean_forcing.heat_flux + dheat)
         state = model(state, ocean_forcing, sw_3d)
+        if use_icepack:
+            return state, ice, ipk, ocean_forcing
         return state, ice, ocean_forcing
 
     return step_impl
 
 
 def coupled_step_fn(model: Model):
-    """Public coupled step: step(state, ice, ocean_forcing, ice_forcing)
-    -> (state, ice, ocean_forcing), without gradients."""
+    """Public coupled step: step(state, ice, ocean_forcing, ice_forcing[,
+    ipk]) -> (state, ice[, ipk], ocean_forcing), without gradients (the
+    IcepackState with ``cfg.run.use_icepack``)."""
     return torch.no_grad()(coupled_step_impl(model))
 
 
 def pi_coupled_parts(model: Model, atm: AtmData, ice_update: bool = True):
     """The coupled step with its forcing update, and what it reads beside
-    the model: impl(state, ice, step_idx, SP) -> (state, ice,
+    the model: impl(state, ice, step_idx, SP[, ipk]) -> (state, ice[, ipk],
     ocean_forcing), with SP = {"atm", "base_ice_forcing",
     "base_oce_forcing", "tide_offset"} returned alongside.  Model time is
     step_idx * dt from the start of the forcing's time axes.  Under
     ``use_global_tides`` the ocean forcing carries the tidal potential of
     the step (``forcing/tides.py``; ``fesom2_tpu/model.py:964-1003``),
     counted in steps from 2000-01-01 from the start of
-    ``cfg.clock.yearnew``'s month of ``daynew``."""
+    ``cfg.clock.yearnew``'s month of ``daynew``.  Under
+    ``cfg.run.use_icepack`` the Icepack step gets the fractional day of
+    the year (its first-year-ice reset; ``fesom2_tpu/model.py:990-995``)."""
     cfg = model.cfg
     check_slice(cfg)
     coupled = coupled_step_impl(model, ice_update=ice_update)
     use_tides = cfg.run.use_global_tides
+    use_icepack = cfg.run.use_icepack
     tide_offset = None
     if use_tides:
         start_month = 1 + (cfg.clock.daynew - 1) // 31
         tide_offset = tides.foreph_offset(cfg.clock.yearnew, start_month,
                                           cfg.dt)
 
-    def step_impl(state: OceanState, ice: IceState, step_idx, SP):
+    def step_impl(state: OceanState, ice: IceState, step_idx, SP, ipk=None):
         mesh = model.mesh
         with record_function("step.forcing"):
             if isinstance(step_idx, torch.Tensor):
@@ -787,6 +810,11 @@ def pi_coupled_parts(model: Model, atm: AtmData, ice_update: bool = True):
                     SP["tide_offset"] + idx + 1.0, cfg.dt,
                     mesh.geo_coords[:, 0], mesh.geo_coords[:, 1])
                 oce_forcing = replace(oce_forcing, ssh_gp=ssh_gp)
+        if use_icepack:
+            # the fractional day of the year
+            yday = (cfg.clock.daynew - 1.0 + t_sec / 86400.0) % 365.0 + 1.0
+            return coupled(state, ice, oce_forcing, ice_forcing, ipk,
+                           yday=yday)
         return coupled(state, ice, oce_forcing, ice_forcing)
 
     SP = dict(atm=atm,
@@ -798,9 +826,10 @@ def pi_coupled_parts(model: Model, atm: AtmData, ice_update: bool = True):
 
 def pi_coupled_step_fn(model: Model, atm: AtmData):
     """Full coupled step with the atmospheric forcing updated on the
-    device: step(state, ice, step_idx) -> (state, ice, ocean_forcing),
-    without gradients; ``step_idx`` is an int (or a 0-d tensor when
-    ``ice_ave_steps`` is 1).
+    device: step(state, ice, step_idx[, ipk]) -> (state, ice[, ipk],
+    ocean_forcing), without gradients; ``step_idx`` is an int (or a 0-d
+    tensor when ``ice_ave_steps`` is 1); ``ipk`` and the returned
+    IcepackState with ``cfg.run.use_icepack``.
 
     With ``ice_ave_steps > 1`` (sequential ice, fvom_main.F90:231-239) the
     ice is stepped when (step_idx + 1) % ice_ave_steps == 0 and held
@@ -809,11 +838,15 @@ def pi_coupled_step_fn(model: Model, atm: AtmData):
     step_impl, SP = pi_coupled_parts(model, atm)
     step_hold = pi_coupled_parts(model, atm, ice_update=False)[0] \
         if ave > 1 else None
+    use_icepack = model.cfg.run.use_icepack
 
     @torch.no_grad()
-    def step(state: OceanState, ice: IceState, step_idx):
+    def step(state: OceanState, ice: IceState, step_idx, ipk=None):
         update = ave == 1 or (int(step_idx) + 1) % ave == 0
-        return (step_impl if update else step_hold)(state, ice, step_idx, SP)
+        impl = step_impl if update else step_hold
+        if use_icepack:
+            return impl(state, ice, step_idx, SP, ipk)
+        return impl(state, ice, step_idx, SP)
 
     return step
 

@@ -4,7 +4,7 @@
         [--f32] [--mesh DIR]
     python -m fesom2_tpu_torch.run pi --steps N --device cuda \\
         [--f32] [--level 7] [--seed 0] [--mesh DIR] [--parity ci|fast] \\
-        [--forcing DIR]
+        [--forcing DIR] [--icepack]
 
 The port of ``fesom2_tpu/run.py:run_soufflet`` and of the time loop of
 ``run_pi``.  ``--device`` defaults to cuda and raises where CUDA is
@@ -18,7 +18,11 @@ directory.  Output streams, restarts and ``mkrun`` are not ported yet
 ``run_pi`` takes coupled ocean + ice steps of the global configuration
 (``model.setup_pi_model``, ``model.pi_initial_state``,
 ``model.pi_coupled_step_fn``) and raises where ice shows up outside the
-EVP subdomain.  With forcing from files (``--forcing DIR``: the NCEP test
+EVP subdomain; with ``use_icepack`` (``run pi --icepack``) the ice is the
+multi-category Icepack column physics (``ice/icepack``), its EVP on the
+whole mesh, started from the initial ice by ``init_icepack_state``
+(``fesom2_tpu/run.py:71-78, 134-135``; its output streams are not
+ported).  With forcing from files (``--forcing DIR``: the NCEP test
 set and ``woa18_netcdf_5deg.nc`` in DIR) it switches the forcing year as
 ``fesom2_tpu/run.py:108-156`` does: the step index it hands the step
 counts from the start of the clock's year, and at a year's end the next
@@ -199,12 +203,21 @@ def run_pi_ocean(model: Model, state: OceanState, forcing: Forcing,
 
 def run_pi(model: Model, atm, state: OceanState, ice: IceState,
            n_steps: int, *, first_step: int = 0, logfile_outfreq: int = 10,
-           verbose: bool = False, timers: Optional[RunTimers] = None):
+           verbose: bool = False, timers: Optional[RunTimers] = None,
+           use_icepack: bool = False, icepack_opts: Optional[dict] = None,
+           ipk=None):
     """``n_steps`` coupled ocean + ice steps of the global configuration
     from step index ``first_step`` (model time ``first_step * dt``).
     Prints the step norms every ``logfile_outfreq`` steps when ``verbose``;
     raises where ice lies outside the EVP subdomain at such a step or at
     the end.  Returns (state, ice).
+
+    ``use_icepack`` switches the model to Icepack (``cfg.run.use_icepack``
+    and ``cfg.icepack = IcepackConfig(**icepack_opts)``, as
+    ``fesom2_tpu/run.py:71-78`` does; a model already so configured keeps
+    its IcepackConfig when ``icepack_opts`` is None) and returns (state,
+    ice, ipk); ``ipk`` continues a run, else ``init_icepack_state`` builds
+    it from ``ice``.  Its EVP runs on the whole mesh: no subdomain check.
 
     Where the forcing came from files (``model.sbc``), the clock starts on
     Jan 1 of ``cfg.clock.yearnew`` at step 0 and the step index counts from
@@ -214,6 +227,18 @@ def run_pi(model: Model, atm, state: OceanState, ice: IceState,
     thread by ``SbcProvider`` (evict the old year, get the new one,
     prefetch the one after), or the same series again under
     ``y_perpetual``."""
+    if use_icepack or model.cfg.run.use_icepack:
+        from .ice.icepack import IcepackConfig, init_icepack_state
+        cfg = model.cfg
+        if icepack_opts is not None or not isinstance(cfg.icepack,
+                                                      IcepackConfig):
+            cfg.icepack = IcepackConfig(**(icepack_opts or {}))
+        cfg.run.use_icepack = True
+        if ipk is None:
+            ipk = init_icepack_state(cfg.icepack, ice.a_ice, ice.m_ice,
+                                     ice.m_snow, ice.t_skin,
+                                     dtype=model.dtype)
+    icepack = model.cfg.run.use_icepack
     step = pi_coupled_step_fn(model, atm)
     mesh = model.mesh
     dev = mesh.zbar.device
@@ -231,15 +256,22 @@ def run_pi(model: Model, atm, state: OceanState, ice: IceState,
             provider = SbcProvider(mesh, sbc, model.dtype)
             provider._cache[clock.yearnew] = atm
             provider.prefetch(clock.yearnew + 1)
+    def take(state, ice, ipk, k):
+        if icepack:
+            state, ice, ipk, _ = step(state, ice, k, ipk)
+        else:
+            state, ice, _ = step(state, ice, k)
+        return state, ice, ipk
+
     for k in range(first_step, first_step + n_steps):
         if timers is None:
             # no host wait between steps: the host queues the next step's
             # forcing and ice while the card finishes the ocean's
-            state, ice, _ = step(state, ice, k - k_off)
+            state, ice, ipk = take(state, ice, ipk, k - k_off)
         else:
             _sync(dev)
             t0 = time.perf_counter()
-            state, ice, _ = step(state, ice, k - k_off)
+            state, ice, ipk = take(state, ice, ipk, k - k_off)
             _sync(dev)
             timers.step += time.perf_counter() - t0
             timers.n_steps += 1
@@ -258,7 +290,7 @@ def run_pi(model: Model, atm, state: OceanState, ice: IceState,
                       flush=True)
         last = k + 1 == first_step + n_steps
         if last or (verbose and (k + 1) % logfile_outfreq == 0):
-            outside = ice_outside_subdomain(ice, model)
+            outside = 0 if icepack else ice_outside_subdomain(ice, model)
             if outside:
                 raise RuntimeError(
                     f"step {k + 1}: ice at {outside} nodes outside the EVP "
@@ -267,6 +299,8 @@ def run_pi(model: Model, atm, state: OceanState, ice: IceState,
             if verbose:
                 print(format_step_info(step_info(state, mesh, ice), k + 1),
                       flush=True)
+    if icepack:
+        return state, ice, ipk
     return state, ice
 
 
@@ -291,6 +325,8 @@ def main(argv=None):
                    help="pi: a directory with the NCEP test-set forcing "
                         "(u_10.1948.nc, ..., runoff.nc, NetCDF3) and "
                         "woa18_netcdf_5deg.nc (default: both built in code)")
+    p.add_argument("--icepack", action="store_true",
+                   help="pi: multi-category ice column physics (Icepack)")
     args = p.parse_args(argv)
     dtype = torch.float32 if args.f32 else torch.float64
     if args.config == "soufflet":
@@ -306,8 +342,8 @@ def main(argv=None):
     state, ice = pi_initial_state(model, seed=args.seed,
                                   forcing_path=args.forcing)
     timers = RunTimers(setup=time.perf_counter() - t_all)
-    state, ice = run_pi(model, atm, state, ice, args.steps, verbose=True,
-                        timers=timers)
+    run_pi(model, atm, state, ice, args.steps, verbose=True, timers=timers,
+           use_icepack=args.icepack)
     timers.total = time.perf_counter() - t_all
     print(timers.report(model.mesh.zbar.device), flush=True)
 

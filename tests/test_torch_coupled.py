@@ -247,31 +247,39 @@ def test_run_pi_reports_ice_and_flags_it_outside_the_subdomain(pair, capsys):
     (("dyn", "i_vert_visc"), False, "item 15"),
     (("tra", "tra_adv_hor"), "UPW1", "item 15")])
 def test_check_slice_raises_for_what_is_not_ported(path, knob, value, item):
-    """Icepack (item 18) raises, naming the item; item 15's knobs (the
-    salt plume, explicit vertical viscosity, the upwind horizontal scheme)
-    are ported and pass; items 17 and 19 (standard and adaptive EVP, the
-    tidal potential, the sea-level pressure) are ported: the configuration
-    sets up and takes a coupled step (``test_torch_evp_steps.py`` holds
-    three steps of each against JAX)."""
+    """Item 15's knobs (the salt plume, explicit vertical viscosity, the
+    upwind horizontal scheme) are ported and pass; items 17, 18 and 19
+    (standard and adaptive EVP, Icepack, the tidal potential, the
+    sea-level pressure) are ported: the configuration sets up and takes a
+    coupled step (``test_torch_evp_steps.py`` and
+    ``test_torch_icepack_steps.py`` hold three steps against JAX)."""
     cfg = pi_config()
     check_slice(cfg)                       # the CI configuration passes
     setattr(getattr(cfg, knob[0]), knob[1], value)
     if item == "item 15":
         check_slice(cfg)
         return
-    if item in ("item 17", "item 19"):
-        check_slice(cfg)
-        cfg.ice.evp_rheol_steps = 8
-        tm, tatm = setup_pi_model(path, device="cpu", cfg=cfg)
-        ts, tice = pi_initial_state(tm)
-        ts, tice, tof = pi_coupled_step_fn(tm, tatm)(ts, tice, 0)
-        assert bool(torch.isfinite(ts.tr).all()) and int(ts.step) == 1
-        assert bool(torch.isfinite(tice.u_ice).all())
-        if knob[1] == "use_global_tides":
-            assert float(tof.ssh_gp.abs().max()) > 0.0
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        check_slice(cfg)
+    check_slice(cfg)
+    cfg.ice.evp_rheol_steps = 8
+    if item == "item 18":
+        from fesom2_tpu_torch.ice.icepack import (IcepackConfig,
+                                                  init_icepack_state)
+        cfg.icepack = IcepackConfig()
+    tm, tatm = setup_pi_model(path, device="cpu", cfg=cfg)
+    ts, tice = pi_initial_state(tm)
+    step = pi_coupled_step_fn(tm, tatm)
+    if item == "item 18":
+        ipk = init_icepack_state(cfg.icepack, tice.a_ice, tice.m_ice,
+                                 tice.m_snow, tice.t_skin)
+        ts, tice, ipk, tof = step(ts, tice, 0, ipk)
+        assert bool(torch.isfinite(ipk.qin).all())
+        assert float(ipk.aicen.sum(0).max()) > 0.5
+    else:
+        ts, tice, tof = step(ts, tice, 0)
+    assert bool(torch.isfinite(ts.tr).all()) and int(ts.step) == 1
+    assert bool(torch.isfinite(tice.u_ice).all())
+    if knob[1] == "use_global_tides":
+        assert float(tof.ssh_gp.abs().max()) > 0.0
 
 
 @pytest.mark.parametrize("knob,value,item", [
@@ -281,8 +289,8 @@ def test_check_slice_raises_for_what_is_not_ported(path, knob, value, item):
     (("run", "use_icepack"), True, "item 18")])
 def test_check_slice_still_raises_for_items_17_to_21(knob, value, item):
     """On the column-physics menus' configuration: the DVD diagnostic
-    (item 20) and Icepack (item 18) still raise; the relaxation to
-    climatology and adaptive EVP (items 19 and 17) pass."""
+    (item 20) still raises; the relaxation to climatology, adaptive EVP
+    and Icepack (items 19, 17 and 18) pass."""
     cfg = pi_config()
     cfg.dyn.mix_scheme = "cvmix_TKE+cvmix_IDEMIX"
     cfg.dyn.SPP = True
@@ -290,7 +298,7 @@ def test_check_slice_still_raises_for_items_17_to_21(knob, value, item):
     cfg.tra.tracer_ID = [0, 1, 101, 301, 302, 303]
     check_slice(cfg)
     setattr(getattr(cfg, knob[0]), knob[1], value)
-    if item in ("item 17", "item 19"):
+    if item in ("item 17", "item 18", "item 19"):
         check_slice(cfg)
         return
     with pytest.raises(NotImplementedError, match=item):

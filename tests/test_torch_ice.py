@@ -409,7 +409,8 @@ def test_ice_dynamics_raises_for_what_is_not_ported(case):
     """Standard and adaptive EVP are ported (item 17): the dispatch runs
     them (``test_torch_evp.py`` holds them against JAX), and mEVP for any
     other whichEVP, as the JAX dispatch does; the icepack strength field
-    (item 18) still raises."""
+    (item 18) is ported: the dispatch hands it to mEVP
+    (``test_torch_icepack.py`` holds it against JAX)."""
     c = case
     for which, fn in ((0, evp.evp_dynamics), (2, evp.aevp_dynamics),
                       (3, evp.mevp_dynamics)):
@@ -419,9 +420,16 @@ def test_ice_dynamics_raises_for_what_is_not_ported(case):
         want = fn(c.tice, c.tmesh, c.tforcing, c.tsurf, cfg)
         assert torch.equal(got.u_ice, want.u_ice)
         assert bool(torch.isfinite(got.sigma11).all())
-    with pytest.raises(NotImplementedError, match="item 18"):
-        evp.ice_dynamics(c.tice, c.tmesh, c.tforcing, c.tsurf, c.cfg,
-                         strength_node=c.tice.m_ice)
+    cfg = subcycle_config(2)
+    strength = c.tice.m_ice * 2e4
+    got = evp.ice_dynamics(c.tice, c.tmesh, c.tforcing, c.tsurf, cfg,
+                           strength_node=strength)
+    want = evp.mevp_dynamics(c.tice, c.tmesh, c.tforcing, c.tsurf, cfg,
+                             strength_node=strength)
+    assert torch.equal(got.u_ice, want.u_ice)
+    assert torch.equal(got.sigma11, want.sigma11)
+    plain = evp.mevp_dynamics(c.tice, c.tmesh, c.tforcing, c.tsurf, cfg)
+    assert not torch.equal(got.sigma11, plain.sigma11)
 
 
 def _stress(e, T, ue, ve, s11, s12, s22, det1, vale, dmin):

@@ -7,7 +7,11 @@ sea ice's elem_contrib_to_nodes and mevp_subcycles on the level-3 globe
 and its ice subdomain, mevp_subcycles also on the whole level-7 globe, more
 elements than the resident grid has threads, and the EVP and aEVP
 variants of the subcycle kernel on all three; ring_spmv at every ring width
-with a kernel of its own and at two the generic kernel takes).
+with a kernel of its own and at two the generic kernel takes; Icepack's
+bl99_temperature_solve and itd_remap on the inputs of the first Icepack
+coupled step on the level-3 and level-7 globes, and on the level-3 globe
+under MU71, the similarity coefficients and 7 ice / 1 snow layers, and
+mevp_subcycles with its strength field on the whole level-7 globe).
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run on a machine that has only torch:
@@ -15,8 +19,9 @@ so they run on a machine that has only torch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerance: 1e-12 (float64) and 1e-5 (float32) of max|plain|; fct_bounds,
-tridiag_solve, the two probe kernels, the two ice kernels and the
-ring_spmv width cases bitwise;
+tridiag_solve, the two probe kernels, the two ice kernels, itd_remap and
+the ring_spmv width cases bitwise; bl99_temperature_solve with the plain
+version's sweep count and melting flags;
 pressure_bv's mld2 equal in float64.  ``chip_smoke.py`` makes the same
 comparison at full size.
 """
@@ -749,3 +754,148 @@ def test_kernels_on_the_shelf_on_card(tmp_path, rng, dtype, tol):
         for respect in (True, False):
             check([ops.elem_to_node_mean(x, mesh, respect)],
                   [ops.elem_to_node_mean_plain(x, mesh, respect)])
+
+
+def _icepack_step_inputs(path, dtype, opts=None):
+    """The Icepack CI model on the globe at ``path`` on the card, with
+    ``IcepackConfig(**opts)``, and the arguments its first coupled step
+    hands ``temperature_solve`` and ``itd_remap`` (twice)."""
+    from fesom2_tpu_torch.ice.icepack import (IcepackConfig, driver,
+                                              init_icepack_state)
+    from fesom2_tpu_torch.model import (pi_coupled_step_fn, pi_initial_state,
+                                        setup_pi_model)
+    cfg = pi_config()
+    cfg.run.use_icepack = True
+    cfg.icepack = IcepackConfig(**(opts or {}))
+    model, atm = setup_pi_model(path, device="cuda", dtype=dtype, cfg=cfg)
+    st, ice = pi_initial_state(model)
+    ipk = init_icepack_state(cfg.icepack, ice.a_ice, ice.m_ice, ice.m_snow,
+                             ice.t_skin, dtype=dtype)
+    with driver.recording_kernel_inputs() as rec:
+        pi_coupled_step_fn(model, atm)(st, ice, 0, ipk)
+    return model, rec
+
+
+def _check_icepack_kernels(rec, tol):
+    """bl99_temperature_solve against its plain version (within tol of
+    max|plain| per output, the same sweep count, the same melting flags)
+    and itd_remap bitwise (both calls) on the recorded inputs; returns the
+    solve's arguments."""
+    from fesom2_tpu_torch.ice.icepack import itd
+    from fesom2_tpu_torch.ice.icepack import thermo_vertical as tv
+    assert len(rec["temperature_solve"]) == 1 and len(rec["itd_remap"]) == 2
+    args, kw = rec["temperature_solve"][0]
+    kernels.reset_launches()
+    got = tv.temperature_solve(*args, **kw)
+    assert kernels.LAUNCHES["bl99_temperature_solve"] == 1
+    want = tv.temperature_solve_plain(*args, **kw)
+    assert int(got["niter"]) == int(want["niter"]) > 1
+    assert torch.equal(got["melting"], want["melting"])
+    for k in ("Tsf", "Tsn", "Tin", "fsurf", "fcondtop", "fcondbot", "fsens",
+              "flat", "flwout"):
+        w = want[k]
+        assert float((got[k] - w).abs().max()) <= tol * float(
+            w.abs().max()), k
+    for (pack, *rest), _ in rec["itd_remap"]:
+        w = itd.itd_remap_plain(pack, *rest)
+        g = itd.itd_remap(pack.clone(), *rest)
+        assert torch.equal(g, w)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [3, 7])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_icepack_kernels_match_plain_on_card(tmp_path, level, dtype, tol):
+    """bl99_temperature_solve (within tol of max|plain| per output, the
+    same sweep count, the same melting flags) and itd_remap (bitwise, both
+    calls) on the inputs of the first Icepack coupled step on the level-3
+    globe and at full width (level 7); a wrong table raises."""
+    _need_card()
+    from fesom2_tpu_torch.ice.icepack import itd
+    from fesom2_tpu_torch.ice.icepack import thermo_vertical as tv
+    _, rec = _icepack_step_inputs(globe.write_globe(str(tmp_path),
+                                                    level=level), dtype)
+    args, kw = _check_icepack_kernels(rec, tol)
+    pack, *rest = rec["itd_remap"][0][0]
+    with pytest.raises(ValueError):
+        itd.itd_remap(pack[:, :-1].contiguous(), *rest[:5], rest[5] + 9,
+                      rest[6])
+    with pytest.raises(ValueError):
+        tv.temperature_solve(*args[:2], args[2][:, :-1], *args[3:], **kw)
+
+
+ICEPACK_VARIANTS = {
+    # the MU71 conductivity instance
+    "MU71": dict(conduct="MU71"),
+    # the similarity transfer coefficients handed in as rows
+    "similarity": dict(atmbndy="similarity"),
+    # the generic-layer instance (nilyr, nslyr other than 4, 4)
+    "layers_7_1": dict(nilyr=7, nslyr=1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ICEPACK_VARIANTS))
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_icepack_kernel_variants_match_plain_on_card(tmp_path, case, dtype,
+                                                     tol):
+    """The instances and branches of bl99_temperature_solve (and the
+    itd_remap rows) that the default IcepackConfig does not reach, on the
+    inputs of the first Icepack coupled step on the level-3 globe, held as
+    the default case is."""
+    _need_card()
+    opts = ICEPACK_VARIANTS[case]
+    _, rec = _icepack_step_inputs(globe.write_globe(str(tmp_path), level=3),
+                                  dtype, opts)
+    args, kw = _check_icepack_kernels(rec, tol)
+    assert (kw.get("shcoef") is not None) == (case == "similarity")
+    assert (args[0].conduct, args[0].nilyr, args[0].nslyr) == (
+        opts.get("conduct", "bubbly"), opts.get("nilyr", 4),
+        opts.get("nslyr", 4))
+
+
+@pytest.mark.cuda
+def test_icepack_kernels_raise_when_the_build_fails_on_card(monkeypatch):
+    """No nvcc: a CUDA tensor does not fall back to the plain version."""
+    _need_card()
+    from fesom2_tpu_torch.ice.icepack import itd
+    from fesom2_tpu_torch.kernels import build
+    monkeypatch.setattr(kernels, "_LIB", None)
+    monkeypatch.setattr(build, "library_path",
+                        lambda: build.BUILD_DIR / "absent" / "none.so")
+    monkeypatch.setattr(build, "find_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    pack = torch.zeros((5, 12, 10), dtype=torch.float64, device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        itd.itd_remap(pack, None, None, itd.category_bounds(5), 4, 4, 0,
+                      False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_mevp_subcycles_with_strength_whole_globe_on_card(tmp_path, rng,
+                                                          dtype):
+    """mevp_subcycles with the Icepack strength field on the whole level-7
+    globe (the Icepack step's dynamics) after 1, 8 and 120 subcycles,
+    bit-equal to the plain loop."""
+    _need_card()
+    from fesom2_tpu_torch.ice import evp
+    path = globe.write_globe(str(tmp_path), level=7)
+    m = build_mesh(path, force_rotation=True, use_partial_cell=True,
+                   device="cuda", dtype=dtype)
+    ice, forcing, surf = _random_ice(m, rng, dtype)
+    strength = torch.as_tensor(rng.uniform(0.0, 3e4, m.n_nodes),
+                               device="cuda").to(dtype) * (ice.a_ice > 0)
+    tab = evp.mevp_setup(ice, m, forcing, surf, pi_config(),
+                         strength_node=strength)
+    uv0 = torch.stack([ice.u_ice, ice.v_ice])
+    sig0 = torch.stack([ice.sigma11, ice.sigma12, ice.sigma22])
+    kernels.reset_launches()
+    for n in (1, 8, 120):
+        want = evp.mevp_subcycles_plain(uv0, sig0, tab, m, n)
+        got = evp.mevp_subcycles(uv0.clone(), sig0.clone(), tab, m, n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kernels.LAUNCHES["mevp_subcycles"] == 3

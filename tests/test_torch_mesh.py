@@ -166,7 +166,13 @@ def test_port_imports_no_jax():
             "fesom2_tpu_torch.scripts.gather_cost_model, "
             "fesom2_tpu_torch.scripts.cluster_kernel_times, "
             "fesom2_tpu_torch.mesh.cluster, "
-            "fesom2_tpu_torch.parallel.partition; "
+            "fesom2_tpu_torch.parallel.partition, "
+            "fesom2_tpu_torch.ice.icepack, "
+            "fesom2_tpu_torch.ice.icepack.driver, "
+            "fesom2_tpu_torch.ice.icepack.ponds, "
+            "fesom2_tpu_torch.ice.icepack.dedd, "
+            "fesom2_tpu_torch.ice.icepack.fsd, "
+            "fesom2_tpu_torch.ice.icepack.bgc; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fesom2_tpu' "
             "or m.startswith('fesom2_tpu.')]; "
