@@ -80,6 +80,11 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    reported), ``itd_remap``'s two calls (the remap with the rebin, the
    rebin alone; bitwise) and ``mevp_subcycles`` on the whole mesh with
    the strength field (bitwise), each with its bound and no library call;
+   ``dens_moc_bin`` (the density-space MOC binning) on the interface
+   densities and layers of the level-7 globe after one coupled step,
+   [5, 89, 225854], each of its five outputs within 1e-12 / 1e-5 of
+   max|plain| (the plain chain over chunks of elements), its bound from
+   this state's active layers and class runs, no library call;
 4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
    linfs, dense SSH) through ``run.run_soufflet``, with sanity bounds,
    linfs volume conservation and a launch count above 0 for every kernel
@@ -130,10 +135,12 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     (``mevp_subcycles``, ``pressure_bv`` and ``kpp_column`` once a step,
     ``tridiag_solve`` four times and ``elem_contrib_to_nodes`` six times;
     the retired pair ``mevp_stress`` and ``mevp_node`` no longer a kernel);
-    then throughput in float32 and float64, a 3-step profile per dtype
-    with the launches a step of each kernel counted in it (the same gates,
-    ``mevp_subcycles`` once a step in both dtypes), the device ms a step
-    under each ``record_function`` span (``span_device_ms``) and the CG
+    then throughput in float32 and float64 (``run_pi``, and a bare loop
+    of the step after it: the cost of ``run_pi``'s blowup scan, which is
+    also timed alone, host ms and device us a scan), a 3-step profile per
+    dtype with the launches a step of each kernel counted in it (the same
+    gates, ``mevp_subcycles`` once a step in both dtypes), the device ms a
+    step under each ``record_function`` span (``span_device_ms``) and the CG
     kernels' device us a launch in the step (``ring_spmv``,
     ``block_schwarz``), and the subcycle loop's wall and device
     milliseconds a step (one launch; information);
@@ -263,11 +270,43 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     level ice, dEdd, the floe-size distribution, the biogeochemistry and
     ``ice_ave_steps = 2``.
 
+26. the run's output path at full width (phase 12's tables and
+    atmosphere with ``ldiag_DVD``, ``ldiag_dMOC``, ``ldiag_energy``,
+    ``lcurt_stress_surf``, ``ldiag_curl_vel3`` and ``ldiag_salt3D`` on):
+    ``run.run_pi`` with a result directory under ``build/chip_smoke/``,
+    the default ocean and ice streams and the ``dvd_*``, ``std_dens_*``,
+    ``curl_u`` and ``density_flux_e`` streams hourly (a flush every 4
+    steps), restarts every 5 steps; 10 float64 steps gated on phase 12's
+    ocean and ice bounds (the area-mean hbar against the run's mean water
+    flux, read back from its own ``fw`` stream), ``dvd_h`` and ``dvd_v``
+    finite, ``std_dens_VOL`` summed equal to the ocean volume (1e-10),
+    ``std_dens_W`` summed over the classes equal to each element's active
+    layers (1e-12), ``std_dens_UDZ`` summed equal to the summed u helem
+    (1e-8), every stream file, ``fesom.mesh.diag.nc``, ``fesom.clock``
+    and ``restart.nc`` written, ``sst``'s and ``a_ice``'s two hourly
+    records equal to means the phase accumulates over the same steps
+    taken again (1e-12), a run resumed from a step-5 restart to step 10
+    equal to the unbroken one (bitwise, else the fields that differ,
+    within 1e-12), a state with a NaN in eta raising with step 1 and
+    leaving ``blowup.nc``, ``dens_moc_bin`` once a step; coupled steps/s
+    in both dtypes with all of it on beside phase 12's, the host ms a
+    step of the output (``update_means`` and the flushes) and of
+    ``update_means`` alone, a 3-step profile per dtype with the device ms
+    a step of ``step.tracers.dvd``, ``step.output`` and ``dens_moc_bin``,
+    the peak memory;
+27. card against CPU on the level-3 globe, 3 float64 coupled steps
+    through ``run_pi`` with every diagnostic flag on and the streams
+    flushed at the end: ``dvd_h``, ``dvd_v`` and every output of
+    ``compute_diagnostics`` and every stream's mean within 1e-8 of
+    max|CPU|, the card's restart read on the CPU equal to the card's state
+    bit for bit, no kernel launched on the CPU path.
+
 Any failure exits non-zero before the last line.  Before it come one
 JSON line with the gather kernels' device times on both numberings, one
 with the device ms a step per span of the coupled steps, each menu
 case's worst field and phase 19's rates, memory, mixing spans and
-passive-tracer bounds, one
+passive-tracer bounds, phase 26's rates and output costs and phase 27's
+worst fields, one
 with every kernel's launches, error, times, bound and library time (with
 the device ms a coupled step spends in it, from phase 12's, 14's and
 16's and 19's profiles, its launches a float64 and a float32 coupled
@@ -280,6 +319,7 @@ where CUDA is not available.
 """
 import bisect
 import json
+import os
 import subprocess
 import sys
 import time
@@ -386,10 +426,15 @@ def span_device_ms(prof, n: int, counts=None) -> dict:
     starts = [e.time_range.start for e in spans]
     out = {}
     for k in kern:
+        # the innermost span that holds the kernel's start: the latest
+        # started of those that hold it (spans nest or are disjoint)
         i = bisect.bisect_right(starts, k.time_range.start) - 1
         name = "outside spans"
-        if i >= 0 and k.time_range.start < spans[i].time_range.end:
-            name = spans[i].name
+        while i >= 0:
+            if k.time_range.start < spans[i].time_range.end:
+                name = spans[i].name
+                break
+            i -= 1
         out[name] = out.get(name, 0.0) + k.time_range.elapsed_us()
         if counts is not None:
             counts[name] = counts.get(name, 0) + 1 / n
@@ -606,6 +651,8 @@ def main():
     from fesom2_tpu_torch.ice.icepack import itd as icepack_itd
     from fesom2_tpu_torch.ice.icepack import thermo_vertical as tvert
     icepack_models, bl99_report, icepack_cpu = {}, {}, {}
+    dmoc_counts = {}
+    from fesom2_tpu_torch.core import diagnostics
 
     # phase 1 ------------------------------------------------------------
     t_start = time.perf_counter()
@@ -1283,6 +1330,42 @@ def main():
                                                n_sub)))
         return out
 
+    def dmoc_cases(dtype):
+        """dens_moc_bin on the level-7 globe after one coupled step: the
+        interface densities and the layers of the state the output path
+        bins (no bolus velocities, as diag_dens_moc takes it there), each
+        of the five outputs against the plain version (its [nl-1, S,
+        chunk] chain over chunks of elements); no PyTorch call computes
+        the binning."""
+        m, atm = gm[dtype], gatm[dtype]
+        mesh = m.mesh
+        st, ice = pi_initial_state(m)
+        st, _, _ = pi_coupled_step_fn(m, atm)(st, ice, 0)
+        dens = diagnostics.interface_density(st, mesh, m.cfg)
+        bins = torch.as_tensor(diagnostics.STD_DENS, device=dev).to(dtype)
+        args = (dens, st.helem, st.u, st.v, mesh.elem_area,
+                mesh.ulevels_elem, mesh.nlevels_elem, bins)
+        counts = diagnostics.dens_moc_bin_counts(dens, mesh.ulevels_elem,
+                                                 mesh.nlevels_elem, bins)
+        size = torch.empty((), dtype=dtype).element_size()
+        if dtype == torch.float64:
+            dmoc_counts.update(active_layers=counts[0],
+                               run_classes=counts[1],
+                               nearest_layers=counts[2],
+                               wet_elements=counts[3])
+            say(f"phase 3 dens_moc_bin inputs: {mesh.nl} levels x "
+                f"{mesh.n_elems} elements, {bins.numel()} classes; active "
+                f"layers {counts[0]}, classes in their runs {counts[1]}, "
+                f"layers binned to the nearest class {counts[2]}, elements "
+                f"with an active layer {counts[3]}")
+        return [("dens_moc_bin",
+                 f"level-7 globe [5, {bins.numel()}, {mesh.n_elems}]",
+                 lambda: tuple(diagnostics.dens_moc_bin(*args)),
+                 lambda: tuple(diagnostics.dens_moc_bin_plain(*args)),
+                 False, diagnostics.dens_moc_bin_work(
+                     mesh.n_elems, bins.numel(), size, *counts, False),
+                 None)]
+
     for label, mesh in (("channel", mesh64), ("globe", gmesh)):
         ct = mesh.cluster
         for what, ptr, ids in (
@@ -1332,7 +1415,8 @@ def main():
                 + cg_cases(dtype)
                 + (probe_cases() if dtype == torch.float32 else [])
                 + menu_cases(dtype) + shelf_cases(dtype) + globe_cases(dtype)
-                + icepack_cases(dtype) + ice_cases(dtype)):
+                + icepack_cases(dtype) + ice_cases(dtype)
+                + dmoc_cases(dtype)):
             # an in-place kernel is timed on buffers of its own
             kern_t = own[0] if own else kern
             # the plain versions of the subcycle loops (some 5,400 eager
@@ -1340,7 +1424,8 @@ def main():
             # sweep; some 1,500 eager ops a remap) are timed over fewer
             # calls
             light = name.endswith("_subcycles") \
-                or name in ("bl99_temperature_solve", "itd_remap")
+                or name in ("bl99_temperature_solve", "itd_remap",
+                            "dens_moc_bin")
             t_case = time.perf_counter()
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -1858,6 +1943,46 @@ def main():
                 f"{n / wall:.3f} coupled steps/s, {wet * n / wall:.6e} wet "
                 f"node-levels/s ({wet} wet node-levels; {card})")
             ci_rates[str(dtype).replace('torch.', '')] = n / wall
+            # the next 10 steps as a bare loop of the step, without
+            # run_pi's blowup scan and its flag reads
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bare = pi_coupled_step_fn(mdl, gatm[dtype])
+            for k in range(k0 + n, k0 + 2 * n):
+                s_, i_, _ = bare(s_, i_, k)
+            torch.cuda.synchronize()
+            wall_b = time.perf_counter() - t0
+            cruns[dtype][1:] = [s_, i_, k0 + 2 * n]
+            say(f"phase 12 blowup scan {str(dtype).replace('torch.', '')}: "
+                f"run_pi {n / wall:.3f} coupled steps/s, the bare step loop "
+                f"after it {n / wall_b:.3f} ({card})")
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    from fesom2_tpu_torch.core.diag import check_blowup, first_bad_step
+    for dtype, (mdl, s_, i_, _) in cruns.items():
+        # the scan alone, as run_pi queues it after each step
+        first = torch.full((), -1, dtype=torch.int32, device=dev)
+
+        def scan(j=1):
+            return first_bad_step(check_blowup(s_, mdl.mesh, i_,
+                                               mdl.ice_sub), first, j)
+        scan_us = device_us(scan)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            scan()
+            torch.cuda.synchronize()
+        n_ops = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        reps = 50
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(reps):
+            first = scan(j)
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        if int(first) >= 0:
+            fail("phase 12: the blowup scan flags a sane state")
+        say(f"phase 12 blowup scan alone {str(dtype).replace('torch.', '')}"
+            f": {n_ops} device ops, {host_ms:.4f} host ms and "
+            f"{us_text(scan_us)} device us a scan ({card})")
     # the 3-step profiles, each dtype's launches a coupled step counted in
     # them (the CG kernels' with the CG iterations of each dtype's steps)
     step_us, launches_dtype = {}, {}
@@ -3232,6 +3357,302 @@ def main():
             f"max|cpu|; {n_card} kernel launches on the card ({n24})")
     say(f"phase 25 {len(cases25)} cases in {time.perf_counter() - t25:.1f} s")
 
+    # phase 26 -----------------------------------------------------------
+    say(f"phase 26 starts at {time.perf_counter() - t_start:.1f} s")
+    # the run's output path at full width: phase 12's tables and
+    # atmosphere with the DVD, the density-space MOC, the energy fields,
+    # the stress curl, the 3D vorticity and the salt integral on; run_pi
+    # with the default streams and the diagnostic streams hourly (a flush
+    # every 4 steps), restarts every 5 steps
+    import shutil
+    from fesom2_tpu_torch.io import restart as restart_io
+    from fesom2_tpu_torch.io.netcdf import read_vars
+    from fesom2_tpu_torch.io import streams as streams_io
+    from fesom2_tpu_torch.run import RunTimers
+    out_root = Path(__file__).resolve().parent / "build" / "chip_smoke" \
+        / "output"
+    shutil.rmtree(out_root, ignore_errors=True)
+    diag_flags = ("ldiag_DVD", "ldiag_dMOC", "ldiag_energy",
+                  "lcurt_stress_surf", "ldiag_curl_vel3", "ldiag_salt3D")
+    diag_ids = ("dvd_temp_h", "dvd_temp_v", "dvd_salt_h", "dvd_salt_v",
+                "std_dens_UDZ", "std_dens_VDZ", "std_dens_VOL", "std_dens_Z",
+                "std_dens_W", "curl_u", "density_flux_e")
+
+    def diag_model(m):
+        """The CI model ``m`` with every &diag_list flag on, on m's
+        tables."""
+        cfg = copy.deepcopy(m.cfg)
+        for flag in diag_flags:
+            setattr(cfg.diag, flag, True)
+        return Model(m.mesh, cfg, m.tracer_statics, m.density_ref,
+                     ice_sub=m.ice_sub, ssh_dense_inv=m.ssh_dense_inv,
+                     ssh_ring=m.ssh_ring, ssh_block_pc=m.ssh_block_pc)
+
+    def output_defs(m, unit="h", freq=1, with_fw=True):
+        """The default ocean and ice streams and the diagnostic streams,
+        every ``freq`` ``unit``; with ``with_fw``, the water flux over the
+        whole run (10 steps), for the volume gate."""
+        defs = streams_io.default_ocean_streams(m.mesh) \
+            + streams_io.default_ice_streams() \
+            + [streams_io.make_stream(sid, m.mesh, m.cfg) for sid in diag_ids]
+        for d in defs:
+            d.unit, d.freq = unit, freq
+        if not with_fw:
+            return defs
+        return defs + [streams_io.make_stream("fw", m.mesh, m.cfg, freq=10,
+                                              unit="s")]
+
+    m26 = {dtype: diag_model(gm[dtype]) for dtype in (torch.float64,
+                                                      torch.float32)}
+    m = m26[torch.float64]
+    mesh26 = m.mesh
+    run_dir = str(out_root / "run")
+    st0, ice0 = pi_initial_state(m)
+    torch.cuda.synchronize()
+    base26 = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    timers26 = RunTimers()
+    t0 = time.perf_counter()
+    st, ice = run_pi(m, gatm[torch.float64], st0, ice0, 10,
+                     result_path=run_dir, restart_every=5,
+                     stream_defs=output_defs(m), timers=timers26)
+    torch.cuda.synchronize()
+    wall26 = time.perf_counter() - t0
+    peak26 = torch.cuda.max_memory_allocated() / 2 ** 30
+    launch26 = {k: kernels.LAUNCHES[k] for k in coupled_kernels
+                + ("dens_moc_bin",)}
+    path_launches["dens_moc_bin"] = launch26["dens_moc_bin"]
+    rates26 = {"float64": 10 / wall26}
+    say(f"phase 26 10 float64 coupled steps with the output path: "
+        f"{wall26:.3f} s ({rates26['float64']:.3f} coupled steps/s; phase "
+        f"12's {ci_rates.get('float64', 0.0):.3f}), step {timers26.step:.3f}"
+        f" s, output host {timers26.output * 100:.3f} ms a step (update_means"
+        f" and flushes), restarts {timers26.restart:.3f} s, launches "
+        f"{launch26}, peak memory allocated {peak26:.2f} GiB ({base26:.2f} "
+        f"held before; {card})")
+    if launch26["dens_moc_bin"] != 10:
+        fail(f"phase 26: dens_moc_bin launched {launch26['dens_moc_bin']} "
+             f"times in 10 steps, not once a step")
+    fw = read_vars(os.path.join(run_dir, "fw.fesom.1948.nc"), ["fw"])["fw"]
+    fw_mean = torch.as_tensor(fw[0].astype(np.float64), device=dev)
+    hbar26 = float(-m.cfg.dt * 10 * (fw_mean * area).sum() / area.sum())
+    check_globe("phase 26", m, st, launch26, hbar26)
+    check_ice("phase 26", m, st, ice, ice0, n_steps=10)
+    for name in ("dvd_h", "dvd_v"):
+        x = getattr(st, name)
+        if not (x.shape[0] == 2 and bool(torch.isfinite(x).all())
+                and float(x.abs().max()) > 0.0):
+            fail(f"phase 26: {name} {list(x.shape)} not finite or all 0")
+    # the diagnostics of the final state (the forcing of the next step)
+    f26 = pi_coupled_step_fn(m, gatm[torch.float64])(st, ice, 10)[2]
+    diag26 = diagnostics.compute_diagnostics(st, mesh26, m.cfg, f26)
+    lmask = mesh26.elem_layer_mask
+    vol = float((torch.where(lmask, st.helem, 0.0)
+                 * mesh26.elem_area).sum())
+    udz = float(torch.where(lmask, st.u * st.helem, 0.0).sum())
+    gates26 = {
+        "std_dens_VOL": (float(diag26["std_dens_VOL"].sum()), vol, 1e-10),
+        "std_dens_UDZ": (float(diag26["std_dens_UDZ"].sum()), udz, 1e-8)}
+    w_err = float((diag26["std_dens_W"].sum(0) - lmask.sum(0)).abs().max())
+    for k, (got, want, tol) in gates26.items():
+        say(f"phase 26 sum of {k} {got!r} against {want!r}: relative "
+            f"{abs(got - want) / abs(want):.3e} (gate {tol})")
+        if not abs(got - want) <= tol * abs(want):
+            fail(f"phase 26: {k} sums to {got!r}, not {want!r}")
+    say(f"phase 26 std_dens_W summed over the classes against each "
+        f"element's active layers: max err {w_err:.3e} (gate 1e-12); "
+        f"diagnostics {sorted(diag26)}")
+    if not w_err <= 1e-12 or not all(bool(torch.isfinite(v).all())
+                                     for v in diag26.values()):
+        fail("phase 26: std_dens_W off the layer count, or a diagnostic is "
+             "not finite")
+    names26 = [d.name for d in output_defs(m)]
+    missing = [n for n in names26 if not os.path.exists(
+        os.path.join(run_dir, f"{n}.fesom.1948.nc"))] + [
+        n for n in ("fesom.mesh.diag.nc", "fesom.clock", "restart.nc")
+        if not os.path.exists(os.path.join(run_dir, n))]
+    if missing:
+        fail(f"phase 26: files not written: {missing}")
+    # sst's and a_ice's hourly records against means accumulated here, on
+    # the same 8 steps taken again
+    step26 = pi_coupled_step_fn(m, gatm[torch.float64])
+    s_, i_ = st0, ice0
+    acc = {"sst": [], "a_ice": []}
+    for k in range(8):
+        s_, i_, _ = step26(s_, i_, k)
+        acc["sst"].append(s_.tr[0, 0])
+        acc["a_ice"].append(i_.a_ice)
+    for name, vals in acc.items():
+        rec = read_vars(os.path.join(run_dir, f"{name}.fesom.1948.nc"),
+                        [name])[name]
+        own = np.stack([(sum(vals[:4]) / 4).cpu().numpy(),
+                        (sum(vals[4:]) / 4).cpu().numpy()])
+        rel = float(np.abs(rec - own).max() / np.abs(own).max())
+        say(f"phase 26 {name}: {rec.shape[0]} hourly records against the "
+            f"phase's own means: {rel:.3e} of max (gate 1e-12)")
+        if rec.shape[0] != 2 or not rel <= 1e-12:
+            fail(f"phase 26: {name}'s records differ from the means")
+    # resume: 5 steps with a restart, then on to step 10
+    res_dir = str(out_root / "resume")
+    run_pi(m, gatm[torch.float64], *pi_initial_state(m), 5,
+           result_path=res_dir, restart_every=5, stream_defs=output_defs(m))
+    sr, ir = run_pi(m, gatm[torch.float64], *pi_initial_state(m), 10,
+                    result_path=res_dir, resume=True,
+                    stream_defs=output_defs(m))
+    differ = {}
+    for obj_r, obj, cls in ((sr, st, type(st)), (ir, ice, type(ice))):
+        for f in dataclasses.fields(cls):
+            a_, b_ = getattr(obj_r, f.name), getattr(obj, f.name)
+            if not torch.equal(a_, b_):
+                differ[f.name] = max_abs(a_, b_) / max(
+                    float(b_.abs().max()), 1e-300)
+    say(f"phase 26 resumed at step 5 to 10 against the unbroken 10 steps: "
+        f"{'bitwise' if not differ else differ}")
+    if any(not v <= 1e-12 for v in differ.values()):
+        fail(f"phase 26: the resumed run differs: {differ}")
+    # a state with a NaN in eta
+    nan_dir = str(out_root / "blowup")
+    eta = st0.eta.clone()
+    eta[100] = float("nan")
+    try:
+        run_pi(m, gatm[torch.float64], dataclasses.replace(st0, eta=eta),
+               ice0, 2, result_path=nan_dir, stream_defs=[])
+        fail("phase 26: a NaN in eta did not raise")
+    except RuntimeError as err:
+        say(f"phase 26 a NaN in eta raises: {str(err)[:160]}")
+        if "blowup detected at step 1" not in str(err) or not \
+                os.path.exists(os.path.join(nan_dir, "blowup.nc")):
+            fail(f"phase 26: the blowup did not name step 1 or left no "
+                 f"blowup.nc: {err}")
+    # float32: coupled steps/s with all of it on
+    t0 = time.perf_counter()
+    m = m26[torch.float32]
+    timers32 = RunTimers()
+    s32, _ = run_pi(m, gatm[torch.float32], *pi_initial_state(m), 10,
+                    result_path=str(out_root / "run32"), restart_every=5,
+                    stream_defs=output_defs(m), timers=timers32)
+    torch.cuda.synchronize()
+    rates26["float32"] = 10 / (time.perf_counter() - t0)
+    if not bool(torch.isfinite(s32.dvd_h).all()):
+        fail("phase 26: float32 dvd_h not finite")
+    say(f"phase 26 10 float32 coupled steps with the output path: "
+        f"{rates26['float32']:.3f} coupled steps/s (phase 12's "
+        f"{ci_rates.get('float32', 0.0):.3f}), output host "
+        f"{timers32.output * 100:.3f} ms a step, restarts "
+        f"{timers32.restart:.3f} s ({card})")
+    # update_means alone: host ms of a call, and wall ms to its end
+    outs = streams_io.OutputStreams(output_defs(m26[torch.float64]),
+                                    str(out_root / "means"))
+    host_ms, wall_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.update_means(st, ice, None, f26)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    outs.finalize()
+    means_ms = {"host_ms": sorted(host_ms)[2], "wall_ms": sorted(wall_ms)[2]}
+    say(f"phase 26 update_means with {len(outs.defs)} streams: host "
+        f"{means_ms['host_ms']:.3f} ms a call, {means_ms['wall_ms']:.3f} ms "
+        f"to the card's end ({card})")
+    # a 3-step profile: the DVD span, the output span and dens_moc_bin
+    out26 = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        m = m26[dtype]
+        sp, host_sp = {}, {}
+        s_p, i_p = pi_initial_state(m)
+        # hourly, as the run above: no flush in the 3 profiled steps
+        defs_p = output_defs(m, with_fw=False)
+        us = profile_steps(
+            "phase 26", m, s_p, 3, card,
+            run=lambda m_, st_, k, a=gatm[dtype], i=i_p, d=defs_p: run_pi(
+                m_, a, st_, i, k, result_path=str(out_root / f"prof_{tag}"),
+                stream_defs=d),
+            also=("dens_moc_bin",), spans=sp, host_spans=host_sp)
+        dmoc_ms = sum(v for key, v in us.items()
+                      if "dens_moc_bin" in key) / 1e3 or None
+        out26[tag] = {
+            "coupled_steps_per_s": rates26[tag],
+            "ci_coupled_steps_per_s": ci_rates.get(tag),
+            "dvd_device_ms": sp.get("step.tracers.dvd"),
+            "dvd_host_ms": host_sp.get("step.tracers.dvd"),
+            "output_device_ms": sp.get("step.output"),
+            "output_host_ms": host_sp.get("step.output"),
+            "dens_moc_bin_device_ms": dmoc_ms}
+        say(f"phase 26 {tag} a step: DVD span device "
+            f"{us_text(sp.get('step.tracers.dvd'))} ms, output span device "
+            f"{us_text(sp.get('step.output'))} ms, dens_moc_bin device "
+            f"{us_text(dmoc_ms)} ms ({card})")
+    out26["float64"].update(
+        output_host_ms_a_step=timers26.output * 100,
+        restart_s=timers26.restart, peak_memory_gib=peak26,
+        memory_before_gib=base26, update_means=means_ms,
+        resume_differs=differ, gates=gates26,
+        std_dens_W_err=w_err)
+    summary["dens_moc_bin"]["output_step_device_ms"] = {
+        tag: v["dens_moc_bin_device_ms"] for tag, v in out26.items()}
+    shutil.rmtree(out_root, ignore_errors=True)
+
+    # phase 27 -----------------------------------------------------------
+    say(f"phase 27 starts at {time.perf_counter() - t_start:.1f} s")
+    # card against CPU on the level-3 globe: 3 float64 coupled steps with
+    # every &diag_list flag on, through run_pi with the streams (flushed
+    # at the end) and a restart
+    cfg = port_model.pi_config()
+    for flag in diag_flags:
+        setattr(cfg.diag, flag, True)
+    sides = {}
+    for d in (dev, "cpu"):
+        tag = "card" if d == dev else "cpu"
+        m, a = setup_pi_model(small, device=d, cfg=copy.deepcopy(cfg))
+        kernels.reset_launches()
+        s_, i_ = run_pi(m, a, *pi_initial_state(m), 3,
+                        result_path=str(out_root / tag), restart_every=3,
+                        stream_defs=output_defs(m, unit="s", freq=3,
+                                                with_fw=False))
+        f_ = pi_coupled_step_fn(m, a)(s_, i_, 3)[2]
+        sides[tag] = (m, s_, i_, diagnostics.compute_diagnostics(
+            s_, m.mesh, m.cfg, f_), sum(kernels.LAUNCHES.values()))
+    (mg, sg, ig, dg_, n_card), (mc, sc, ic, dc, n_cpu) = sides.values()
+    if n_card <= 0 or n_cpu != 0:
+        fail(f"phase 27: {n_card} launches on the card, {n_cpu} on the CPU")
+    worst27 = {}
+    pairs = [(f"state.{n}", getattr(sg, n), getattr(sc, n))
+             for n in ("dvd_h", "dvd_v", "tr", "u", "eta")] \
+        + [(f"diag.{k}", dg_[k], dc[k]) for k in dc]
+    for label, g, c in pairs:
+        rel = max_abs(g.cpu(), c) / max(float(c.abs().max()), 1e-300)
+        worst27[label] = rel
+        if not rel <= 1e-8:
+            fail(f"phase 27: {label} card vs CPU {rel:.3e} > 1e-8")
+    # the card's restart read on the CPU: the card's state, bit for bit
+    rs, ri = restart_io.read_restart(str(out_root / "card" / "restart.nc"),
+                                     *pi_initial_state(mc))
+    for n in restart_io.OCE_FIELDS:
+        if not torch.equal(getattr(rs, n), getattr(sg, n).cpu()):
+            fail(f"phase 27: the card's restart read on the CPU: {n} differs")
+    for n in restart_io.ICE_FIELDS:
+        if not torch.equal(getattr(ri, n), getattr(ig, n).cpu()):
+            fail(f"phase 27: the card's restart read on the CPU: ice {n} "
+                 f"differs")
+    for d in output_defs(mc, unit="s", freq=3, with_fw=False):
+        fname = f"{d.name}.fesom.1948.nc"
+        g = read_vars(str(out_root / "card" / fname), [d.name])[d.name]
+        c = read_vars(str(out_root / "cpu" / fname), [d.name])[d.name]
+        rel = float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-300))
+        worst27[f"stream.{d.name}"] = rel
+        if not rel <= 1e-8:
+            fail(f"phase 27: stream {d.name} card vs CPU {rel:.3e} > 1e-8")
+    say(f"phase 27 level-3 globe, 3 coupled steps with the diagnostics: "
+        f"worst card vs cpu {max(worst27.values()):.3e} of max|cpu| over "
+        f"{len(worst27)} fields, diagnostics and streams; the card's "
+        f"restart read on the CPU bitwise; {n_card} kernel launches on the "
+        f"card, none on the CPU")
+    shutil.rmtree(out_root, ignore_errors=True)
+
     # result -------------------------------------------------------------
     sources = {"node_edge_reduce": "fesom2_tpu/core/ops.py:154",
                "elem_to_node_mean": "fesom2_tpu/core/ops.py:328",
@@ -3249,7 +3670,8 @@ def main():
                "aevp_subcycles": "fesom2_tpu/ice/evp.py:305",
                "bl99_temperature_solve":
                    "fesom2_tpu/ice/icepack/thermo_vertical.py:142",
-               "itd_remap": "fesom2_tpu/ice/icepack/itd.py:167"}
+               "itd_remap": "fesom2_tpu/ice/icepack/itd.py:167",
+               "dens_moc_bin": "fesom2_tpu/core/diagnostics.py:159"}
     # tridiag_solve's four calls a coupled step priced at phase 3's times
     # of their shapes (momentum on elements, gm_redi's nl rows, the tracers'
     # two solves), beside the profile's time
@@ -3294,7 +3716,10 @@ def main():
                     "forcing_from_files": files_report,
                     "slice14_card_vs_cpu": rheo_cpu,
                     "icepack": {"bl99": bl99_report, "steps": icepack_report,
-                                "card_vs_cpu": icepack_cpu}}))
+                                "card_vs_cpu": icepack_cpu},
+                    "output_path": {"steps": out26,
+                                    "card_vs_cpu": worst27,
+                                    "dens_moc_bin_counts": dmoc_counts}}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "fesom2_tpu_torch/csrc/"
@@ -3333,7 +3758,8 @@ def main():
          **({"shapes": summary[k]["shapes"]} if "shapes" in summary[k]
             else {}),
          **{key: summary[k][key] for key in ("barrier_floor_ms", "plan",
-                                             "loop_ms_a_step")
+                                             "loop_ms_a_step",
+                                             "output_step_device_ms")
             if key in summary[k]},
          **({"shapes_step_device_ms": step_rows[k]} if k in step_rows
             else {})}

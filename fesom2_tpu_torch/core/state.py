@@ -64,7 +64,7 @@ class OceanState:
     fer_w: torch.Tensor
     fer_K3: torch.Tensor
     fer_c: torch.Tensor
-    dvd_h: torch.Tensor        # [0, nl-1, N] unless ldiag_DVD
+    dvd_h: torch.Tensor        # [n_dvd, nl-1, N]: 2 under ldiag_DVD, else 0
     dvd_v: torch.Tensor
     step: torch.Tensor         # int32 scalar
 
@@ -99,9 +99,6 @@ def field_names(cls) -> list:
 def allocate_state(mesh: MeshTables, n_tracers: int = 2,
                    dtype=torch.float64, n_dvd: int = 0,
                    with_gm: bool = False) -> OceanState:
-    if n_dvd:
-        raise NotImplementedError("the DVD diagnostic is not ported yet: "
-                                  "ROADMAP queue 1 item 20")
     nl, N, E = mesh.nl, mesh.n_nodes, mesh.n_elems
     Eg, Ng = (E, N) if with_gm else (0, 0)
     dev = mesh.zbar.device
@@ -125,7 +122,7 @@ def allocate_state(mesh: MeshTables, n_tracers: int = 2,
         uke=z(nl - 1, E), uke_rhs=z(nl - 1, E),
         fer_u=z(nl - 1, Eg), fer_v=z(nl - 1, Eg), fer_w=z(nl, Ng),
         fer_K3=z(nl, Ng), fer_c=z(Ng),
-        dvd_h=z(0, nl - 1, N), dvd_v=z(0, nl - 1, N),
+        dvd_h=z(n_dvd, nl - 1, N), dvd_v=z(n_dvd, nl - 1, N),
         step=torch.zeros((), dtype=torch.int32, device=dev),
     )
 

@@ -152,24 +152,33 @@ def _muscl_reconstruct(t1, t2, R1, R2, mesh: MeshTables, st: TracerStatics,
             t2 - (common + R2) / 6.0 * c2)
 
 
-def _muscl_flux(tm1, tm2, vflux, num_ord):
+def _mpow(x, moment: int):
+    """x ** do_Xmoment of the reconstructed face values: moment 2 gives
+    the transport of the squared tracer that the DVD diagnostic takes
+    (ref oce_adv_tra_hor.F90:144, oce_adv_tra_ver.F90:278)."""
+    return x * x if moment == 2 else x
+
+
+def _muscl_flux(tm1, tm2, vflux, num_ord, moment: int = 1):
     """-(the MUSCL expression) of the interface values (ref :310-320)."""
     av = torch.abs(vflux)
-    cHO = (vflux + av) * tm1 + (vflux - av) * tm2
+    cHO = (vflux + av) * _mpow(tm1, moment) + (vflux - av) * _mpow(tm2,
+                                                                   moment)
     return -(0.5 * (1.0 - num_ord) * cHO
-             + vflux * num_ord * (0.5 * (tm1 + tm2)))
+             + vflux * num_ord * _mpow(0.5 * (tm1 + tm2), moment))
 
 
 def adv_hor_upw1(t, u, v, helem, mesh: MeshTables, flux_prev=None,
-                 vflux=None):
+                 vflux=None, moment: int = 1):
     """First-order upwind horizontal flux [.., nl-1, Ed] (ref
     adv_tra_hor_upw1 oce_adv_tra_hor.F90:57-213); ``vflux`` is the
     caller's ``_edge_vflux`` of (u, v, helem), if it has one."""
     if vflux is None:
         vflux = _edge_vflux(u, v, helem, mesh)
     av = torch.abs(vflux)
-    flux = -(0.5 * (t[..., mesh.edges[:, 0]] * (vflux + av)
-                    + t[..., mesh.edges[:, 1]] * (vflux - av)))
+    flux = -(0.5 * (_mpow(t[..., mesh.edges[:, 0]], moment) * (vflux + av)
+                    + _mpow(t[..., mesh.edges[:, 1]], moment)
+                    * (vflux - av)))
     if flux_prev is not None:
         flux = flux - flux_prev
     return flux
@@ -197,54 +206,64 @@ def adv_hor_muscl(t, u, v, helem, mesh: MeshTables, st: TracerStatics, eg,
 
 
 def adv_hor_muscl_r(t, vflux, mesh: MeshTables, st: TracerStatics, rec,
-                    num_ord, boundary_fallback: bool = True):
+                    num_ord, boundary_fallback: bool = True,
+                    moment: int = 1):
     """MUSCL (or, without ``boundary_fallback``, MFCT) horizontal flux of
     t from the folded pair ``rec`` = (R1, R2) of ``fill_up_dn_grad_r``:
     the high-order flux of a step without the FCT limiter."""
     tm1, tm2 = _muscl_reconstruct(t[..., mesh.edges[:, 0]],
                                   t[..., mesh.edges[:, 1]], rec[0], rec[1],
                                   mesh, st, t.dtype, boundary_fallback)
-    return _muscl_flux(tm1, tm2, vflux, num_ord)
+    return _muscl_flux(tm1, tm2, vflux, num_ord, moment)
 
 
 def adv_hor_lo_ho(t, tAB, vflux, mesh: MeshTables, st: TracerStatics,
-                  rec, num_ord, scheme: str = "MUSCL"):
+                  rec, num_ord, scheme: str = "MUSCL", moment: int = 1):
     """Low-order upwind flux of t and the antidiffusive flux of tAB
     (already minus the low-order flux): returns (flux_lo, flux_adf) (ref
     oce_adv_tra_driver.F90:83-135).  The high-order scheme is MUSCL or
     MFCT; any other name is the upwind scheme on tAB (UPW1)."""
     n0, n1 = mesh.edges[:, 0], mesh.edges[:, 1]
     av = torch.abs(vflux)
-    flux_lo = -0.5 * (t[..., n0] * (vflux + av) + t[..., n1] * (vflux - av))
+    flux_lo = -0.5 * (_mpow(t[..., n0], moment) * (vflux + av)
+                      + _mpow(t[..., n1], moment) * (vflux - av))
     if scheme in ("MUSCL", "MFCT"):
         tm1, tm2 = _muscl_reconstruct(tAB[..., n0], tAB[..., n1], rec[0],
                                       rec[1], mesh, st, t.dtype,
                                       boundary_fallback=(scheme == "MUSCL"))
-        return flux_lo, _muscl_flux(tm1, tm2, vflux, num_ord) - flux_lo
+        return flux_lo, _muscl_flux(tm1, tm2, vflux, num_ord,
+                                    moment) - flux_lo
     tm1, tm2 = tAB[..., n0], tAB[..., n1]
-    expr = 0.5 * ((vflux + av) * tm1 + (vflux - av) * tm2)
+    expr = 0.5 * ((vflux + av) * _mpow(tm1, moment)
+                  + (vflux - av) * _mpow(tm2, moment))
     return flux_lo, -expr - flux_lo
 
 
 # --------------------------------------------------------------------------
 # vertical advection
 # --------------------------------------------------------------------------
-def _surface_flux(t, w, mesh: MeshTables):
+def _surface_flux(t, w, mesh: MeshTables, moment: int = 1):
+    """The flux through each column's top interface.  It is raised to
+    ``moment`` like every other face, where the reference leaves it at
+    the first moment (oce_adv_tra_ver.F90:263), so that a uniform tracer
+    has no DVD in the top layer (``fesom2_tpu/core/tracers.py:318-326``)."""
     uln0 = (mesh.ulevels_node - 1).long()
-    return take_row(w, uln0) * take_row(t, uln0) * take_row(mesh.area, uln0)
+    return take_row(w, uln0) * _mpow(take_row(t, uln0), moment) \
+        * take_row(mesh.area, uln0)
 
 
-def adv_ver_upw1(t, w, mesh: MeshTables, flux_prev=None):
+def adv_ver_upw1(t, w, mesh: MeshTables, flux_prev=None, moment: int = 1):
     """First-order upwind vertical flux [.., nl, N] (ref :231-284)."""
     nln = mesh.nlevels_node
     uln0 = mesh.ulevels_node - 1
     lev = torch.arange(mesh.nl, device=t.device)[:, None]
     aw = torch.abs(w)
-    t_above = torch.cat([t[..., :1, :], t], -2)
-    t_below = torch.cat([t, t[..., -1:, :]], -2)
+    t_above = _mpow(torch.cat([t[..., :1, :], t], -2), moment)
+    t_below = _mpow(torch.cat([t, t[..., -1:, :]], -2), moment)
     interior = 0.5 * (t_below * (w + aw) + t_above * (w - aw)) * mesh.area
     expr = torch.where(lev == uln0[None, :],
-                       _surface_flux(t, w, mesh)[..., None, :], interior)
+                       _surface_flux(t, w, mesh, moment)[..., None, :],
+                       interior)
     expr = torch.where(lev < uln0[None, :], 0.0, expr)
     expr = torch.where(lev >= (nln - 1)[None, :], 0.0, expr)
     flux = -expr
@@ -253,7 +272,8 @@ def adv_ver_upw1(t, w, mesh: MeshTables, flux_prev=None):
     return flux
 
 
-def adv_ver_qr4c(t, w, Z3, zb3, mesh: MeshTables, num_ord, flux_prev=None):
+def adv_ver_qr4c(t, w, Z3, zb3, mesh: MeshTables, num_ord, flux_prev=None,
+                 moment: int = 1):
     """QR4C 3rd/4th-order vertical flux (ref adv_tra_ver_qr4c :286-360)."""
     nl = mesh.nl
     nln = mesh.nlevels_node
@@ -284,16 +304,20 @@ def adv_ver_qr4c(t, w, Z3, zb3, mesh: MeshTables, num_ord, flux_prev=None):
     Tmean1 = t0 + (2.0 * qc + qu) * (zb3 - Z0) / 3.0
     Tmean2 = tm1 + (2.0 * qc + qd) * (zb3 - Zm1) / 3.0
     aw = torch.abs(w)
-    Tup = (w + aw) * Tmean1 + (w - aw) * Tmean2
+    # the centred and surface rows take the moment too, where the
+    # reference raises only the inner faces (:352-354): a uniform tracer
+    # then has no DVD (``fesom2_tpu/core/tracers.py:379-382``)
+    Tup = (w + aw) * _mpow(Tmean1, moment) + (w - aw) * _mpow(Tmean2, moment)
     inner = (0.5 * (1.0 - num_ord) * Tup
-             + num_ord * (0.5 * (Tmean1 + Tmean2)) * w) * area
-    centered = (0.5 * (tm1 + t0)) * w * area
+             + num_ord * _mpow(0.5 * (Tmean1 + Tmean2), moment) * w) * area
+    centered = _mpow(0.5 * (tm1 + t0), moment) * w * area
 
     is_surf = lev == uln0[None, :]
     is_bot = (lev >= (nln - 1)[None, :]) | (lev < uln0[None, :])
     is_cent = (lev == uln0[None, :] + 1) | (lev == (nln - 2)[None, :])
     expr = torch.where(is_cent, centered, inner)
-    expr = torch.where(is_surf, _surface_flux(t, w, mesh)[..., None, :], expr)
+    expr = torch.where(is_surf,
+                       _surface_flux(t, w, mesh, moment)[..., None, :], expr)
     expr = torch.where(is_bot, 0.0, expr)
     flux = -expr
     if flux_prev is not None:
@@ -301,7 +325,7 @@ def adv_ver_qr4c(t, w, Z3, zb3, mesh: MeshTables, num_ord, flux_prev=None):
     return flux
 
 
-def adv_ver_cdiff(t, w, mesh: MeshTables, flux_prev=None):
+def adv_ver_cdiff(t, w, mesh: MeshTables, flux_prev=None, moment: int = 1):
     """Centred-difference vertical flux [.., nl, N] (ref adv_tra_ver_cdiff
     :542-590)."""
     nl = mesh.nl
@@ -310,9 +334,10 @@ def adv_ver_cdiff(t, w, mesh: MeshTables, flux_prev=None):
     lev = torch.arange(nl, device=t.device)[:, None]
     tm1 = torch.cat([t[..., :1, :], t], -2)[..., :nl, :]
     t0 = torch.cat([t, t[..., -1:, :]], -2)[..., :nl, :]
-    interior = (0.5 * (tm1 + t0)) * w * mesh.area
+    interior = _mpow(0.5 * (tm1 + t0), moment) * w * mesh.area
     expr = torch.where(lev == uln0[None, :],
-                       _surface_flux(t, w, mesh)[..., None, :], interior)
+                       _surface_flux(t, w, mesh, moment)[..., None, :],
+                       interior)
     expr = torch.where(lev < uln0[None, :], 0.0, expr)
     expr = torch.where(lev >= (nln - 1)[None, :], 0.0, expr)
     flux = -expr
@@ -333,7 +358,7 @@ def _ppm_slope(hm, h0, hp, tm, t0, tp):
 
 
 def adv_ver_ppm(t, w, hnode_old, hnode_new, mesh: MeshTables, dt,
-                flux_prev=None):
+                flux_prev=None, moment: int = 1):
     """Piecewise-parabolic vertical flux [.., nl, N] (Colella & Woodward
     1984; ref adv_tra_vert_ppm oce_adv_tra_ver.F90:361-538): the interface
     values of the non-uniform grid (eq. 1.6-1.8) on ``hnode_new``, the
@@ -389,19 +414,23 @@ def adv_ver_ppm(t, w, hnode_old, hnode_new, mesh: MeshTables, dt,
     aj = 6.0 * (t - 0.5 * (aL + aR))
 
     # the interface fluxes (ref :522-536): from the layer below where
-    # W > 0, from the layer above where W < 0
+    # W > 0, from the layer above where W < 0; the moment is taken of the
+    # negated reconstruction (ref :517-525), so under moment 2 the sign
+    # goes, as in the reference and the JAX package
     w_lay = w[:-1]
     x_up = torch.clamp_max(w_lay * dt / hO, 1.0)
-    from_below = (-aL - 0.5 * x_up * (aR - aL + (1.0 - 2.0 / 3.0 * x_up) * aj)) \
+    from_below = _mpow(-aL - 0.5 * x_up * (aR - aL + (1.0 - 2.0 / 3.0 * x_up)
+                                           * aj), moment) \
         * mesh.area[:-1] * w_lay
     w_dn = w[1:]
     x_dn = torch.clamp_max(-w_dn * dt / hO, 1.0)
-    from_above = (-aR + 0.5 * x_dn * (aR - aL - (1.0 - 2.0 / 3.0 * x_dn) * aj)) \
+    from_above = _mpow(-aR + 0.5 * x_dn * (aR - aL - (1.0 - 2.0 / 3.0 * x_dn)
+                                           * aj), moment) \
         * mesh.area[1:] * w_dn
     zrow = torch.zeros_like(t[..., :1, :])
     tvert = torch.cat([torch.where(w_lay > 0, from_below, 0.0), zrow], -2) \
         + torch.cat([zrow, torch.where(w_dn < 0, from_above, 0.0)], -2)
-    surf = -take_row(tv, uln0) * take_row(w, uln0) \
+    surf = -_mpow(take_row(tv, uln0), moment) * take_row(w, uln0) \
         * take_row(mesh.area, uln0)
     tvert = torch.where(lev == uln0[None, :], surf[..., None, :], tvert)
     tvert = torch.where(lev < uln0[None, :], 0.0, tvert)

@@ -57,8 +57,8 @@ class IceState:
     thdgrsn: torch.Tensor         # [N]
     flice: torch.Tensor           # [N] snow->ice flooding rate
     a_ice_old: torch.Tensor       # [N] (pre-thermo concentration, for fluxes)
-    # adaptive-EVP stability parameters (whichEVP=2, not ported: carried so
-    # that the state matches the JAX package's field for field)
+    # adaptive-EVP stability parameters (whichEVP=2, ice/evp.py:
+    # aevp_subcycles; restarts carry them, io/restart.py ICE_FIELDS)
     alpha_aevp: torch.Tensor      # [E]
     beta_aevp: torch.Tensor       # [N]
 

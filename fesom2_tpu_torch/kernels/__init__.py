@@ -4,8 +4,8 @@
 wrappers live beside their plain torch versions, in ``core/ops.py``,
 ``core/tracers.py``, ``core/ssh.py``, ``core/eos.py``,
 ``core/mixing/kpp.py``, ``ice/evp.py``,
-``ice/icepack/thermo_vertical.py``, ``ice/icepack/itd.py`` and
-``scripts/gather_cost_model.py``).  The library is built and loaded on the
+``ice/icepack/thermo_vertical.py``, ``ice/icepack/itd.py``,
+``core/diagnostics.py`` and ``scripts/gather_cost_model.py``).  The library is built and loaded on the
 first launch, never at import: the CPU path needs neither ``nvcc`` nor a
 card.
 
@@ -23,7 +23,8 @@ KERNELS = ("node_edge_reduce", "elem_to_node_mean", "tridiag_solve",
            "fct_bounds", "ring_spmv", "block_schwarz", "window_gather",
            "onehot_gather", "pressure_bv", "kpp_column",
            "elem_contrib_to_nodes", "mevp_subcycles", "evp_subcycles",
-           "aevp_subcycles", "bl99_temperature_solve", "itd_remap")
+           "aevp_subcycles", "bl99_temperature_solve", "itd_remap",
+           "dens_moc_bin")
 # the source of each kernel under csrc/, where it is not <name>.cu (the
 # three EVP rheologies are instantiations of one kernel)
 SOURCES = {"mevp_subcycles": "mevp_subcycle.cu",
@@ -56,6 +57,7 @@ _ARGTYPES = {
     "aevp_subcycles": [_P] * 7 + [_I] * 4 + [_D] * 5 + [_I, _P],
     "bl99_temperature_solve": [_P] * 27 + [_I] * 6 + [_D] * 3 + [_I, _P],
     "itd_remap": [_P] * 4 + [_I] * 8 + [_P],
+    "dens_moc_bin": [_P] * 11 + [_I] * 4 + [_P],
     # no stream: the launch bl99_temperature_solve makes, into a host
     # int32 [2]
     "bl99_plan": [_I, _I, _P],

@@ -34,9 +34,9 @@ and the initial state come from files where a ``forcing_path`` is given
 (the NCEP test set or the ``&nam_sbc`` layout, and the WOA18
 climatology), else they are built in code; the tidal
 potential, the sea-level pressure term and the relaxation to climatology
-run where the configuration asks for them.  Configuration branches outside
-the port raise NotImplementedError naming the ROADMAP item that will port
-them.
+run where the configuration asks for them; with ``cfg.diag.ldiag_DVD``
+the tracer step also computes the discrete variance decay (``dvd_h``,
+``dvd_v``).
 """
 from __future__ import annotations
 
@@ -89,21 +89,14 @@ def mix_schemes(cfg: ModelConfig):
 
 
 def check_slice(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for every configuration branch the port
-    does not have yet, naming its ROADMAP item; ValueError for a name the
-    JAX package does not know either."""
-    missing = []
+    """Raise ValueError for a name the JAX package does not know either
+    (every configuration branch of the JAX package is ported)."""
     if cfg.ale.which_ALE not in ("linfs", "zlevel", "zstar"):
         raise ValueError(f"which_ALE='{cfg.ale.which_ALE}': linfs, zlevel "
                          "or zstar")
     main, _ = mix_schemes(cfg)
     if main is not None and main not in MAIN_MIX_SCHEMES:
         raise ValueError(f"unknown mix_scheme {cfg.dyn.mix_scheme}")
-    if cfg.diag.ldiag_DVD:
-        missing.append("the DVD diagnostic (item 20)")
-    if missing:
-        raise NotImplementedError("not ported yet (ROADMAP): "
-                                  + "; ".join(missing))
 
 
 class Model(nn.Module):
@@ -241,9 +234,11 @@ class Model(nn.Module):
         """The unperturbed column at rest; the soufflet channel's initial
         temperature, salinity and velocity where it runs, else zero T/S
         for the caller to fill (``run.globe_ocean_inputs``); the passive
-        tracers of ``setup_passive_tracers`` (``fesom2_tpu/model.py:62-74``)."""
+        tracers of ``setup_passive_tracers`` (``fesom2_tpu/model.py:62-74``);
+        room for T's and S's DVD under ``ldiag_DVD``."""
         mesh = self.mesh
         state = allocate_state(mesh, self.cfg.tra.num_tracers, self.dtype,
+                               n_dvd=2 if self.cfg.diag.ldiag_DVD else 0,
                                with_gm=self.cfg.dyn.Fer_GM)
         state = init_thickness_linfs(state, mesh)
         if self.is_soufflet:
@@ -444,6 +439,33 @@ def _with_row(x: torch.Tensor, i: int, row: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[:i], row[None], x[i + 1:]], 0)
 
 
+def _dvd(state: OceanState, mesh: MeshTables, cfg, advect, t, tAB, rec,
+         dttf_h, dttf_v) -> OceanState:
+    """The discrete variance decay of the first ``dvd_h.shape[0]`` tracers
+    (Klingbeil et al. 2014 eq. 23; ref gen_modules_diag.F90:744-838;
+    ``fesom2_tpu/model.py:649-663``): the squared face values advected by
+    ``advect`` (a second advection pass, of moment 2) less the square of
+    the advected field, horizontal and vertical apart, per second.  t, tAB,
+    rec (MUSCL's folded gradients of tAB, or None) and (dttf_h, dttf_v)
+    are the first pass's; the tracers are independent rows, so their first
+    rows are what JAX computes anew for the DVD tracers."""
+    nd = state.dvd_h.shape[0]
+    dt = cfg.dt
+    td, tABd = t[:nd], tAB[:nd]
+    if rec is not None:
+        rec = (rec[0][:nd], rec[1][:nd])
+    d2h, d2v = advect(td, tABd, rec, moment=2)
+    nmask = mesh.node_layer_mask
+    hN = torch.where(nmask, state.hnode_new, 1.0)
+    adv1_h = (tABd * state.hnode + dttf_h[:nd]) / hN
+    adv1_v = (td * state.hnode + dttf_v[:nd]) / hN
+    tgt2_h = (tABd ** 2 * state.hnode + d2h) / hN
+    tgt2_v = (td ** 2 * state.hnode + d2v) / hN
+    return replace(
+        state, dvd_h=torch.where(nmask, (tgt2_h - adv1_h ** 2) / dt, 0.0),
+        dvd_v=torch.where(nmask, (tgt2_v - adv1_v ** 2) / dt, 0.0))
+
+
 def solve_tracers(state: OceanState, mesh: MeshTables, cfg,
                   st: TracerStatics, forcing: Forcing, is_nonlinfs: float,
                   sst: Optional[soufflet.SouffletStatics] = None, fer=None,
@@ -484,6 +506,68 @@ def solve_tracers(state: OceanState, mesh: MeshTables, cfg,
         adv_u, adv_v = adv_u + fer[0], adv_v + fer[1]
         adv_we, adv_w = adv_we + fer[2], adv_w + fer[2]
 
+    vflux = tracers._edge_vflux(adv_u, adv_v, state.helem, mesh)
+    ver = cfg.tra.tra_adv_ver
+
+    def advect(t, tAB, rec, moment=1):
+        """(dttf_h, dttf_v) of the advection of t (``tAB`` its AB
+        interpolation, ``rec`` the folded MUSCL gradients of tAB):
+        ``run_adv`` of ``fesom2_tpu/model.py:525-599``.  Moment 2 advects
+        the squares of the face values, for the DVD diagnostic."""
+        tm = tracers._mpow(t, moment)
+        if use_fct:
+            flux_v_lo = tracers.adv_ver_upw1(t, adv_we, mesh, moment=moment)
+            flux_h_lo, flux_h = tracers.adv_hor_lo_ho(
+                t, tAB, vflux, mesh, st, rec, cfg.tra.tra_adv_ph, scheme=hor,
+                moment=moment)
+            lo_h = edge_divergence(flux_h_lo, mesh)
+            fct_lo = (tm * state.hnode
+                      + (lo_h + (flux_v_lo[..., :-1, :]
+                                 - flux_v_lo[..., 1:, :])) * dt / av) \
+                / torch.where(nmask, state.hnode_new, 1.0)
+            fct_lo = torch.where(nmask, fct_lo, 0.0)
+            if cfg.dyn.w_split:
+                # the low-order solution takes the implicit part too; the
+                # high-order flux is then taken against the full-w upwind
+                # flux
+                fct_lo = tracers.adv_vert_impl(fct_lo, state.w_i,
+                                               state.hnode_new, mesh, dt)
+                flux_v_lo = tracers.adv_ver_upw1(t, adv_w, mesh,
+                                                 moment=moment)
+            w_ho, fp = adv_w, flux_v_lo
+        else:
+            w_ho, fp = adv_we, None
+            if hor != "UPW1":
+                flux_h = tracers.adv_hor_muscl_r(
+                    tAB, vflux, mesh, st, rec, cfg.tra.tra_adv_ph,
+                    boundary_fallback=(hor == "MUSCL"), moment=moment)
+            else:
+                flux_h = tracers.adv_hor_upw1(tAB, adv_u, adv_v, state.helem,
+                                              mesh, vflux=vflux,
+                                              moment=moment)
+        if ver == "QR4C":
+            flux_v = tracers.adv_ver_qr4c(tAB, w_ho, state.Z_3d,
+                                          state.zbar_3d, mesh,
+                                          cfg.tra.tra_adv_pv, flux_prev=fp,
+                                          moment=moment)
+        elif ver == "PPM":
+            flux_v = tracers.adv_ver_ppm(tAB, w_ho, state.hnode,
+                                         state.hnode_new, mesh, dt,
+                                         flux_prev=fp, moment=moment)
+        elif ver == "CDIFF":
+            flux_v = tracers.adv_ver_cdiff(tAB, w_ho, mesh, flux_prev=fp,
+                                           moment=moment)
+        else:
+            flux_v = tracers.adv_ver_upw1(tAB, w_ho, mesh, flux_prev=fp,
+                                          moment=moment)
+        if use_fct:
+            flux_h, flux_v = tracers.fct_limiter(tm, fct_lo, flux_h, flux_v,
+                                                 mesh, dt)
+            return tracers.flux2dtracer(
+                flux_h, flux_v, mesh, dt, ttf=tm, lo=fct_lo,
+                hnode=state.hnode, hnode_new=state.hnode_new)
+        return tracers.flux2dtracer(flux_h, flux_v, mesh, dt)
+
     # ---- stage 1: advection + explicit diffusion --------------------------
     # AB interpolation (init_tracers_AB, oce_tracer_mod.F90:48-62)
     tAB = -(0.5 + eps) * state.tr_old[:ntr] + (1.5 + eps) * t
@@ -491,53 +575,11 @@ def solve_tracers(state: OceanState, mesh: MeshTables, cfg,
     gx, gy = gxc[ntr:], gyc[ntr:]
     rec = tracers.fill_up_dn_grad_r(gxc[:ntr], gyc[:ntr], mesh, st) \
         if hor != "UPW1" else None
-    vflux = tracers._edge_vflux(adv_u, adv_v, state.helem, mesh)
-
-    if use_fct:
-        flux_v_lo = tracers.adv_ver_upw1(t, adv_we, mesh)
-        flux_h_lo, flux_h = tracers.adv_hor_lo_ho(t, tAB, vflux, mesh, st,
-                                                  rec, cfg.tra.tra_adv_ph,
-                                                  scheme=hor)
-        lo_h = edge_divergence(flux_h_lo, mesh)
-        fct_lo = (t * state.hnode
-                  + (lo_h + (flux_v_lo[..., :-1, :] - flux_v_lo[..., 1:, :]))
-                  * dt / av) / torch.where(nmask, state.hnode_new, 1.0)
-        fct_lo = torch.where(nmask, fct_lo, 0.0)
-        if cfg.dyn.w_split:
-            # the low-order solution takes the implicit part too; the
-            # high-order flux is then taken against the full-w upwind flux
-            fct_lo = tracers.adv_vert_impl(fct_lo, state.w_i,
-                                           state.hnode_new, mesh, dt)
-            flux_v_lo = tracers.adv_ver_upw1(t, adv_w, mesh)
-        w_ho, fp = adv_w, flux_v_lo
-    else:
-        w_ho, fp = adv_we, None
-        if hor != "UPW1":
-            flux_h = tracers.adv_hor_muscl_r(
-                tAB, vflux, mesh, st, rec, cfg.tra.tra_adv_ph,
-                boundary_fallback=(hor == "MUSCL"))
-        else:
-            flux_h = tracers.adv_hor_upw1(tAB, adv_u, adv_v, state.helem,
-                                          mesh, vflux=vflux)
-    ver = cfg.tra.tra_adv_ver
-    if ver == "QR4C":
-        flux_v = tracers.adv_ver_qr4c(tAB, w_ho, state.Z_3d, state.zbar_3d,
-                                      mesh, cfg.tra.tra_adv_pv, flux_prev=fp)
-    elif ver == "PPM":
-        flux_v = tracers.adv_ver_ppm(tAB, w_ho, state.hnode, state.hnode_new,
-                                     mesh, dt, flux_prev=fp)
-    elif ver == "CDIFF":
-        flux_v = tracers.adv_ver_cdiff(tAB, w_ho, mesh, flux_prev=fp)
-    else:
-        flux_v = tracers.adv_ver_upw1(tAB, w_ho, mesh, flux_prev=fp)
-    if use_fct:
-        flux_h, flux_v = tracers.fct_limiter(t, fct_lo, flux_h, flux_v, mesh,
-                                             dt)
-        dttf_h, dttf_v = tracers.flux2dtracer(
-            flux_h, flux_v, mesh, dt, ttf=t, lo=fct_lo, hnode=state.hnode,
-            hnode_new=state.hnode_new)
-    else:
-        dttf_h, dttf_v = tracers.flux2dtracer(flux_h, flux_v, mesh, dt)
+    dttf_h, dttf_v = advect(t, tAB, rec)
+    if cfg.diag.ldiag_DVD and state.dvd_h.shape[0] > 0:
+        with record_function("step.tracers.dvd"):
+            state = _dvd(state, mesh, cfg, advect, t, tAB, rec, dttf_h,
+                         dttf_v)
     del_ttf = dttf_h + dttf_v
     if redi is not None:
         taper, Ki_l = redi

@@ -1,33 +1,41 @@
-"""Run driver for the port: setup -> time loop -> norms and timing.
+"""The port's run entry points: setup -> time loop -> output, restarts
+and diagnostics.
 
     python -m fesom2_tpu_torch.run soufflet --steps N --device cuda \\
-        [--f32] [--mesh DIR]
+        [--f32] [--mesh DIR] [--result DIR]
     python -m fesom2_tpu_torch.run pi --steps N --device cuda \\
         [--f32] [--level 7] [--seed 0] [--mesh DIR] [--parity ci|fast] \\
-        [--forcing DIR] [--icepack]
+        [--forcing DIR] [--icepack] [--result DIR] [--restart-every K] \\
+        [--resume]
+    python -m fesom2_tpu_torch.run --version | --info
 
-The port of ``fesom2_tpu/run.py:run_soufflet`` and of the time loop of
-``run_pi``.  ``--device`` defaults to cuda and raises where CUDA is
-missing; the CPU runs only when asked for with ``--device cpu``.  Without
-``--mesh`` the soufflet run uses the default code-built channel
-(``mesh/channel.py``) and the pi run writes the globe of ``--level``
-(``mesh/globe.py``; level 7: 114,033 ocean nodes) into a temporary
-directory.  Output streams, restarts and ``mkrun`` are not ported yet
-(ROADMAP queue 1 item 20).
+The port of ``fesom2_tpu/run.py``.  ``--device`` defaults to cuda and
+raises where CUDA is missing; the CPU runs only when asked for with
+``--device cpu``.  Without ``--mesh`` the soufflet run uses the default
+code-built channel (``mesh/channel.py``) and the pi run writes the globe
+of ``--level`` (``mesh/globe.py``; level 7: 114,033 ocean nodes) into a
+temporary directory.  With ``--result DIR`` a run writes its mean output
+streams (``io/streams.py``: the default ocean and ice streams, Icepack's
+with ``--icepack``) and, on a fresh pi run, the mesh description
+``fesom.mesh.diag.nc`` (``io/mesh_info.py``) into DIR; ``--restart-every
+K`` writes ``DIR/restart.nc`` (``io/restart.py``) and ``DIR/fesom.clock``
+every K steps, and ``--resume`` continues from them up to step N.
+``mkrun`` is not ported yet (ROADMAP queue 1 item 20e).
 
 ``run_pi`` takes coupled ocean + ice steps of the global configuration
 (``model.setup_pi_model``, ``model.pi_initial_state``,
-``model.pi_coupled_step_fn``) and raises where ice shows up outside the
-EVP subdomain; with ``use_icepack`` (``run pi --icepack``) the ice is the
+``model.pi_coupled_step_fn``) and scans every step for a blowup
+(``core/diag.py``: ``check_blowup``, ice outside the EVP subdomain
+included); with ``use_icepack`` (``run pi --icepack``) the ice is the
 multi-category Icepack column physics (``ice/icepack``), its EVP on the
 whole mesh, started from the initial ice by ``init_icepack_state``
-(``fesom2_tpu/run.py:71-78, 134-135``; its output streams are not
-ported).  With forcing from files (``--forcing DIR``: the NCEP test
-set and ``woa18_netcdf_5deg.nc`` in DIR) it switches the forcing year as
-``fesom2_tpu/run.py:108-156`` does: the step index it hands the step
-counts from the start of the clock's year, and at a year's end the next
-year's series, read ahead on a host thread (``SbcProvider``), replace it.  ``run_pi_ocean`` drives its ocean alone, with shortwave
-penetration and no ice, as the coupled step of
+(``fesom2_tpu/run.py:71-78, 134-135``).  With forcing from files
+(``--forcing DIR``: the NCEP test set and ``woa18_netcdf_5deg.nc`` in
+DIR) it switches the forcing year as ``fesom2_tpu/run.py:108-156`` does:
+the step index it hands the step counts from the start of the clock's
+year, and at a year's end the next year's series, read ahead on a host
+thread (``SbcProvider``), replace it.  ``run_pi_ocean`` drives its ocean
+alone, with shortwave penetration and no ice, as the coupled step of
 ``fesom2_tpu/model.py:396-407`` does below open water;
 ``globe_ocean_inputs`` gives that run's initial state and forcing on a
 mesh of ``mesh/globe.py``.
@@ -35,23 +43,30 @@ mesh of ``mesh/globe.py``.
 from __future__ import annotations
 
 import argparse
+import os
 import tempfile
 import time
 from dataclasses import dataclass, replace
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from .core import tracers
+from .core.diag import (blowup_reasons, check_blowup, first_bad_step,
+                        format_step_info, ice_outside_mask, step_info)
 from .core.state import OceanState, Forcing, zero_forcing
 from .forcing.atmos import SbcProvider
-from .mesh import MeshTables
+from .io.mesh_info import write_mesh_info
+from .io.restart import read_restart, write_restart
+from .io.streams import (OutputStreams, default_ice_streams,
+                         default_icepack_streams, default_ocean_streams)
 from .mesh.globe import write_globe
 from .ice.state import IceState
 from .model import (Model, globe_atm_data, globe_ocean_fixtures,
                     pi_coupled_step_fn, pi_initial_state, setup_pi_model,
                     setup_soufflet_model)
-from .utils.clock import Clock
+from .utils.clock import Clock, read_clock_file, write_clock_file
 
 # the inputs of a run on the code-built globe, under one roof:
 # ``globe_atm_data`` (defined beside ``setup_pi_model``, which needs it)
@@ -63,9 +78,12 @@ __all__ = ["RunTimers", "step_info", "format_step_info",
 
 @dataclass
 class RunTimers:
-    """Wall-clock accounting of the step loop (ref BENCHMARK RUNTIME)."""
+    """Wall-clock accounting of the run (ref BENCHMARK RUNTIME): the
+    steps, the output streams' updates and flushes, the restarts."""
     setup: float = 0.0
     step: float = 0.0
+    output: float = 0.0
+    restart: float = 0.0
     total: float = 0.0
     n_steps: int = 0
 
@@ -77,50 +95,21 @@ class RunTimers:
                  f" steps               : {self.n_steps}",
                  f" runtime setup [s]   : {self.setup:.3f}",
                  f" runtime total [s]   : {self.total:.3f}",
-                 f" runtime step  [s]   : {self.step:.3f}"]
+                 f" runtime step  [s]   : {self.step:.3f}",
+                 f" runtime output [s]  : {self.output:.3f}",
+                 f" runtime restart [s] : {self.restart:.3f}"]
         if self.n_steps:
             lines.append(f" sec/step            : "
                          f"{self.step / self.n_steps:.4f}")
         return "\n".join(lines)
 
 
-def step_info(state: OceanState, mesh: MeshTables,
-              ice: Optional[IceState] = None) -> Dict[str, float]:
-    """Global min/max norms of the prognostic fields; with ``ice`` also the
-    largest concentration, thickness and drift speed, the ice area [m^2]
-    and the ice volume [m^3]."""
-    nmask = mesh.node_layer_mask
-    area = mesh.area[0]
-    T = state.tr[0][nmask]
-    S = state.tr[1][nmask]
-    vals = torch.stack([
-        state.eta.min(), state.eta.max(), (state.eta * area).sum() / area.sum(),
-        T.min(), T.max(), S.min(), S.max(), state.u.abs().max(),
-        state.v.abs().max(), state.w.abs().max(), state.cfl_z.max()])
-    names = ("eta_min", "eta_max", "eta_int", "T_min", "T_max", "S_min",
-             "S_max", "u_max", "v_max", "w_max", "cfl_z_max")
-    if ice is not None:
-        vals = torch.cat([vals, torch.stack([
-            ice.a_ice.max(), ice.m_ice.max(), ice.u_ice.abs().max(),
-            (ice.a_ice * area).sum(), (ice.m_ice * area).sum()])])
-        names += ("aice_max", "hice_max", "uice_max", "ice_area",
-                  "ice_volume")
-    return dict(zip(names, vals.tolist()))
-
-
 def ice_outside_subdomain(ice: IceState, model: Model) -> int:
-    """Nodes with a_ice > 0.01 outside the EVP subdomain (0 without one):
-    the dynamics are frozen there, so any such node means the cap was
-    chosen too tight (``fesom2_tpu/core/diag.py:72-78``)."""
-    sub = model.ice_sub
-    if sub is None:
+    """Nodes with a_ice > 0.01 outside the EVP subdomain (0 without one)
+    (``core.diag.ice_outside_mask``)."""
+    if model.ice_sub is None:
         return 0
-    return int(((ice.a_ice > 0.01) & ~sub.node_mask).sum())
-
-
-def format_step_info(info: Dict[str, float], step: int) -> str:
-    return " | ".join([f"step {step:7d}"]
-                      + [f"{k}={v:+.6e}" for k, v in info.items()])
+    return int(ice_outside_mask(ice, model.ice_sub).sum())
 
 
 def _sync(device: torch.device) -> None:
@@ -131,9 +120,12 @@ def _sync(device: torch.device) -> None:
 def run_soufflet(n_steps: int = 72, *, device="cuda", dtype=torch.float64,
                  mesh_path: Optional[str] = None, logfile_outfreq: int = 10,
                  verbose: bool = True, model: Optional[Model] = None,
-                 state: Optional[OceanState] = None):
-    """Run the soufflet channel (no ice, no external forcing).
-    Returns (model, final state, timers)."""
+                 state: Optional[OceanState] = None,
+                 result_path: Optional[str] = None):
+    """Run the soufflet channel (no ice, no external forcing); with
+    ``result_path`` the default ocean streams are written there
+    (``fesom2_tpu/run.py:192-229``).  Returns (model, final state,
+    timers)."""
     t_all = time.perf_counter()
     if model is None:
         model = setup_soufflet_model(mesh_path, device=device, dtype=dtype)
@@ -142,6 +134,9 @@ def run_soufflet(n_steps: int = 72, *, device="cuda", dtype=torch.float64,
     state = state if state is not None else model.initial_state()
     forcing = zero_forcing(mesh, model.dtype)
     step = model.step_fn()
+    clock = Clock(0.0, 1, model.cfg.clock.yearnew)
+    streams = None if result_path is None else OutputStreams(
+        default_ocean_streams(mesh), result_path)
     timers = RunTimers(setup=time.perf_counter() - t_all)
     with torch.no_grad():
         for k in range(n_steps):
@@ -151,9 +146,20 @@ def run_soufflet(n_steps: int = 72, *, device="cuda", dtype=torch.float64,
             _sync(dev)
             timers.step += time.perf_counter() - t0
             timers.n_steps += 1
+            before = clock.copy()
+            clock.advance(model.cfg.dt)
+            if streams is not None:
+                t0 = time.perf_counter()
+                streams.update_means(state, None)
+                streams.maybe_flush(before, clock, k)
+                timers.output += time.perf_counter() - t0
             if verbose and (k + 1) % logfile_outfreq == 0:
                 print(format_step_info(step_info(state, mesh), k + 1),
                       flush=True)
+    if streams is not None:
+        t0 = time.perf_counter()
+        streams.finalize()
+        timers.output += time.perf_counter() - t0
     timers.total = time.perf_counter() - t_all
     if verbose:
         print(timers.report(dev), flush=True)
@@ -205,28 +211,52 @@ def run_pi(model: Model, atm, state: OceanState, ice: IceState,
            n_steps: int, *, first_step: int = 0, logfile_outfreq: int = 10,
            verbose: bool = False, timers: Optional[RunTimers] = None,
            use_icepack: bool = False, icepack_opts: Optional[dict] = None,
-           ipk=None):
+           ipk=None, result_path: Optional[str] = None,
+           restart_every: Optional[int] = None, resume: bool = False,
+           stream_defs=None):
     """``n_steps`` coupled ocean + ice steps of the global configuration
     from step index ``first_step`` (model time ``first_step * dt``).
-    Prints the step norms every ``logfile_outfreq`` steps when ``verbose``;
-    raises where ice lies outside the EVP subdomain at such a step or at
-    the end.  Returns (state, ice).
+    Prints the step norms every ``logfile_outfreq`` steps when
+    ``verbose``.  Returns (state, ice).
+
+    Every step is scanned for a blowup (``core.diag.check_blowup``, with
+    the EVP subdomain's escape guard where the EVP runs on one), as in
+    ``fesom2_tpu/run.py:164-174``, but with no host wait each step: a
+    sticky flag on the device keeps the first bad step, and the host reads
+    it every ``logfile_outfreq`` steps, before each restart and at the
+    end.  On a bad flag the run writes ``blowup.nc`` (a restart file of
+    the state at the read) into ``result_path``, if there is one, and
+    raises, naming the first bad step.  This is the one difference from
+    the JAX package, which reads the flag after every step: the state
+    dumped is that of the read, up to ``logfile_outfreq - 1`` steps after
+    the first bad one.
+
+    With ``result_path`` the run writes there, as ``fesom2_tpu/run.py:
+    48-190`` does: the mesh description ``fesom.mesh.diag.nc`` on a fresh
+    run; the mean streams ``stream_defs`` (default: the default ocean and
+    ice streams, and Icepack's under Icepack; written on a thread); with
+    ``restart_every``, ``restart.nc`` and
+    ``fesom.clock`` every that many steps.  ``resume`` continues from
+    those two files: the state, ice (and Icepack state) are read into the
+    ones given, the clock is read, and the run goes from the restart's
+    step up to step ``n_steps``: under ``resume`` ``n_steps`` is the run's
+    total step count and ``first_step`` is not read.
 
     ``use_icepack`` switches the model to Icepack (``cfg.run.use_icepack``
     and ``cfg.icepack = IcepackConfig(**icepack_opts)``, as
     ``fesom2_tpu/run.py:71-78`` does; a model already so configured keeps
     its IcepackConfig when ``icepack_opts`` is None) and returns (state,
     ice, ipk); ``ipk`` continues a run, else ``init_icepack_state`` builds
-    it from ``ice``.  Its EVP runs on the whole mesh: no subdomain check.
+    it from ``ice``.  Its EVP runs on the whole mesh: no subdomain guard.
 
     Where the forcing came from files (``model.sbc``), the clock starts on
     Jan 1 of ``cfg.clock.yearnew`` at step 0 and the step index counts from
     the start of the clock's year (``fesom2_tpu/run.py:108-156``); ``atm``
-    is the series of the year ``first_step`` falls in.  A run that crosses
+    is the series of the year the first step falls in.  A run that crosses
     a year's end switches to the next year's series: read ahead on a host
     thread by ``SbcProvider`` (evict the old year, get the new one,
     prefetch the one after), or the same series again under
-    ``y_perpetual``."""
+    ``y_perpetual``; the atm-backed streams follow."""
     if use_icepack or model.cfg.run.use_icepack:
         from .ice.icepack import IcepackConfig, init_icepack_state
         cfg = model.cfg
@@ -239,13 +269,43 @@ def run_pi(model: Model, atm, state: OceanState, ice: IceState,
                                      ice.m_snow, ice.t_skin,
                                      dtype=model.dtype)
     icepack = model.cfg.run.use_icepack
-    step = pi_coupled_step_fn(model, atm)
     mesh = model.mesh
     dev = mesh.zbar.device
     dt = model.cfg.dt
+    t_out = time.perf_counter()
     clock = Clock(0.0, 1, model.cfg.clock.yearnew)
-    for _ in range(first_step):
-        clock.advance(dt)
+    if resume:
+        if result_path is None:
+            raise ValueError("resume needs the result_path of the run")
+        loaded = read_restart(os.path.join(result_path, "restart.nc"),
+                              state, ice, ipk=ipk, mesh=mesh, cfg=model.cfg)
+        state, ice = loaded[:2]
+        if icepack:
+            ipk = loaded[2]
+        clock = read_clock_file(os.path.join(result_path, "fesom.clock"))
+        first_step = int(state.step)
+        n_steps = max(n_steps - first_step, 0)
+        if verbose:
+            print(f" --> resumed from {result_path}/restart.nc at step "
+                  f"{first_step} (clock {clock.yearnew}-{clock.daynew})",
+                  flush=True)
+    else:
+        for _ in range(first_step):
+            clock.advance(dt)
+    streams = None
+    if result_path is not None:
+        os.makedirs(result_path, exist_ok=True)
+        if not resume:
+            write_mesh_info(result_path, mesh)   # fvom_main.F90, fresh runs
+        if stream_defs is None:
+            stream_defs = default_ocean_streams(mesh) + default_ice_streams()
+            if icepack:
+                stream_defs += default_icepack_streams(model.cfg.icepack)
+        streams = OutputStreams(stream_defs, result_path)
+    t_out = time.perf_counter() - t_out
+    if timers is not None:
+        timers.output += t_out
+    step = pi_coupled_step_fn(model, atm)
     provider, steps_per_year, k_off = None, None, 0
     sbc = model.sbc
     if sbc is not None and n_steps > 0:
@@ -256,58 +316,140 @@ def run_pi(model: Model, atm, state: OceanState, ice: IceState,
             provider = SbcProvider(mesh, sbc, model.dtype)
             provider._cache[clock.yearnew] = atm
             provider.prefetch(clock.yearnew + 1)
-    def take(state, ice, ipk, k):
-        if icepack:
-            state, ice, ipk, _ = step(state, ice, k, ipk)
-        else:
-            state, ice, _ = step(state, ice, k)
-        return state, ice, ipk
+    ice_sub = None if icepack else model.ice_sub
+    first_bad = torch.full((), -1, dtype=torch.int32, device=dev)
+
+    def read_flag(k):
+        """Raise if a step so far blew up (a host read of the flag)."""
+        bad = int(first_bad)
+        if bad < 0:
+            return
+        where = ""
+        if result_path is not None:
+            where = os.path.join(result_path, "blowup.nc")
+            write_restart(where, state, ice, k, ipk=ipk)
+            where = f"; state at step {k + 1} dumped to {where}"
+        raise RuntimeError(
+            f"blowup detected at step {bad} (read at step {k + 1}): "
+            f"{blowup_reasons(state, mesh, ice, ice_sub)}{where}")
 
     for k in range(first_step, first_step + n_steps):
         if timers is None:
             # no host wait between steps: the host queues the next step's
             # forcing and ice while the card finishes the ocean's
-            state, ice, ipk = take(state, ice, ipk, k - k_off)
+            out = step(state, ice, k - k_off, ipk) if icepack \
+                else step(state, ice, k - k_off)
         else:
             _sync(dev)
             t0 = time.perf_counter()
-            state, ice, ipk = take(state, ice, ipk, k - k_off)
+            out = step(state, ice, k - k_off, ipk) if icepack \
+                else step(state, ice, k - k_off)
             _sync(dev)
             timers.step += time.perf_counter() - t0
             timers.n_steps += 1
-        year = clock.yearnew
+        state, ice, oforc = out[0], out[1], out[-1]
+        if icepack:
+            ipk = out[2]
+        first_bad = first_bad_step(check_blowup(state, mesh, ice, ice_sub),
+                                   first_bad, k + 1)
+        before = clock.copy()
         clock.advance(dt)
-        if steps_per_year is not None and clock.yearnew != year:
+        if steps_per_year is not None and clock.yearnew != before.yearnew:
             k_off = k + 1
             if provider is not None:
-                provider.evict(year)
+                provider.evict(before.yearnew)
                 atm = provider.get(clock.yearnew)
                 provider.prefetch(clock.yearnew + 1)
                 step = pi_coupled_step_fn(model, atm)
+                if streams is not None:
+                    streams.set_atm(atm)
             if verbose:
                 print(f" --> forcing year switched to {clock.yearnew}"
                       f"{' (perpetual)' if provider is None else ''}",
                       flush=True)
+        if streams is not None:
+            t0 = time.perf_counter()
+            with record_function("step.output"):
+                streams.update_means(state, ice, ipk, oforc)
+                streams.maybe_flush(before, clock, k)
+            if timers is not None:
+                timers.output += time.perf_counter() - t0
         last = k + 1 == first_step + n_steps
-        if last or (verbose and (k + 1) % logfile_outfreq == 0):
-            outside = 0 if icepack else ice_outside_subdomain(ice, model)
-            if outside:
-                raise RuntimeError(
-                    f"step {k + 1}: ice at {outside} nodes outside the EVP "
-                    "subdomain: rebuild it with more margin "
-                    "(cfg.ice.evp_subdomain_lat)")
+        if last or (k + 1) % logfile_outfreq == 0:
+            read_flag(k)
             if verbose:
                 print(format_step_info(step_info(state, mesh, ice), k + 1),
                       flush=True)
+                if model.cfg.diag.ldiag_salt3D:
+                    from .core.diagnostics import salt3d_integral
+                    print(" total integral of salinity at timestep : %d "
+                          "%.10e" % (k + 1,
+                                     float(salt3d_integral(state, mesh))),
+                          flush=True)
+        if result_path is not None and restart_every \
+                and (k + 1) % restart_every == 0:
+            read_flag(k)
+            t0 = time.perf_counter()
+            write_restart(os.path.join(result_path, "restart.nc"), state,
+                          ice, k, ipk=ipk)
+            write_clock_file(os.path.join(result_path, "fesom.clock"), clock)
+            if timers is not None:
+                timers.restart += time.perf_counter() - t0
+    if streams is not None:
+        t0 = time.perf_counter()
+        streams.finalize()
+        if timers is not None:
+            timers.output += time.perf_counter() - t0
     if icepack:
         return state, ice, ipk
     return state, ice
 
 
+def _version_string() -> str:
+    """The checkout's git SHA with a dirty flag, or "unknown" outside a
+    git checkout (ref fesom_version_info.F90, src/CMakeLists.txt:18-26)."""
+    import subprocess
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        sha = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
+                             cwd=here, capture_output=True, text=True,
+                             timeout=5)
+        if sha.returncode != 0:
+            return "unknown"
+        dirty = subprocess.run(["git", "status", "--porcelain"],
+                               cwd=here, capture_output=True, text=True,
+                               timeout=5).stdout.strip()
+        return sha.stdout.strip() + ("-dirty" if dirty else "")
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+
+
+def print_info():
+    """--info (ref info_module.F90:19, command_line_options.F90:16): the
+    version, torch and its CUDA, and the cards."""
+    print(f"fesom2_tpu_torch version: {_version_string()}")
+    print(f"torch: {torch.__version__} (cuda {torch.version.cuda})")
+    cards = [torch.cuda.get_device_name(i)
+             for i in range(torch.cuda.device_count())] \
+        if torch.cuda.is_available() else []
+    print(f"devices: {cards or 'no CUDA device'}")
+    print("configs: pi (global ocean+ice on a code-built globe; --icepack, "
+          "--parity fast, --forcing DIR), soufflet (baroclinic channel)")
+
+
 def main(argv=None):
+    import sys
+    argv = sys.argv[1:] if argv is None else argv
+    if "--version" in argv:
+        print(_version_string())
+        return
+    if "--info" in argv:
+        print_info()
+        return
     p = argparse.ArgumentParser(description="fesom2_tpu_torch run driver")
     p.add_argument("config", choices=["soufflet", "pi"])
-    p.add_argument("--steps", type=int, default=72)
+    p.add_argument("--steps", type=int, default=72,
+                   help="steps to take (with --resume: the run's total)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; the CPU only when asked)")
     p.add_argument("--f32", action="store_true")
@@ -327,11 +469,23 @@ def main(argv=None):
                         "woa18_netcdf_5deg.nc (default: both built in code)")
     p.add_argument("--icepack", action="store_true",
                    help="pi: multi-category ice column physics (Icepack)")
+    p.add_argument("--result", default=None,
+                   help="directory of the output streams, the mesh "
+                        "description and the restarts (default: none)")
+    p.add_argument("--restart-every", type=int, default=None,
+                   help="pi: write <result>/restart.nc every N steps")
+    p.add_argument("--resume", action="store_true",
+                   help="pi: continue from <result>/restart.nc and "
+                        "fesom.clock up to step --steps")
+    p.add_argument("--version", action="store_true",
+                   help="print the checkout's git SHA")
+    p.add_argument("--info", action="store_true",
+                   help="print the version, torch and the cards")
     args = p.parse_args(argv)
     dtype = torch.float32 if args.f32 else torch.float64
     if args.config == "soufflet":
         run_soufflet(args.steps, device=args.device, dtype=dtype,
-                     mesh_path=args.mesh)
+                     mesh_path=args.mesh, result_path=args.result)
         return
     t_all = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -343,7 +497,8 @@ def main(argv=None):
                                   forcing_path=args.forcing)
     timers = RunTimers(setup=time.perf_counter() - t_all)
     run_pi(model, atm, state, ice, args.steps, verbose=True, timers=timers,
-           use_icepack=args.icepack)
+           use_icepack=args.icepack, result_path=args.result,
+           restart_every=args.restart_every, resume=args.resume)
     timers.total = time.perf_counter() - t_all
     print(timers.report(model.mesh.zbar.device), flush=True)
 

@@ -11,7 +11,8 @@ with a kernel of its own and at two the generic kernel takes; Icepack's
 bl99_temperature_solve and itd_remap on the inputs of the first Icepack
 coupled step on the level-3 and level-7 globes, and on the level-3 globe
 under MU71, the similarity coefficients and 7 ice / 1 snow layers, and
-mevp_subcycles with its strength field on the whole level-7 globe).
+mevp_subcycles with its strength field on the whole level-7 globe;
+dens_moc_bin on the level-3 globe's state after two coupled steps).
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run on a machine that has only torch:
@@ -899,3 +900,47 @@ def test_mevp_subcycles_with_strength_whole_globe_on_card(tmp_path, rng,
         got = evp.mevp_subcycles(uv0.clone(), sig0.clone(), tab, m, n)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert kernels.LAUNCHES["mevp_subcycles"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_dens_moc_bin_matches_plain_on_card(tmp_path, dtype, tol):
+    """dens_moc_bin on the level-3 globe's state after two coupled CI
+    steps on the card (8 subcycles), without and with the bolus
+    velocities, and with a layer of no density spread and a NaN interval:
+    each of the five outputs within the tolerance of its max|plain|, one
+    launch a call."""
+    _need_card()
+    from fesom2_tpu_torch.core import diagnostics as dg
+    from fesom2_tpu_torch.model import (pi_coupled_step_fn, pi_initial_state,
+                                        setup_pi_model)
+    path = globe.write_globe(str(tmp_path), level=3, n_layers=12,
+                             dz_bottom=1000.0)
+    cfg = pi_config()
+    cfg.ice.evp_rheol_steps = 8
+    m, atm = setup_pi_model(path, device="cuda", dtype=dtype, cfg=cfg)
+    s, ice = pi_initial_state(m)
+    step = pi_coupled_step_fn(m, atm)
+    for k in range(2):
+        s, ice, _ = step(s, ice, k)
+    dens = dg.interface_density(s, m.mesh, cfg)
+    bins = torch.as_tensor(dg.STD_DENS, device="cuda").to(dtype)
+    odd = dens.clone()
+    odd[2] = odd[1]
+    odd[6, 7] = float("nan")
+    rest = (s.helem, s.u, s.v, m.mesh.elem_area, m.mesh.ulevels_elem,
+            m.mesh.nlevels_elem, bins)
+    for d, fer in ((dens, (None, None)), (dens, (s.fer_u, s.fer_v)),
+                   (odd, (None, None))):
+        n0 = kernels.LAUNCHES["dens_moc_bin"]
+        got = dg.dens_moc_bin(d, *rest, *fer)
+        want = dg.dens_moc_bin_plain(d, *rest, *fer)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["dens_moc_bin"] == n0 + 1
+        ok = torch.isfinite(want).all(0).all(0)
+        assert int((~ok).sum()) <= 1
+        for k, name in enumerate(dg.DMOC_BINNED):
+            g, w = got[k][:, ok], want[k][:, ok]
+            assert float((g - w).abs().max()) <= tol * float(
+                w.abs().max()), name

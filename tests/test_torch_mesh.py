@@ -172,7 +172,10 @@ def test_port_imports_no_jax():
             "fesom2_tpu_torch.ice.icepack.ponds, "
             "fesom2_tpu_torch.ice.icepack.dedd, "
             "fesom2_tpu_torch.ice.icepack.fsd, "
-            "fesom2_tpu_torch.ice.icepack.bgc; "
+            "fesom2_tpu_torch.ice.icepack.bgc, "
+            "fesom2_tpu_torch.core.diag, fesom2_tpu_torch.core.diagnostics, "
+            "fesom2_tpu_torch.io.restart, fesom2_tpu_torch.io.mesh_info, "
+            "fesom2_tpu_torch.io.streams; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fesom2_tpu' "
             "or m.startswith('fesom2_tpu.')]; "

@@ -114,22 +114,40 @@ def test_cuda_requested_without_card_raises(mesh_dir):
     (("tra", "tra_adv_ver"), "PPM"), (("run", "use_ice"), True),
     (("diag", "ldiag_DVD"), True), (("dyn", "SPP"), True)])
 def test_out_of_slice_config_raises(mesh_dir, knob, value):
-    """A knob outside the port raises, naming its ROADMAP item (the DVD
-    diagnostic, item 20).  The knobs of queue 1 items 15, 16, 17 and 19
-    are ported (CVMix, the tracer schemes, explicit vertical viscosity,
-    the salt plume, the tidal potential; sea ice on the channel with the
-    channel's ``whichEVP=0``, standard EVP, which the channel's ocean step
-    leaves off as the JAX package does): they set up and step
-    (``test_torch_menu_steps.py`` holds the menus against JAX)."""
+    """No knob is outside the port any more.  The knobs of queue 1 items
+    15, 16, 17 and 19 (CVMix, the tracer schemes, explicit vertical
+    viscosity, the salt plume, the tidal potential; sea ice on the channel
+    with the channel's ``whichEVP=0``, standard EVP, which the channel's
+    ocean step leaves off as the JAX package does) set up and step
+    (``test_torch_menu_steps.py`` holds the menus against JAX).  The DVD
+    diagnostic (item 20) is held against JAX here: 2 channel steps from
+    the same state, the JAX step run without jit (its jitted XLA rounds
+    the DVD's cancellation 1.6e-10 of max|dvd_h| away from itself);
+    ``dvd_h`` and ``dvd_v`` within 1e-10 of their largest JAX magnitude,
+    the prognostic fields within 1e-9."""
     cfg = soufflet_config()
     setattr(getattr(cfg, knob[0]), knob[1], value)
+    m = setup_soufflet_model(mesh_dir, device="cpu", cfg=cfg)
     if knob[1] in PORTED_KNOBS:
-        m = setup_soufflet_model(mesh_dir, device="cpu", cfg=cfg)
         s = m(m.initial_state(), zero_forcing(m.mesh))
         assert bool(torch.isfinite(s.tr).all()) and int(s.step) == 1
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        setup_soufflet_model(mesh_dir, device="cpu", cfg=cfg)
+    assert knob[1] == "ldiag_DVD"
+    jm = jax_setup(mesh_path=mesh_dir)
+    jm.cfg.diag.ldiag_DVD = True
+    js = jm.initial_state()
+    assert js.dvd_h.shape[0] == 2
+    ts = state_from_numpy({f.name: np.asarray(getattr(js, f.name))
+                           for f in dataclasses.fields(js)}, "cpu")
+    jstep, jf = jm.step_fn(jit=False), jax_zero_forcing(jm.mesh)
+    for _ in range(2):
+        js = jstep(js, jf)
+        ts = m(ts, zero_forcing(m.mesh))
+    for name in ("dvd_h", "dvd_v"):
+        assert float(getattr(ts, name).abs().max()) > 0.0
+        assert rel_err(getattr(ts, name), getattr(js, name)) <= 1e-10, name
+    for name in FIELDS:
+        assert rel_err(getattr(ts, name), getattr(js, name)) <= 1e-9, name
 
 
 PORTED_KNOBS = ("mix_scheme", "tra_adv_hor", "i_vert_visc", "tra_adv_ver",
