@@ -13,7 +13,8 @@ from dataclasses import replace
 import torch
 
 from ..mesh import MeshTables
-from .ops import cumsum_bottom_up, edge_divergence, edge_transport, take_row
+from .ops import (cumsum_bottom_up, edge_divergence, edge_transport,
+                  halo_fix_nodes, take_row)
 from .state import OceanState, Forcing
 
 
@@ -22,7 +23,7 @@ def _nlevels_node_min(mesh: MeshTables) -> torch.Tensor:
     nie = mesh.nod_in_elem
     valid = nie >= 0
     nle = torch.where(valid, mesh.nlevels_elem[nie.clamp_min(0)], 10 ** 6)
-    return nle.amin(-1)
+    return halo_fix_nodes(nle.amin(-1))
 
 
 def vert_vel_ale(state: OceanState, mesh: MeshTables, cfg,

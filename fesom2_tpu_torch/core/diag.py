@@ -27,20 +27,42 @@ def step_info(state: OceanState, mesh: MeshTables,
     area = mesh.area[0]
     T = state.tr[0][nmask]
     S = state.tr[1][nmask]
+    # a padded mesh's dummy entities (one level) hold scratch
+    real_n, real_e = real_entities(mesh)
+    eta = state.eta[real_n]
     vals = torch.stack([
-        state.eta.min(), state.eta.max(),
-        (state.eta * area).sum() / area.sum(),
-        T.min(), T.max(), S.min(), S.max(), state.u.abs().max(),
-        state.v.abs().max(), state.w.abs().max(), state.cfl_z.max()])
+        eta.min(), eta.max(),
+        (state.eta[real_n] * area[real_n]).sum() / area.sum(),
+        T.min(), T.max(), S.min(), S.max(), state.u[:, real_e].abs().max(),
+        state.v[:, real_e].abs().max(), state.w[:, real_n].abs().max(),
+        state.cfl_z[:, real_n].max()])
     names = ("eta_min", "eta_max", "eta_int", "T_min", "T_max", "S_min",
              "S_max", "u_max", "v_max", "w_max", "cfl_z_max")
     if ice is not None:
         vals = torch.cat([vals, torch.stack([
-            ice.a_ice.max(), ice.m_ice.max(), ice.u_ice.abs().max(),
-            (ice.a_ice * area).sum(), (ice.m_ice * area).sum()])])
+            ice.a_ice[real_n].max(), ice.m_ice[real_n].max(),
+            ice.u_ice[real_n].abs().max(),
+            (ice.a_ice * area)[real_n].sum(),
+            (ice.m_ice * area)[real_n].sum()])])
         names += ("aice_max", "hice_max", "uice_max", "ice_area",
                   "ice_volume")
     return dict(zip(names, vals.tolist()))
+
+
+def real_entities(mesh: MeshTables):
+    """(nodes [N], elements [E]) bool: the mesh's own entities, not the
+    dummies of a padded mesh or of a rank's local mesh (one level)."""
+    return mesh.nlevels_node >= 2, mesh.nlevels_elem >= 2
+
+
+def blowup_scope(mesh: MeshTables):
+    """What ``check_blowup`` must read on ``mesh``: None (every entity)
+    on a mesh without dummies, else ``real_entities``.  One host read; a
+    run loop asks once."""
+    node_ok, elem_ok = real_entities(mesh)
+    if bool(node_ok.all()) and bool(elem_ok.all()):
+        return None
+    return node_ok, elem_ok
 
 
 def ice_outside_mask(ice, ice_sub) -> torch.Tensor:
@@ -51,27 +73,38 @@ def ice_outside_mask(ice, ice_sub) -> torch.Tensor:
 
 
 def _blowup_ranges(state: OceanState, mesh: MeshTables, ice=None,
-                   ice_sub=None) -> list:
+                   ice_sub=None, owned=None) -> list:
     """The checks of ``check_blowup`` as (condition, field, lo, hi): the
     field is sane where lo <= x <= hi at every point (a NaN nowhere);
     lo = hi = None asks only that it be finite.  T and S are read on the
-    wet layers (dry ones as 0 and 35)."""
-    nmask = mesh.node_layer_mask
-    out = [("|eta| > 10 or not finite", state.eta, -10.0, 10.0),
-           ("|u| > 5 or not finite", state.u, -5.0, 5.0),
-           ("|v| > 5 or not finite", state.v, -5.0, 5.0),
-           ("w not finite", state.w, None, None),
+    wet layers (dry ones as 0 and 35); with ``owned`` ((nodes [N],
+    elements [E]) bool) only those entities are read, the others as 0 (35
+    for S)."""
+    wet = mesh.node_layer_mask
+    nodes = elems = lambda x: x
+    if owned is not None:
+        node_ok, elem_ok = owned
+        wet = wet & node_ok
+        nodes = lambda x: torch.where(node_ok, x, 0.0)
+        elems = lambda x: torch.where(elem_ok, x, 0.0)
+    out = [("|eta| > 10 or not finite", nodes(state.eta), -10.0, 10.0),
+           ("|u| > 5 or not finite", elems(state.u), -5.0, 5.0),
+           ("|v| > 5 or not finite", elems(state.v), -5.0, 5.0),
+           ("w not finite", nodes(state.w), None, None),
            ("T outside [-5, 60] or not finite",
-            torch.where(nmask, state.tr[0], 0.0), -5.0, 60.0),
+            torch.where(wet, state.tr[0], 0.0), -5.0, 60.0),
            ("S outside [0, 60] or not finite",
-            torch.where(nmask, state.tr[1], 35.0), 0.0, 60.0)]
+            torch.where(wet, state.tr[1], 35.0), 0.0, 60.0)]
     if ice is not None:
-        out += [("ice.m_ice not finite", ice.m_ice, None, None),
-                ("ice.u_ice not finite", ice.u_ice, None, None)]
+        out += [("ice.m_ice not finite", nodes(ice.m_ice), None, None),
+                ("ice.u_ice not finite", nodes(ice.u_ice), None, None)]
         if ice_sub is not None:
+            outside = ice_outside_mask(ice, ice_sub)
+            if owned is not None:
+                outside = outside & owned[0]
             out.append(("ice outside the EVP subdomain (rebuild it with "
-                        "more margin: cfg.ice.evp_subdomain_lat)",
-                        ice_outside_mask(ice, ice_sub), False, False))
+                        "more margin: cfg.ice.evp_subdomain_lat)", outside,
+                        False, False))
     return out
 
 
@@ -83,16 +116,18 @@ def _finite_range(x: torch.Tensor, lo, hi) -> tuple:
 
 
 def check_blowup(state: OceanState, mesh: MeshTables, ice=None,
-                 ice_sub=None) -> torch.Tensor:
+                 ice_sub=None, owned=None) -> torch.Tensor:
     """A flag on the device, int32 0 (sane) or 1, following the
     reference's ranges (check_blowup :220-504): eta finite and |eta| < 10,
     u and v finite and below 5 m/s, w finite, T in [-5, 60] and S in
     [0, 60] on the wet layers; with ``ice``, m_ice and u_ice finite; with
     ``ice_sub`` (the EVP subdomain), no ice outside it
     (``ice_outside_mask``).  One min/max reduction a field: a NaN makes
-    both NaN, which fails either bound."""
+    both NaN, which fails either bound.  ``owned`` ((nodes, elements)
+    bool) limits the scan: to the real entities of a padded mesh
+    (``blowup_scope``), to a rank's own ones under ``parallel/dist.py``."""
     ok = []
-    for _, x, lo, hi in _blowup_ranges(state, mesh, ice, ice_sub):
+    for _, x, lo, hi in _blowup_ranges(state, mesh, ice, ice_sub, owned):
         lo, hi = _finite_range(x, lo, hi)
         mn, mx = torch.aminmax(x)
         ok.append((mn >= lo) & (mx <= hi))
@@ -100,12 +135,12 @@ def check_blowup(state: OceanState, mesh: MeshTables, ice=None,
 
 
 def blowup_reasons(state: OceanState, mesh: MeshTables, ice=None,
-                   ice_sub=None) -> str:
+                   ice_sub=None, owned=None) -> str:
     """The conditions of ``check_blowup`` that hold, with the number of
     points where they do (read on the host, for the message of a run that
     blew up)."""
     out = []
-    for what, x, lo, hi in _blowup_ranges(state, mesh, ice, ice_sub):
+    for what, x, lo, hi in _blowup_ranges(state, mesh, ice, ice_sub, owned):
         lo, hi = _finite_range(x, lo, hi)
         n = int((~((x >= lo) & (x <= hi))).sum())
         if n:

@@ -24,7 +24,8 @@ from ..mesh import MeshTables
 from . import eos
 from .state import OceanState, Forcing
 from .ops import (scalar_gradient, tridiag_solve, elem_to_node_mean,
-                  edge_divergence, cumsum_bottom_up, elem_contrib_to_nodes)
+                  edge_divergence, cumsum_bottom_up, elem_contrib_to_nodes,
+                  halo_fix_elems, halo_fix_nodes, take_row)
 
 
 def _elem_interface_mask(mesh: MeshTables):
@@ -531,6 +532,7 @@ def momentum_adv_scalar(state: OceanState, mesh: MeshTables,
     for kk in range(safe.shape[-1]):                        # slot order
         vk = uv_up[..., safe[:, kk]] * w_area[:, kk]
         wuv = vk if wuv is None else wuv + vk
+    wuv = halo_fix_nodes(wuv)
     wu = wuv[0] * state.w_e
     wv = wuv[1] * state.w_e
     nmask = mesh.node_layer_mask
@@ -648,7 +650,8 @@ def compute_vel_rhs_vinv(state: OceanState, mesh: MeshTables,
         / (6.0 * torch.where(av > 0, av, 1.0))
     ne = mesh.node_edges
     bnd_node = ((ne >= mesh.n_edges_in) & (ne >= 0)).any(-1)
-    KE = torch.where(bnd_node[None, :] | ~nmask, 0.0, KE)
+    # bnd_node comes from a rank's incomplete halo rows: refresh the halo
+    KE = halo_fix_nodes(torch.where(bnd_node[None, :] | ~nmask, 0.0, KE))
 
     u_rhs = -(0.5 + eps) * state.u_rhsAB
     v_rhs = -(0.5 + eps) * state.v_rhsAB
@@ -711,7 +714,7 @@ def _accum_edge_to_elem(val, mesh: MeshTables):
     esign = torch.where(is_left, -1.0, 1.0).to(val.dtype)
     acc = val[..., ee[:, 0]] * esign[:, 0]
     acc = acc + val[..., ee[:, 1]] * esign[:, 1]
-    return acc + val[..., ee[:, 2]] * esign[:, 2]
+    return halo_fix_elems(acc + val[..., ee[:, 2]] * esign[:, 2])
 
 
 def _apply_edge_filter(duv, mesh: MeshTables, u_rhs, v_rhs):
@@ -1072,8 +1075,8 @@ def impl_vert_visc(state: OceanState, mesh: MeshTables, cfg, forcing: Forcing,
     # surface stress (ref :2444-2451) and bottom friction (ref :2453-2460)
     ur = u_rhs + torch.where(is_surf, zinv * (forcing.stress_x / density_0)[None, :], 0.0)
     vr = v_rhs + torch.where(is_surf, zinv * (forcing.stress_y / density_0)[None, :], 0.0)
-    ubot = torch.gather(state.u, 0, (nlev - 2)[None, :])[0]
-    vbot = torch.gather(state.v, 0, (nlev - 2)[None, :])[0]
+    ubot = take_row(state.u, nlev - 2)
+    vbot = take_row(state.v, nlev - 2)
     fric = -cfg.dyn.C_d * torch.sqrt(ubot ** 2 + vbot ** 2)
     ur = ur + torch.where(is_bot, zinv * (fric * ubot)[None, :], 0.0)
     vr = vr + torch.where(is_bot, zinv * (fric * vbot)[None, :], 0.0)

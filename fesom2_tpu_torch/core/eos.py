@@ -18,7 +18,7 @@ import torch
 from ..constants import g, density_0
 from .. import kernels
 from ..mesh import MeshTables
-from .ops import take_row
+from .ops import column_levels, take_row
 from .state import OceanState
 
 # Jackett & McDougall (1992) coefficients (ref :2605-2636)
@@ -131,7 +131,8 @@ def pressure_bv(state: OceanState, mesh: MeshTables, cfg,
     for name, x in ins.items():
         kernels.require(x, name, (L, N), dt, dev)
     kernels.require(state.zbar_3d, "zbar_3d", (L + 1, N), dt, dev)
-    kernels.require(mesh.nlevels_node, "nlevels_node", (N,), torch.int32, dev)
+    nlevels = column_levels(mesh)
+    kernels.require(nlevels, "nlevels_node", (N,), torch.int32, dev)
     kernels.require(mesh.ulevels_node, "ulevels_node", (N,), torch.int32, dev)
     rho = torch.empty((L, N), dtype=dt, device=dev)
     hp = torch.empty_like(rho)
@@ -139,7 +140,7 @@ def pressure_bv(state: OceanState, mesh: MeshTables, cfg,
     dbsfc = torch.empty_like(bv)
     mld2 = torch.empty((N,), dtype=dt, device=dev)
     kernels.launch("pressure_bv", dev, t, s, state.Z_3d, state.zbar_3d,
-                   state.hnode, density_ref, mesh.nlevels_node,
+                   state.hnode, density_ref, nlevels,
                    mesh.ulevels_node, L + 1, N,
                    _eos_kind(cfg), g, density_0, rho, hp, bv, dbsfc, mld2,
                    kernels.float_code(dt))
@@ -179,7 +180,7 @@ def pressure_bv_plain(state: OceanState, mesh: MeshTables, cfg,
     dbsfc_lay = -g * (rho_srf - rho_full) / torch.where(rho_full == 0, 1.0,
                                                         rho_full)
     dbsfc_lay = torch.where(nmask, dbsfc_lay, 0.0)
-    nln = mesh.nlevels_node.long()
+    nln = column_levels(mesh).long()
     lev = torch.arange(mesh.nl, device=dev)[:, None]
     dbsfc = torch.cat([dbsfc_lay, dbsfc_lay[-1:]], 0)[:mesh.nl]
     bot_db = torch.gather(dbsfc, 0, (nln - 2)[None, :])

@@ -15,7 +15,7 @@ import torch
 from ..constants import g, density_0, pi
 from ..mesh import MeshTables
 from .ale import _nlevels_node_min
-from .ops import tridiag_solve, elem_to_node_mean
+from .ops import column_sum, tridiag_solve, elem_to_node_mean
 from .state import OceanState
 from .tracers import depths_from_thickness
 from . import eos
@@ -71,7 +71,7 @@ def init_redi_gm(state: OceanState, mesh: MeshTables, cfg, neutral_slope):
     # first baroclinic wave speed c1 (ref :186-192)
     bv_sqrt = torch.sqrt(torch.clamp_min(state.bvfreq, 0.0))
     hmask = torch.where(mesh.node_layer_mask, state.hnode_new, 0.0)
-    c1 = (hmask * 0.5 * (bv_sqrt[:-1] + bv_sqrt[1:])).sum(0)
+    c1 = column_sum(hmask * 0.5 * (bv_sqrt[:-1] + bv_sqrt[1:]))
     c1 = torch.clamp_min(c1 / pi, 0.5)
     scaling = torch.ones_like(reso)
     if d.scaling_resolution:
@@ -95,7 +95,7 @@ def init_redi_gm(state: OceanState, mesh: MeshTables, cfg, neutral_slope):
     deeper = torch.abs(state.zbar_3d) > torch.abs(state.mld2)[None, :]
     mld_ind = torch.clamp_min(torch.argmax(deeper.to(torch.uint8), 0), 1)
     in_ml = lev <= mld_ind[None, :]
-    bv_ml = torch.where(in_ml, state.bvfreq, 0.0).sum(0) / mld_ind
+    bv_ml = column_sum(torch.where(in_ml, state.bvfreq, 0.0)) / mld_ind
     bvref = torch.clamp_min(bv_ml, 1e-6)
     zscaling = torch.clamp(state.bvfreq / bvref[None, :], 0.2, 1.0)
     if d.scaling_FESOM14:

@@ -23,7 +23,7 @@ import torch
 from ...constants import g, density_0, vcpw
 from ... import kernels
 from ...mesh import MeshTables
-from ..ops import elem_to_node_mean_flat, take_row
+from ..ops import column_levels, elem_to_node_mean_flat, take_row
 from ..state import OceanState, Forcing
 from .. import eos
 
@@ -412,7 +412,7 @@ def column_inputs(state: OceanState, mesh: MeshTables, cfg,
                + b0 * forcing.water_flux * S[0])
     return (state.unode, state.vnode, state.bvfreq, state.dbsfc,
             state.zbar_3d, state.Z_3d, state.hnode, ustar, Bo,
-            mesh.coriolis_node, mesh.nlevels_node, cfg, dd, alpha, beta,
+            mesh.coriolis_node, column_levels(mesh), cfg, dd, alpha, beta,
             T if dd else None, S if dd else None)
 
 

@@ -13,14 +13,90 @@ Four operators run a hand-written CUDA kernel on a CUDA tensor
 ``tridiag_solve``.  Beside each is its plain torch
 version (``*_plain``), which the wrapper uses for a CPU tensor and nowhere
 else: a CUDA tensor goes through the kernel or the call raises.
+
+On a rank of a distributed run (``parallel/dist.py``) every node or
+element assembly hands its output to the active context's halo exchange
+(``halo_fix_nodes``, ``halo_fix_elems``) and ``node_sum`` sums over the
+ranks; outside a context the hooks are the identity.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from .. import kernels
 from ..mesh import MeshTables
 from ..mesh.cluster import assembly_row_chunk, level_chunk, row_chunk
+
+
+# --------------------------------------------------------------------------
+# the distributed context (parallel/dist.py)
+# --------------------------------------------------------------------------
+# On a rank of a distributed run every node or element ASSEMBLY below is
+# exact only at owned entities (a halo slot's incidence rows are
+# incomplete on purpose).  The active DistContext replaces the halo slots
+# with their owners' values right after each assembly, where the
+# reference calls exchange_nod / exchange_elem (gen_halo_exchange.F90:
+# 129-164).  Outside a context every hook is the identity: one test, no
+# launch.
+_DIST_CTX = None
+
+
+@contextlib.contextmanager
+def dist_context(ctx):
+    """Make ``ctx`` (a ``parallel.dist.DistContext``) the active one."""
+    global _DIST_CTX
+    prev = _DIST_CTX
+    _DIST_CTX = ctx
+    try:
+        yield ctx
+    finally:
+        _DIST_CTX = prev
+
+
+def in_dist_context() -> bool:
+    return _DIST_CTX is not None
+
+
+def halo_fix_nodes(x: torch.Tensor, sub: bool = False) -> torch.Tensor:
+    """x [..., n_loc] with its halo entries replaced by the owners' values
+    (identity outside a context); ``sub``: x is numbered on the ice
+    subdomain and takes its schedule (the context checks the size)."""
+    if _DIST_CTX is None:
+        return x
+    return _DIST_CTX.exchange_nodes(x, sub=sub)
+
+
+def halo_fix_elems(x: torch.Tensor) -> torch.Tensor:
+    """x [..., e_loc] with its halo entries replaced by the owners'."""
+    if _DIST_CTX is None:
+        return x
+    return _DIST_CTX.exchange_elems(x)
+
+
+def halo_accumulate_nodes(x: torch.Tensor) -> torch.Tensor:
+    """ADD the halo entries of x [..., n_loc] into their owners and refresh
+    the halos (identity outside a context): the reverse direction, for an
+    operator that writes partial sums at halo slots (the block-Schwarz
+    combine)."""
+    if _DIST_CTX is None:
+        return x
+    return _DIST_CTX.accumulate_nodes(x)
+
+
+def halo_fix_node_pair(a: torch.Tensor, b: torch.Tensor):
+    """``halo_fix_nodes`` of two node fields of one shape, in one
+    exchange."""
+    if _DIST_CTX is None:
+        return a, b
+    both = _DIST_CTX.exchange_nodes(torch.stack([a, b]))
+    return both[0], both[1]
+
+
+def on_subdomain(mesh) -> bool:
+    """Whether ``mesh`` is the ice subdomain (duck-typed MeshTables)."""
+    return not isinstance(mesh, MeshTables)
 
 
 def _flat_rows(x: torch.Tensor) -> torch.Tensor:
@@ -32,9 +108,31 @@ def _flat_rows(x: torch.Tensor) -> torch.Tensor:
 # gathers
 # --------------------------------------------------------------------------
 def take_row(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Per-column row gather: a[..., L, N] at row idx[N] -> [..., N]."""
-    ib = idx.long().expand(a.shape[:-2] + (1, idx.shape[-1]))
+    """Per-column row gather: a[..., L, N] at row idx[N] -> [..., N].  A
+    row outside 0..L-1 reads the nearest one, as a JAX gather does: the
+    dummy nodes of a padded mesh have one level and no element, so their
+    ``nlevels - 2`` is -1 and their min over the elements' levels 10**6."""
+    ib = idx.long().clamp(0, a.shape[-2] - 1).expand(
+        a.shape[:-2] + (1, idx.shape[-1]))
     return torch.gather(a, -2, ib)[..., 0, :]
+
+
+def column_sum(x: torch.Tensor) -> torch.Tensor:
+    """x [L, N] summed over the levels, top down, each column in the same
+    order wherever it lies in the tensor (``x.sum(0)`` on the CPU may add
+    columns of the vectorised body and of the tail in other orders): a
+    rank's halo copy of a column then sums as its owner does, bit for
+    bit."""
+    return torch.cumsum(x, 0)[-1]
+
+
+def column_levels(mesh: MeshTables) -> torch.Tensor:
+    """``nlevels_node`` as the column kernels take it: at least 2.  The
+    dummy nodes of a padded mesh (``parallel/padding.py``) or of a rank's
+    local mesh (``parallel/dist.py``) have one level; the kernels, which
+    assume a wet layer, run them as one-layer columns whose results
+    nothing reads.  Every real column has two levels or more."""
+    return mesh.nlevels_node.clamp_min(2)
 
 
 def elem_mean_node(x: torch.Tensor, mesh: MeshTables) -> torch.Tensor:
@@ -96,7 +194,7 @@ def edge_signed_reduce(flux: torch.Tensor, mesh: MeshTables, fn):
     """fn(sign * flux) summed over each node's incident edges, in slot
     order (JAX ``ops.edge_signed_reduce``; plain torch only: no model path
     calls it, ``edge_signed_reduce2`` is the limiter's pair)."""
-    return _signed_slot_sum(flux, mesh, fn)
+    return halo_fix_nodes(_signed_slot_sum(flux, mesh, fn))
 
 
 def _node_edge_reduce(flux: torch.Tensor, mesh: MeshTables, pair: bool):
@@ -139,8 +237,8 @@ def edge_divergence(flux: torch.Tensor, mesh: MeshTables) -> torch.Tensor:
     node1; ref ssh_rhs(enodes(1))+=c, oce_ale.F90:1542).  Gathered over
     the node->edge incidence table, no scatter."""
     if flux.device.type == "cpu":
-        return edge_divergence_plain(flux, mesh)
-    return _node_edge_reduce(flux, mesh, pair=False)
+        return halo_fix_nodes(edge_divergence_plain(flux, mesh))
+    return halo_fix_nodes(_node_edge_reduce(flux, mesh, pair=False))
 
 
 def edge_signed_reduce2(flux: torch.Tensor, mesh: MeshTables):
@@ -148,8 +246,10 @@ def edge_signed_reduce2(flux: torch.Tensor, mesh: MeshTables):
     each node's incident edges, from one pass (the FCT b1 pair, ref
     oce_adv_tra_fct.F90:215-263)."""
     if flux.device.type == "cpu":
-        return edge_signed_reduce2_plain(flux, mesh)
-    return _node_edge_reduce(flux, mesh, pair=True)
+        plus, minus = edge_signed_reduce2_plain(flux, mesh)
+    else:
+        plus, minus = _node_edge_reduce(flux, mesh, pair=True)
+    return halo_fix_node_pair(plus, minus)
 
 
 # --------------------------------------------------------------------------
@@ -184,7 +284,8 @@ def elem_to_node_mean_plain(x_elem: torch.Tensor, mesh: MeshTables,
 def elem_to_node_mean_flat_plain(xs: torch.Tensor,
                                  mesh: MeshTables) -> torch.Tensor:
     safe, w = _nie_weights(mesh)
-    return (xs[..., safe] * w).sum(-1) / w.sum(-1)
+    # a dummy node (padded mesh) has no element: 0, as in the kernel
+    return (xs[..., safe] * w).sum(-1) / w.sum(-1).clamp_min(1e-30)
 
 
 def _elem_to_node_mean_tiled(x: torch.Tensor, mesh: MeshTables,
@@ -260,16 +361,18 @@ def elem_to_node_mean(x_elem: torch.Tensor, mesh: MeshTables,
     active on the layer contribute (compute_vel_nodes, oce_dyn.F90:133-169);
     without, all adjacent elements do (visc_filt_bcksct, :619-635)."""
     if x_elem.device.type == "cpu":
-        return elem_to_node_mean_plain(x_elem, mesh, respect_levels)
-    return _elem_to_node_mean_tiled(x_elem, mesh, respect_levels)
+        return halo_fix_nodes(elem_to_node_mean_plain(x_elem, mesh,
+                                                      respect_levels))
+    return halo_fix_nodes(_elem_to_node_mean_tiled(x_elem, mesh,
+                                                   respect_levels))
 
 
 def elem_to_node_mean_flat(xs: torch.Tensor, mesh: MeshTables) -> torch.Tensor:
     """Stacked surface element fields [F, E] -> [F, N], area-weighted over
     all adjacent elements (no level masks)."""
     if xs.device.type == "cpu":
-        return elem_to_node_mean_flat_plain(xs, mesh)
-    return _elem_to_node_mean_flat(xs, mesh)
+        return halo_fix_nodes(elem_to_node_mean_flat_plain(xs, mesh))
+    return halo_fix_nodes(_elem_to_node_mean_flat(xs, mesh))
 
 
 # --------------------------------------------------------------------------
@@ -325,8 +428,10 @@ def elem_slot_of(mesh) -> torch.Tensor:
 def _elem_contrib_to_nodes(contrib: torch.Tensor, mesh,
                            vertex_major: bool) -> torch.Tensor:
     if contrib.device.type == "cpu":
-        return elem_contrib_to_nodes_plain(contrib, mesh, vertex_major)
-    return _assemble(contrib, mesh, vertex_major)
+        out = elem_contrib_to_nodes_plain(contrib, mesh, vertex_major)
+    else:
+        out = _assemble(contrib, mesh, vertex_major)
+    return halo_fix_nodes(out, sub=on_subdomain(mesh))
 
 
 def _assemble(contrib: torch.Tensor, mesh, vertex_major: bool):
@@ -437,8 +542,12 @@ def cumsum_bottom_up(x: torch.Tensor) -> torch.Tensor:
 # preconditioned conjugate gradient (replaces psolve.c + pARMS)
 # --------------------------------------------------------------------------
 def node_sum(v: torch.Tensor) -> torch.Tensor:
-    """Global sum of a node field (one device: the plain sum)."""
-    return v.sum()
+    """Global sum of a node field: the plain sum on one device; under a
+    dist context the owned-masked sum over the ranks (halo copies and pad
+    slots are not counted)."""
+    if _DIST_CTX is None:
+        return v.sum()
+    return _DIST_CTX.gsum_nodes(v)
 
 
 def pcg(operator, rhs: torch.Tensor, precond, x0=None, tol: float = 1e-10,

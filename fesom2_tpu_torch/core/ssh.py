@@ -26,7 +26,7 @@ from ..constants import g
 from .. import kernels
 from ..mesh import MeshTables
 from .ops import (scalar_gradient, edge_divergence, edge_transport,
-                  elem_mean_node, pcg)
+                  elem_mean_node, halo_accumulate_nodes, halo_fix_nodes, pcg)
 from .state import OceanState, Forcing
 
 
@@ -226,7 +226,7 @@ class RingOperator:
     vals: torch.Tensor        # [Kr, N], padding 0
 
     def __call__(self, eta: torch.Tensor) -> torch.Tensor:
-        return ring_spmv(self.cols, self.vals, eta)
+        return halo_fix_nodes(ring_spmv(self.cols, self.vals, eta))
 
 
 def build_ssh_ring(mesh: MeshTables, cfg,
@@ -362,7 +362,9 @@ class BlockSchwarz:
     coarse_part: torch.Tensor      # [N] int32 block of each node
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
-        return block_schwarz(self, r)
+        # a rank's boundary blocks write partial sums at halo slots: they
+        # go to their owners (the identity on one device)
+        return halo_accumulate_nodes(block_schwarz(self, r))
 
 
 def _masked_take(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -376,7 +378,9 @@ def block_schwarz_plain(pc: BlockSchwarz, r: torch.Tensor) -> torch.Tensor:
                           yb.reshape(-1)[pc.node_slots], 0.0)  # [N, S]
     r0 = _masked_take(r, pc.coarse_ids).sum(-1)                 # [nb]
     y0 = pc.coarse_inv @ r0
-    return contrib.sum(-1) + y0[pc.coarse_part]
+    # a coarse_part of -1 (the rank-local preconditioner of
+    # build_block_schwarz_local has no coarse level) adds nothing
+    return contrib.sum(-1) + _masked_take(y0, pc.coarse_part)
 
 
 def block_schwarz_work(n_nodes: int, nb: int, k: int, slots: int, kc: int,
@@ -514,6 +518,89 @@ def build_block_schwarz(mesh: MeshTables, cfg, block_size: int = 256,
                         i32(coarse_ids), f(coarse_inv), i32(part))
 
 
+def build_block_schwarz_local(mesh: MeshTables, cfg, S: int,
+                              node_l2g: np.ndarray, node_g2l: np.ndarray,
+                              n_own: int, n_loc: int,
+                              block_size: int = 256) -> dict:
+    """The per-rank block-Schwarz preconditioner on the [owned | halo]
+    numbering of ``parallel/dist.py``, stacked [S, ...] as numpy
+    (``fesom2_tpu/core/ssh.py:559-652``; the pARMS-RAS role of the
+    parallel solve, psolve.c:16-115).  Each rank's owned nodes are cut
+    into blocks of about ``block_size`` by coordinate bisection, each block
+    is extended by its matrix 1-ring (inside owned + halo by the layout's
+    closure) and inverted densely; the blocks are weighted by the global
+    partition of unity (overlap counts over every rank's blocks), so the
+    sum over the ranks is a symmetric additive Schwarz preconditioner and
+    CG stays valid.  No coarse level.  A rank applies its blocks with the
+    ``block_schwarz`` kernel (``rank_model`` turns the tables into a
+    BlockSchwarz whose coarse level adds nothing) and hands the partial
+    sums at halo slots to their owners (``halo_accumulate_nodes``).
+    Returns dict(block_ids [S, nb, K], inv_blocks [S, nb, K, K],
+    node_slots [S, n_loc, R], node_slot_valid [S, n_loc, R])."""
+    from ..parallel.partition import _partition_numpy, _sphere_xyz
+
+    A = _csr_operator(mesh, cfg)
+    N = A.shape[0]
+    indptr, indices = A.indptr, A.indices
+    xyz = _sphere_xyz(mesh)
+
+    shard_blocks = []
+    for s in range(S):
+        own = node_l2g[s, :n_own]
+        own = own[own >= 0]
+        nparts = max(1, int(round(len(own) / block_size)))
+        p = np.asarray(_partition_numpy(xyz[own], np.ones(len(own)), nparts))
+        blocks = []
+        for b in range(int(p.max()) + 1):
+            ids = own[p == b]
+            if ids.size == 0:
+                continue
+            ring = np.unique(indices[np.concatenate(
+                [np.arange(indptr[i], indptr[i + 1]) for i in ids])])
+            blocks.append(np.unique(np.concatenate([ids, ring])))
+        shard_blocks.append(blocks)
+
+    counts = np.zeros(N)
+    for blocks in shard_blocks:
+        for ids in blocks:
+            counts[ids] += 1
+    wsqrt = 1.0 / np.sqrt(np.maximum(counts, 1.0))
+
+    nb = max(len(b) for b in shard_blocks)
+    K = max(1, max((len(ids) for blocks in shard_blocks for ids in blocks),
+                   default=1))
+    bi = np.full((S, nb, K), -1, np.int64)
+    inv = np.zeros((S, nb, K, K))
+    memb = [[[] for _ in range(n_loc)] for _ in range(S)]
+    for s in range(S):
+        g2l = node_g2l[s]
+        for b, ids in enumerate(shard_blocks[s]):
+            loc = g2l[ids]
+            if (loc < 0).any():
+                raise AssertionError(
+                    "block 1-ring escaped the shard halo closure")
+            n = len(ids)
+            bi[s, b, :n] = loc
+            w = wsqrt[ids]
+            Abinv = np.linalg.inv(A[np.ix_(ids, ids)].toarray())
+            inv[s, b, :n, :n] = w[:, None] * Abinv * w[None, :]
+            if n < K:
+                inv[s, b, n:, n:] = np.eye(K - n)
+            for pth, l in enumerate(loc):
+                memb[s][l].append(b * K + pth)
+        for b in range(len(shard_blocks[s]), nb):
+            inv[s, b] = np.eye(K)
+    R = max(1, max(len(m) for sm in memb for m in sm))
+    node_slots = np.zeros((S, n_loc, R), np.int64)
+    node_valid = np.zeros((S, n_loc, R), bool)
+    for s in range(S):
+        for nid, m in enumerate(memb[s]):
+            node_slots[s, nid, :len(m)] = m
+            node_valid[s, nid, :len(m)] = True
+    return dict(block_ids=bi, inv_blocks=inv, node_slots=node_slots,
+                node_slot_valid=node_valid)
+
+
 # --------------------------------------------------------------------------
 # rhs, solves, hbar
 # --------------------------------------------------------------------------
@@ -563,11 +650,16 @@ def solve_ssh(state: OceanState, mesh: MeshTables, cfg, precond, rhs, ring,
               x0=None):
     """CG solve for d_eta (replaces psolve; tolerances oce_ale.F90:2296-
     2301): ``ring`` is a RingOperator (linfs) or a RingALE (zlevel, zstar;
-    its values rebuilt here from hbar_e), ``precond`` the BlockSchwarz.  The
+    its values rebuilt here from hbar_e), or None for the matrix-free
+    operator; ``precond`` the BlockSchwarz or any r -> M r.  The
     reference's soltol=1e-10 assumes f64; the tolerance is 2e-5 in f32.
     Returns (d_eta, iterations, relative residual)."""
-    op = ring.materialize(ale_hbar_e(state, mesh)) \
-        if isinstance(ring, RingALE) else ring
+    if ring is None:
+        op = _state_operator(state, mesh, cfg)
+    elif isinstance(ring, RingALE):
+        op = ring.materialize(ale_hbar_e(state, mesh))
+    else:
+        op = ring
     tol = 1e-10 if rhs.dtype == torch.float64 else 2e-5
     return pcg(op, rhs, precond, x0=x0, tol=tol, maxiter=2000)
 

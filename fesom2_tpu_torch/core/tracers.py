@@ -32,7 +32,8 @@ from .. import kernels
 from ..mesh import MeshTables
 from ..mesh.cluster import level_chunk
 from .ops import (tridiag_solve, elem_to_node_mean, edge_divergence,
-                  edge_signed_reduce2, take_row)
+                  edge_signed_reduce2, halo_fix_node_pair, halo_fix_nodes,
+                  take_row)
 from .tracer_setup import TracerStatics
 
 
@@ -536,7 +537,7 @@ def fct_bounds(ttf, lo, mesh: MeshTables):
     element and cluster bounds of (lo, ttf), widened by +-1 layer inside
     the column (ref oce_adv_tra_fct.F90, vlimit=1)."""
     if lo.device.type == "cpu":
-        return fct_bounds_plain(ttf, lo, mesh)
+        return halo_fix_node_pair(*fct_bounds_plain(ttf, lo, mesh))
     kernels.cuda_only(lo, "fct_bounds")
     dev, dt = lo.device, lo.dtype
     L, N = lo.shape[-2:]
@@ -562,7 +563,8 @@ def fct_bounds(ttf, lo, mesh: MeshTables):
                    ct.fct_tile_nodes, ct.tile_nodes, ct.fct_u_max,
                    level_chunk(L, 1, tiles * T), inc_max, inc_min,
                    kernels.float_code(dt))
-    return inc_max.reshape(lo.shape), inc_min.reshape(lo.shape)
+    return halo_fix_node_pair(inc_max.reshape(lo.shape),
+                              inc_min.reshape(lo.shape))
 
 
 def fct_limiter(ttf, lo, adf_h, adf_v, mesh: MeshTables, dt):
@@ -700,7 +702,7 @@ def diff_ver_redi_expl(gx, gy, slope_tapered, Ki_layered, hnode_new,
     for kk in range(nie.shape[-1]):
         v = gxy[..., safe[:, kk]] * wl[..., kk]
         acc = v if acc is None else acc + v
-    txy = acc / 3.0 / av
+    txy = halo_fix_nodes(acc / 3.0 / av)
     tx, ty = txy[0], txy[1]
 
     zbar_n, Z_n = depths_from_thickness(hnode_new, mesh)

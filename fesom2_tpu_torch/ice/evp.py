@@ -40,8 +40,9 @@ import torch
 
 from .. import kernels
 from ..constants import g, density_0
-from ..core.ops import (elem_contrib_to_nodes, elem_contrib_to_nodes_plain,
-                        elem_slot_of)
+from ..core.ops import (on_subdomain, elem_contrib_to_nodes,
+                        elem_contrib_to_nodes_plain, elem_slot_of,
+                        halo_fix_nodes, in_dist_context)
 from .state import IceState, IceForcing, OceanSurface, rhoice, rhosno
 
 # rows of MevpTables.node_c and MevpTables.elem_c
@@ -342,6 +343,26 @@ def mevp_barrier_floor(device, dtype, n_nodes: int, n_elems: int,
         raise RuntimeError(f"mevp_barrier_floor: CUDA error {err}")
 
 
+def run_subcycles(fn, uv: torch.Tensor, sig: torch.Tensor, tab, mesh,
+                  n: int):
+    """``n`` subcycles of ``fn`` (``mevp_subcycles``, ``evp_subcycles`` or
+    ``aevp_subcycles``): one launch on one device; under a dist context
+    (``parallel/dist.py``) one launch a subcycle with the velocities'
+    halo exchanged after each, on the ice subdomain's schedule where
+    ``mesh`` is the subdomain.  Each launch is the kernel as it is, so
+    each subcycle stays bitwise with the plain version; exchanging the new
+    velocities gives the halo the owners' values as the JAX package's
+    exchange of the stress divergence does (its node update is pointwise
+    on owner-consistent inputs)."""
+    if not in_dist_context():
+        return fn(uv, sig, tab, mesh, n)
+    sub = on_subdomain(mesh)
+    for _ in range(n):
+        uv, sig = fn(uv, sig, tab, mesh, 1)
+        uv = halo_fix_nodes(uv, sub=sub)
+    return uv, sig
+
+
 def mevp_dynamics(ice: IceState, mesh, forcing: IceForcing,
                   ocean: OceanSurface, cfg, strength_node=None) -> IceState:
     """``cfg.ice.evp_rheol_steps`` subcycles from the state's velocities
@@ -351,7 +372,8 @@ def mevp_dynamics(ice: IceState, mesh, forcing: IceForcing,
                      strength_node=strength_node)
     uv = torch.stack([ice.u_ice, ice.v_ice])
     sig = torch.stack([ice.sigma11, ice.sigma12, ice.sigma22])
-    uv, sig = mevp_subcycles(uv, sig, tab, mesh, cfg.ice.evp_rheol_steps)
+    uv, sig = run_subcycles(mevp_subcycles, uv, sig, tab, mesh,
+                            cfg.ice.evp_rheol_steps)
     return replace(ice, u_ice=uv[0], v_ice=uv[1], sigma11=sig[0],
                    sigma12=sig[1], sigma22=sig[2])
 
@@ -665,7 +687,7 @@ def aevp_refresh(uv: torch.Tensor, alpha: torch.Tensor, tab: AevpTables,
     nie = mesh.nod_in_elem.long().T              # [K, N]
     valid = nie >= 0
     av = torch.where(valid, alpha[torch.where(valid, nie, 0)], 50.0)
-    return alpha, av.max(0).values
+    return alpha, halo_fix_nodes(av.max(0).values, sub=on_subdomain(mesh))
 
 
 # --------------------------------------------------------------------------
@@ -741,7 +763,8 @@ def evp_dynamics(ice: IceState, mesh, forcing: IceForcing,
     tab = evp_setup(ice, mesh, forcing, ocean, cfg)
     uv = torch.stack([ice.u_ice, ice.v_ice])
     sig = torch.stack([ice.sigma11, ice.sigma12, ice.sigma22])
-    uv, sig = evp_subcycles(uv, sig, tab, mesh, cfg.ice.evp_rheol_steps)
+    uv, sig = run_subcycles(evp_subcycles, uv, sig, tab, mesh,
+                            cfg.ice.evp_rheol_steps)
     return replace(ice, u_ice=uv[0], v_ice=uv[1], sigma11=sig[0],
                    sigma12=sig[1], sigma22=sig[2])
 
@@ -754,7 +777,8 @@ def aevp_dynamics(ice: IceState, mesh, forcing: IceForcing,
     tab = aevp_setup(ice, mesh, forcing, ocean, cfg)
     uv = torch.stack([ice.u_ice, ice.v_ice])
     sig = torch.stack([ice.sigma11, ice.sigma12, ice.sigma22])
-    uv, sig = aevp_subcycles(uv, sig, tab, mesh, cfg.ice.evp_rheol_steps)
+    uv, sig = run_subcycles(aevp_subcycles, uv, sig, tab, mesh,
+                            cfg.ice.evp_rheol_steps)
     alpha, beta = aevp_refresh(uv, ice.alpha_aevp, tab, mesh, cfg)
     return replace(ice, u_ice=uv[0], v_ice=uv[1], sigma11=sig[0],
                    sigma12=sig[1], sigma22=sig[2], alpha_aevp=alpha,

@@ -25,7 +25,8 @@ from dataclasses import replace
 import torch
 
 from ..mesh import MeshTables
-from ..core.ops import elem_contrib_to_nodes, elem_contrib_to_nodes_3e
+from ..core.ops import (elem_contrib_to_nodes, elem_contrib_to_nodes_3e,
+                        halo_fix_node_pair)
 from .state import IceState
 
 
@@ -155,8 +156,9 @@ def fct_advect_fields(u_ice, v_ice, fields, mesh: MeshTables, gamma, ice_dt):
     nvalid = nn >= 0
     nb = low[..., torch.where(nvalid, nn, 0)]             # [F, N, KE]
     big = torch.finfo(low.dtype).max
-    nb_max = torch.where(nvalid, nb, -big).amax(-1)
-    nb_min = torch.where(nvalid, nb, big).amin(-1)
+    nb_max, nb_min = halo_fix_node_pair(
+        torch.where(nvalid, nb, -big).amax(-1),
+        torch.where(nvalid, nb, big).amin(-1))
     tmax = torch.maximum(low, nb_max) - low
     tmin = torch.minimum(low, nb_min) - low
 

@@ -54,6 +54,7 @@ from .constants import rad, vcpw
 from .mesh import MeshTables, build_mesh, build_mesh_from_raw
 from .mesh.channel import channel_raw_mesh
 from .mesh.refine import refined_mesh
+from .parallel.padding import pad_mesh
 from .core import eos, dynamics, ssh, ale, tracers, gm_redi, cavity
 from .core.ops import edge_divergence, take_row
 from .core.state import (OceanState, Forcing, allocate_state, initial_z3d,
@@ -107,28 +108,29 @@ class Model(nn.Module):
                  soufflet_statics: Optional[soufflet.SouffletStatics] = None,
                  ssh_dense_inv: Optional[torch.Tensor] = None,
                  ssh_ring=None, ssh_block_pc=None,
-                 ice_sub: Optional[IceSubdomain] = None):
+                 ice_sub: Optional[IceSubdomain] = None,
+                 ssh_diag_inv: Optional[torch.Tensor] = None):
         """The SSH solve is dense with ``ssh_dense_inv``, else CG with
         ``ssh_ring`` (``ssh.RingOperator`` under linfs, ``ssh.RingALE``
-        under zlevel and zstar) and ``ssh_block_pc`` (``ssh.BlockSchwarz``).
-        ``soufflet_statics`` is given for the soufflet channel only;
-        ``ice_sub`` restricts the EVP subcycles to the polar caps."""
+        under zlevel and zstar; without one the matrix-free
+        ``ssh.ssh_operator``) preconditioned by ``ssh_block_pc``
+        (``ssh.BlockSchwarz``) or, without one, the Jacobi diagonal
+        ``ssh_diag_inv`` [N] (the distributed formulation,
+        ``parallel/dist.py``).  ``soufflet_statics`` is given for the
+        soufflet channel only; ``ice_sub`` restricts the EVP subcycles to
+        the polar caps."""
         super().__init__()
         check_slice(cfg)
-        if (ssh_dense_inv is None) == (ssh_ring is None
-                                       or ssh_block_pc is None):
-            raise ValueError("give the dense SSH inverse, or the ring "
-                             "operator and the block preconditioner")
         self.cfg = cfg
         self._static = {}
         self._cls = {}
         for prefix, obj in (("mesh", mesh), ("st", tracer_statics),
-                            ("sst", soufflet_statics), ("ring", ssh_ring),
-                            ("pc", ssh_block_pc), ("sub", ice_sub)):
+                            ("sst", soufflet_statics), ("sub", ice_sub)):
             if obj is not None:
                 self._register(prefix, obj)
         self.register_buffer("density_ref", density_ref)
-        self.register_buffer("ssh_dense_inv", ssh_dense_inv)
+        self.set_ssh_solver(ssh_dense_inv, ssh_ring, ssh_block_pc,
+                            ssh_diag_inv)
         # the region-restored passive tracers: their indices in the tracer
         # stack and node masks [P, N] (``setup_passive_tracers``)
         self.ptr_idx, masks = passive_tracer_masks(mesh, cfg)
@@ -164,6 +166,37 @@ class Model(nn.Module):
                 statics[f.name] = val
         self._static[prefix] = statics
         self._cls[prefix] = type(obj)
+
+    def _unregister(self, prefix: str) -> None:
+        """Drop the buffers of a group registered under ``prefix``."""
+        for name in [n for n in self._buffers if n.startswith(prefix + "__")]:
+            delattr(self, name)
+        for key in [k for k in self._cls if k == prefix
+                    or k.startswith(prefix + "__")]:
+            del self._cls[key]
+            self._static.pop(key, None)
+
+    def set_ssh_solver(self, dense_inv=None, ring=None, block_pc=None,
+                       diag_inv=None) -> None:
+        """Replace the SSH solver's tables (the keywords of ``__init__``):
+        the dense inverse, or CG with a preconditioner, the block one or
+        the Jacobi diagonal, on the ring operator or matrix-free."""
+        if dense_inv is None and block_pc is None and diag_inv is None:
+            raise ValueError("give the dense SSH inverse, or a "
+                             "preconditioner of the CG solve (the block "
+                             "preconditioner or the Jacobi diagonal)")
+        for prefix, obj in (("ring", ring), ("pc", block_pc)):
+            self._unregister(prefix)
+            if obj is not None:
+                self._register(prefix, obj)
+        self.register_buffer("ssh_dense_inv", dense_inv)
+        self.register_buffer("ssh_diag_inv", diag_inv)
+
+    def set_ice_sub(self, sub: Optional[IceSubdomain]) -> None:
+        """Replace the EVP subdomain (None: the whole mesh)."""
+        self._unregister("sub")
+        if sub is not None:
+            self._register("sub", sub)
 
     def _group(self, prefix: str):
         if prefix not in self._cls:
@@ -288,8 +321,12 @@ class Model(nn.Module):
                 d_eta, _ = ssh.solve_ssh_dense(state, mesh, cfg,
                                                self.ssh_dense_inv, rhs)
             else:
+                pc = self.ssh_block_pc
+                if pc is None:
+                    dinv = self.ssh_diag_inv
+                    pc = lambda r: dinv * r
                 d_eta, iters, _ = ssh.solve_ssh(
-                    state, mesh, cfg, self.ssh_block_pc, rhs, self.ssh_ring,
+                    state, mesh, cfg, pc, rhs, self.ssh_ring,
                     x0=2.0 * state.d_eta - state.d_eta_prev)
                 self.ssh_iters = int(iters)
                 state = replace(state, d_eta=d_eta, d_eta_prev=state.d_eta)
@@ -953,7 +990,8 @@ def _check_device(device) -> torch.device:
 def setup_soufflet_model(mesh_path: Optional[str] = None, *,
                          device, dtype=torch.float64,
                          step_per_day: int = 72, which_ale: str = "linfs",
-                         cfg: Optional[ModelConfig] = None) -> Model:
+                         cfg: Optional[ModelConfig] = None,
+                         pad_to: int = 1) -> Model:
     """Build the soufflet channel model on ``device``.
 
     ``mesh_path``: a FESOM mesh directory; None builds the default channel
@@ -961,7 +999,9 @@ def setup_soufflet_model(mesh_path: Optional[str] = None, *,
     ``which_ale``: "linfs", "zlevel" or "zstar" (ignored when ``cfg`` is
     given).
     Meshes up to ``DENSE_SSH_MAX_NODES`` nodes get the dense SSH inverse,
-    larger ones the CG tables (``_ssh_solver``).
+    larger ones the CG tables (``_ssh_solver``).  ``pad_to > 1`` pads the
+    node, element and edge counts to a multiple of it with dummy entities
+    (``parallel/padding.py``).
     """
     device = _check_device(device)
     cfg = cfg if cfg is not None else soufflet_config(step_per_day, which_ale)
@@ -972,6 +1012,8 @@ def setup_soufflet_model(mesh_path: Optional[str] = None, *,
         mesh = build_mesh_from_raw(channel_raw_mesh(), **kw)
     else:
         mesh = build_mesh(mesh_path, **kw)
+    if pad_to > 1:
+        mesh = pad_mesh(mesh, pad_to)
     tst = build_tracer_statics(mesh, K_hor=cfg.tra.K_hor, dtype=dtype)
     Z3 = mesh.Z[:, None].expand(mesh.nl - 1, mesh.n_nodes)
     dref = eos.reference_density(mesh, Z3, cfg.dyn.state_equation,
@@ -1050,7 +1092,7 @@ def setup_pi_model(mesh_path: str, *, device, dtype=torch.float64,
                    step_per_day: int = 96, parity: str = "ci",
                    cfg: Optional[ModelConfig] = None, atm_seed: int = 0,
                    cavity_depth=None, n_refine: int = 0,
-                   forcing_path: Optional[str] = None):
+                   forcing_path: Optional[str] = None, pad_to: int = 1):
     """The global ocean + ice configuration on ``device``, as
     ``fesom2_tpu/model.py:setup_pi_model`` and ``_finish_pi_setup``
     (:764-911) build it.  Returns (Model, AtmData):
@@ -1082,7 +1124,9 @@ def setup_pi_model(mesh_path: str, *, device, dtype=torch.float64,
        year switch.  Without it no files are read and the series are
        built in code on the mesh (``globe_atm_data`` with ``atm_seed``).
 
-    ``cfg`` defaults to ``pi_config(parity, step_per_day)``.
+    ``cfg`` defaults to ``pi_config(parity, step_per_day)``; ``pad_to >
+    1`` pads the mesh's entity counts to a multiple of it after step 1
+    (``parallel/padding.py``; ``fesom2_tpu/model.py:861-863``).
     """
     device = _check_device(device)
     if cfg is None:
@@ -1100,6 +1144,8 @@ def setup_pi_model(mesh_path: str, *, device, dtype=torch.float64,
                           dtype=dtype, device=device, **pc)
     if cavity_depth is not None:
         cfg.run.use_cavity = True
+    if pad_to > 1:
+        mesh = pad_mesh(mesh, pad_to)
     tst = build_tracer_statics(mesh, K_hor=cfg.tra.K_hor, dtype=dtype)
     _, Z3 = initial_z3d(mesh, dtype)
     dref = eos.reference_density(mesh, Z3, cfg.dyn.state_equation)

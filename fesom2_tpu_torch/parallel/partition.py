@@ -1,4 +1,5 @@
-"""Geometric partition of the mesh nodes (host numpy).
+"""Geometric partition of the mesh nodes (host numpy): the blocks of the
+SSH preconditioner and the ranks of ``parallel/dist.py``.
 
 Copies of ``_sphere_xyz`` and ``_partition_numpy`` from
 ``fesom2_tpu/parallel/partition.py:71-75, :139-160``: that module imports
@@ -42,3 +43,38 @@ def _partition_numpy(xyz, w, nparts):
 
     bisect(np.arange(N), 0, nparts)
     return part
+
+
+def node_weights(mesh) -> np.ndarray:
+    """2D+3D balance weights, 1 + the node's levels (ref fort_part.c:90-95,
+    PART_WEIGHTED; ``fesom2_tpu/parallel/partition.py:66-68``)."""
+    return (1.0 + mesh.nlevels_node.detach().cpu().numpy()).astype(np.float64)
+
+
+def partition_nodes(mesh, nparts: int) -> np.ndarray:
+    """Part id per node [N] into ``nparts``: the weighted recursive
+    coordinate bisection on the unit sphere.  The JAX package's
+    ``partition_nodes`` refines its cut with Kernighan-Lin sweeps where its
+    native library is built and falls back to this bisection where it is
+    not; give ``build_layout`` the same ``part`` to compare the two."""
+    return _partition_numpy(_sphere_xyz(mesh), node_weights(mesh), nparts)
+
+
+def partition_nodes_hierarchical(mesh, n_part):
+    """The two-level partition (``fesom2_tpu/parallel/partition.py:113-
+    136``): the nodes into ``n_part[0]`` groups (hosts), each group into
+    ``n_part[1]`` parts (cards); part id = host * n_part[1] + card.
+    Returns (part [N], host [N])."""
+    if isinstance(n_part, int):
+        n_part = (1, n_part)
+    hosts, chips = int(n_part[0]), int(n_part[1])
+    top = partition_nodes(mesh, hosts)
+    xyz = _sphere_xyz(mesh)
+    w = node_weights(mesh)
+    part = np.zeros(mesh.n_nodes, np.int32)
+    for h in range(hosts):
+        idx = np.nonzero(top == h)[0]
+        if idx.size == 0:
+            continue
+        part[idx] = h * chips + _partition_numpy(xyz[idx], w[idx], chips)
+    return part, top

@@ -20,7 +20,7 @@ with ``--icepack``) and, on a fresh pi run, the mesh description
 ``fesom.mesh.diag.nc`` (``io/mesh_info.py``) into DIR; ``--restart-every
 K`` writes ``DIR/restart.nc`` (``io/restart.py``) and ``DIR/fesom.clock``
 every K steps, and ``--resume`` continues from them up to step N.
-``mkrun`` is not ported yet (ROADMAP queue 1 item 20e).
+A run from a reference setup.yml, with its golden check, is ``mkrun``.
 
 ``run_pi`` takes coupled ocean + ice steps of the global configuration
 (``model.setup_pi_model``, ``model.pi_initial_state``,
@@ -53,8 +53,9 @@ import torch
 from torch.profiler import record_function
 
 from .core import tracers
-from .core.diag import (blowup_reasons, check_blowup, first_bad_step,
-                        format_step_info, ice_outside_mask, step_info)
+from .core.diag import (blowup_reasons, blowup_scope, check_blowup,
+                        first_bad_step, format_step_info, ice_outside_mask,
+                        step_info)
 from .core.state import OceanState, Forcing, zero_forcing
 from .forcing.atmos import SbcProvider
 from .io.mesh_info import write_mesh_info
@@ -317,6 +318,7 @@ def run_pi(model: Model, atm, state: OceanState, ice: IceState,
             provider._cache[clock.yearnew] = atm
             provider.prefetch(clock.yearnew + 1)
     ice_sub = None if icepack else model.ice_sub
+    scope = blowup_scope(mesh)          # a padded mesh's dummies unread
     first_bad = torch.full((), -1, dtype=torch.int32, device=dev)
 
     def read_flag(k):
@@ -331,7 +333,7 @@ def run_pi(model: Model, atm, state: OceanState, ice: IceState,
             where = f"; state at step {k + 1} dumped to {where}"
         raise RuntimeError(
             f"blowup detected at step {bad} (read at step {k + 1}): "
-            f"{blowup_reasons(state, mesh, ice, ice_sub)}{where}")
+            f"{blowup_reasons(state, mesh, ice, ice_sub, scope)}{where}")
 
     for k in range(first_step, first_step + n_steps):
         if timers is None:
@@ -350,8 +352,8 @@ def run_pi(model: Model, atm, state: OceanState, ice: IceState,
         state, ice, oforc = out[0], out[1], out[-1]
         if icepack:
             ipk = out[2]
-        first_bad = first_bad_step(check_blowup(state, mesh, ice, ice_sub),
-                                   first_bad, k + 1)
+        first_bad = first_bad_step(
+            check_blowup(state, mesh, ice, ice_sub, scope), first_bad, k + 1)
         before = clock.copy()
         clock.advance(dt)
         if steps_per_year is not None and clock.yearnew != before.yearnew:

@@ -175,7 +175,10 @@ def test_port_imports_no_jax():
             "fesom2_tpu_torch.ice.icepack.bgc, "
             "fesom2_tpu_torch.core.diag, fesom2_tpu_torch.core.diagnostics, "
             "fesom2_tpu_torch.io.restart, fesom2_tpu_torch.io.mesh_info, "
-            "fesom2_tpu_torch.io.streams; "
+            "fesom2_tpu_torch.io.streams, "
+            "fesom2_tpu_torch.parallel.dist, "
+            "fesom2_tpu_torch.parallel.padding, fesom2_tpu_torch.mkrun, "
+            "fesom2_tpu_torch.post.fcheck; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fesom2_tpu' "
             "or m.startswith('fesom2_tpu.')]; "
