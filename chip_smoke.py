@@ -84,7 +84,8 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    densities and layers of the level-7 globe after one coupled step,
    [5, 89, 225854], each of its five outputs within 1e-12 / 1e-5 of
    max|plain| (the plain chain over chunks of elements), its bound from
-   this state's active layers and class runs, no library call;
+   this state's active layers and class runs, the histogram of the
+   elements' class spans and its launch plan, no library call;
 4. 20 float64 steps of the soufflet channel (2,875 nodes, 40 layers,
    linfs, dense SSH) through ``run.run_soufflet``, with sanity bounds,
    linfs volume conservation and a launch count above 0 for every kernel
@@ -1658,21 +1659,32 @@ def main():
                                                  mesh.nlevels_elem, bins)
         size = torch.empty((), dtype=dtype).element_size()
         if dtype == torch.float64:
+            widths = np.asarray(counts[4])
+            cum = np.cumsum(widths)
+            pick = lambda f: int(np.searchsorted(cum, f * cum[-1]))
             dmoc_counts.update(active_layers=counts[0],
                                run_classes=counts[1],
                                nearest_layers=counts[2],
-                               wet_elements=counts[3])
+                               wet_elements=counts[3],
+                               span_widths={w: int(n) for w, n in
+                                            enumerate(widths) if n},
+                               plan=diagnostics.dens_moc_bin_plan(
+                                   dtype, bins.numel()))
             say(f"phase 3 dens_moc_bin inputs: {mesh.nl} levels x "
                 f"{mesh.n_elems} elements, {bins.numel()} classes; active "
                 f"layers {counts[0]}, classes in their runs {counts[1]}, "
                 f"layers binned to the nearest class {counts[2]}, elements "
-                f"with an active layer {counts[3]}")
+                f"with an active layer {counts[3]}; span widths in classes "
+                f"(median {pick(0.5)}, 90 % {pick(0.9)}, max "
+                f"{int(np.flatnonzero(widths).max())}) "
+                f"{dmoc_counts['span_widths']}; launch "
+                f"{dmoc_counts['plan']}")
         return [("dens_moc_bin",
                  f"level-7 globe [5, {bins.numel()}, {mesh.n_elems}]",
                  lambda: tuple(diagnostics.dens_moc_bin(*args)),
                  lambda: tuple(diagnostics.dens_moc_bin_plain(*args)),
                  False, diagnostics.dens_moc_bin_work(
-                     mesh.n_elems, bins.numel(), size, *counts, False),
+                     mesh.n_elems, bins.numel(), size, *counts[:4], False),
                  None)]
 
     for label, mesh in (("channel", mesh64), ("globe", gmesh)):

@@ -237,18 +237,32 @@ def dens_moc_bin_plain(dens, helem, u, v, elem_area, ulevels_elem,
 def dens_moc_bin_counts(dens, ulevels_elem, nlevels_elem, bins) -> tuple:
     """(active layers, classes in the runs of the layers whose interval is
     wider than 1e-10, layers binned to the nearest class, elements with an
-    active layer) of these inputs, summed over the elements: the work
-    ``dens_moc_bin`` does on them."""
+    active layer, span widths) of these inputs, summed over the elements:
+    the work ``dens_moc_bin`` does on them.  The span of an element runs
+    from the first class any of its active layers sends weight to to the
+    last (a run, or the nearest class), ``smax - smin`` classes wide, 0
+    for an element without an active layer; span widths is the histogram
+    of the elements' widths, a list of S + 1 counts."""
     lmask = _layer_mask(ulevels_elem, nlevels_elem, dens.shape[0] - 1)
     lo, hi = _class_edges(bins)
+    S = bins.shape[0]
     dmin = torch.minimum(dens[:-1], dens[1:])
     dmax = torch.maximum(dens[:-1], dens[1:])
     a = torch.searchsorted(hi, dmin.contiguous(), right=True)
     b = torch.searchsorted(lo, dmax.contiguous())
     wide = lmask & (dmax - dmin > 1e-10)
     runs = torch.where(wide, torch.clamp_min(b - a, 0), 0)
-    return (int(lmask.sum()), int(runs.sum()), int((lmask & ~wide).sum()),
-            int(lmask.any(0).sum()))
+    # the nearest class of the layers that take it (none [L, S, E] formed)
+    narrow = lmask & ~wide
+    nearest = torch.zeros_like(a)
+    nearest[narrow] = torch.argmin(torch.abs(
+        bins[None, :] - (0.5 * (dmin + dmax))[narrow][:, None]), 1)
+    smin = torch.where(lmask, torch.where(wide, a, nearest), S).amin(0)
+    smax = torch.where(lmask, torch.where(wide, b, nearest + 1), 0).amax(0)
+    width = torch.where(lmask.any(0), smax - smin, 0)
+    return (int(lmask.sum()), int(runs.sum()), int(narrow.sum()),
+            int(lmask.any(0).sum()),
+            torch.bincount(width.cpu(), minlength=S + 1).tolist())
 
 
 def dens_moc_bin_work(n_elems: int, n_classes: int, itemsize: int,
@@ -303,6 +317,16 @@ def dens_moc_bin(dens, helem, u, v, elem_area, ulevels_elem, nlevels_elem,
                    elem_area, ulevels_elem, nlevels_elem, bins, out, nl, E, S,
                    kernels.float_code(dt))
     return out
+
+
+def dens_moc_bin_plan(dtype, n_classes: int) -> dict:
+    """The launch ``dens_moc_bin`` makes for ``n_classes`` classes: block,
+    classes a chunk, chunks and dynamic shared bytes."""
+    import ctypes
+    res = (ctypes.c_int * 4)()
+    kernels.library().fesom_dens_moc_bin_plan(
+        n_classes, kernels.float_code(dtype), ctypes.addressof(res))
+    return dict(zip(("block", "chunk", "chunks", "shared_bytes"), res))
 
 
 def interface_density(state: OceanState, mesh: MeshTables,

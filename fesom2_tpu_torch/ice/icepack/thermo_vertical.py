@@ -11,9 +11,10 @@ icepack_therm_bl99/icepack_therm_vertical driven by
 ``temperature_solve`` is the hand-written kernel ``bl99_temperature_solve``
 (``csrc/bl99_temperature.cu``) on CUDA tensors: one thread a (category,
 node) column, every sweep of the iteration in one cooperative launch, the
-global stopping rule taken on the card.  ``temperature_solve_plain`` is its
-plain version, a loop of torch ops that reads the sweep's error on the
-host; the CPU path uses it.
+sweeps in chunks held in registers between grid barriers, the global
+stopping rule taken on the card.
+``temperature_solve_plain`` is its plain version, a loop of torch ops that
+reads the sweep's error on the host; the CPU path uses it.
 """
 from __future__ import annotations
 
@@ -33,6 +34,10 @@ Ce_ice = 1.75e-3
 
 TSF_ERRMAX = 5e-4    # Icepack's Tsf_errmax [C]
 NIT_MAX = 100        # Icepack's maxiter
+# sweeps bl99_temperature_solve runs between two grid barriers (1 to 16)
+# where the decay of the sweeps' error does not set the chunk's length;
+# the sweeps of the last chunk past the stop are speculative, and dropped
+BL99_CHUNK = 4
 
 
 def _qsat_ice(Tsf):
@@ -376,6 +381,9 @@ def temperature_solve(cfg, hi, hs, Tsf0, Tsn0, Tin0, fswsfc, iabs,
     CUDA tensors one launch of ``bl99_temperature_solve`` takes every sweep
     and the final fluxes, with the global stopping rule on the card; its
     ``niter`` is an int32 0-d tensor on the card (nothing is read back).
+    The launch takes two iterate buffers (``2 (2 + nilyr) ncat N``
+    values: Tsf, the melting flag as 0 or 1, Tin) and 100 zeroed error
+    slots as scratch.
     On CPU tensors the plain version runs."""
     if hi.device.type == "cpu":
         return temperature_solve_plain(cfg, hi, hs, Tsf0, Tsn0, Tin0, fswsfc,
@@ -410,29 +418,66 @@ def temperature_solve(cfg, hi, hs, Tsf0, Tsn0, Tin0, fswsfc, iabs,
                fcondbot=torch.empty_like(hi), fsens=torch.empty_like(hi),
                flat=torch.empty_like(hi), flwout=torch.empty_like(hi),
                niter=torch.empty((), dtype=torch.int32, device=dev))
-    # the sweeps' error slots, zeroed before the launch
+    # the sweeps' error slots, zeroed before the launch, and the two
+    # iterate buffers the chunks alternate between
     slots = torch.zeros(NIT_MAX, dtype=torch.int64, device=dev)
+    state = torch.empty(2 * (2 + ni) * ncat * N, dtype=dt_, device=dev)
     kernels.launch("bl99_temperature_solve", dev, hi, hs, Tsf0, Tsn0, Tin0,
                    fswsfc, iabs, flw, Tair, shum, wind, Tbot, shcoef, lhcoef,
                    _layer_table(sal, Tmlt, dev),
-                   *(out[k] for k in BL99_OUTPUTS), slots, ncat, N, ni, ns,
-                   cfg.niter_therm, CONDUCT[cfg.conduct], float(dt),
-                   float(cfg.ksno), float(cfg.emissivity),
-                   kernels.float_code(dt_))
+                   *(out[k] for k in BL99_OUTPUTS), slots, state,
+                   ncat, N, ni, ns, cfg.niter_therm, CONDUCT[cfg.conduct],
+                   BL99_CHUNK, float(dt), float(cfg.ksno),
+                   float(cfg.emissivity), kernels.float_code(dt_))
     return out
+
+
+def bl99_next_chunk(k0: int, niter_therm: int, chunk: int, e0: float,
+                    e1: float) -> int:
+    """The sweeps of ``bl99_temperature_solve``'s chunk that starts at k0
+    sweeps taken (csrc/bl99_temperature.cu: next_chunk): up to niter_therm,
+    then as many as the geometric decay of the last two sweeps' maxima
+    e0 > e1 > 0 needs to reach the tolerance, else ``chunk``; at most 16
+    and up to the cap of 100."""
+    n = chunk
+    if k0 + 1 < niter_therm:
+        n = niter_therm - k0
+    elif k0 >= 2 and e1 > 0.0 and e0 > e1:
+        m = float(np.ceil(np.log(TSF_ERRMAX / e1) / np.log(e1 / e0)))
+        n = 1 if m < 1.0 else 16 if m > 16.0 else int(m)
+    return min(n, 16, NIT_MAX - k0)
+
+
+def bl99_chunks(errs, niter_therm: int, chunk: int = BL99_CHUNK) -> list:
+    """The chunk lengths ``bl99_temperature_solve`` runs for the sweeps'
+    maxima ``errs`` (its slots, read back), up to the stop: the sweeps it
+    runs are their sum, plus the rerun where the stop ends no chunk."""
+    k0, e0, e1, lens = 0, 0.0, 0.0, []
+    while True:
+        n = bl99_next_chunk(k0, niter_therm, chunk, e0, e1)
+        lens.append(n)
+        for j in range(n):
+            it = k0 + j + 1
+            if not (it < NIT_MAX and (errs[k0 + j] > TSF_ERRMAX
+                                      or it < niter_therm)):
+                return lens
+            e0, e1 = e1, float(errs[k0 + j])
+        k0 += n
 
 
 def bl99_plan(device, dtype, n_cols: int) -> dict:
     """The launch ``bl99_temperature_solve`` makes for ``n_cols`` columns
-    on ``device``: grid and block."""
+    on ``device``: grid, block, resident blocks an SM, registers a thread
+    and the sweeps a chunk where the error's decay does not set it."""
     import ctypes
-    res = (ctypes.c_int * 2)()
+    res = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
         err = kernels.library().fesom_bl99_plan(
             n_cols, kernels.float_code(dtype), ctypes.addressof(res))
     if err:
         raise RuntimeError(f"bl99_plan: CUDA error {err}")
-    return dict(grid=res[0], block=res[1])
+    return dict(grid=res[0], block=res[1], blocks_per_sm=res[2],
+                registers=res[3], chunk=BL99_CHUNK)
 
 
 # --------------------------------------------------------------------------

@@ -320,20 +320,201 @@ def kernel_walk(dens, helem, u, v, area, ule, nle, bins, fer_u=None,
     return out
 
 
+def chunked_walk(dens, helem, u, v, area, ule, nle, bins, fer_u=None,
+                 fer_v=None, chunk=4):
+    """csrc/dens_moc_bin.cu's data flow as it stands, in numpy, one element
+    at a time: the span pass finds each layer's classes (the run from the
+    first class whose upper edge lies above dmin, found by a walk from the
+    layer above's, to the first whose lower edge does not lie below dmax;
+    wide where dmax - dmin > 1e-9, else where the overlaps' sum exceeds
+    1e-10; the nearest class where not wide) and records for each chunk of
+    ``chunk`` classes the first and last layer sending weight into it and
+    the running depth before the first; then, for every chunk, the walk of
+    those layers sums the chunk's 5 x ``chunk`` values from 0 in ascending
+    layer order (the overlaps' sum taken where a wide layer meets the
+    chunk), and every output is stored once (zeros where no layer meets
+    the chunk).  Returns ([5, S, E], the chunks the layers' classes meet,
+    summed)."""
+    dens, helem, u, v, area, bins = (to_numpy(x) for x in (dens, helem, u,
+                                                           v, area, bins))
+    ule, nle = to_numpy(ule), to_numpy(nle)
+    if fer_u is not None:
+        fer_u, fer_v = to_numpy(fer_u), to_numpy(fer_v)
+    T = bins.dtype.type
+    nl, E = dens.shape
+    S = bins.shape[0]
+    lo = np.array([T(-1e30)] + [T(0.5) * (bins[s - 1] + bins[s])
+                                for s in range(1, S)], bins.dtype)
+    hi = np.array([T(0.5) * (bins[s] + bins[s + 1]) for s in range(S - 1)]
+                  + [T(1e30)], bins.dtype)
+    ov = lambda dmin, dmax, s: max(T(np.minimum(dmax, hi[s])
+                                     - np.maximum(dmin, lo[s])), T(0))
+
+    def wsum_of(dmin, dmax, a, b):
+        wsum = T(0)
+        for s in range(a, b):
+            wsum = T(wsum + ov(dmin, dmax, s))
+        return wsum
+
+    def classes_of(dmin, dmax, hint):
+        a, b = 0, 0
+        if dmin == dmin and dmax == dmax:
+            a = hint[0]
+            while a > 0 and hi[a - 1] > dmin:
+                a -= 1
+            while a < S and not hi[a] > dmin:
+                a += 1
+            b = a
+            while b < S and lo[b] < dmax:
+                b += 1
+            hint[0] = min(a, S - 1)
+        wide = b > a and T(dmax - dmin) > T(1e-9)
+        if not wide:
+            wide = b > a and wsum_of(dmin, dmax, a, b) > T(1e-10)
+        if wide:
+            return a, b, True
+        best = int(np.argmin(np.abs(bins - T(T(0.5) * T(dmin + dmax)))))
+        return best, best + 1, False
+
+    Q = -(-S // chunk)
+    out = np.empty((5, S, E), bins.dtype)
+    visits = 0
+    with np.errstate(invalid="ignore"):
+        for e in range(E):
+            l0, l1 = max(int(ule[e]) - 1, 0), min(int(nle[e]) - 1, nl - 1)
+            first, last, before = [None] * Q, [None] * Q, [None] * Q
+            depth, hint = T(0), [0]
+            for lay in range(l0, l1):
+                a, b, _ = classes_of(
+                    np.minimum(dens[lay, e], dens[lay + 1, e]),
+                    np.maximum(dens[lay, e], dens[lay + 1, e]), hint)
+                for q in range(a // chunk, (b - 1) // chunk + 1):
+                    if first[q] is None:
+                        first[q], before[q] = lay, depth
+                    last[q] = lay
+                    visits += 1
+                depth = T(depth + helem[lay, e])
+            for q in range(Q):
+                c0 = q * chunk
+                acc = np.zeros((5, chunk), bins.dtype)
+                if first[q] is not None:
+                    depth, hint = before[q], [min(c0, S - 1)]
+                    for lay in range(first[q], last[q] + 1):
+                        h = helem[lay, e]
+                        depth = T(depth + h)
+                        dmin = np.minimum(dens[lay, e], dens[lay + 1, e])
+                        dmax = np.maximum(dens[lay, e], dens[lay + 1, e])
+                        a, b, wide = classes_of(dmin, dmax, hint)
+                        if b <= c0 or a >= c0 + chunk:
+                            continue
+                        zmid = T(depth - h / T(2))
+                        uu = u[lay, e] + (fer_u[lay, e] if fer_u is not None
+                                          else T(0))
+                        vv = v[lay, e] + (fer_v[lay, e] if fer_v is not None
+                                          else T(0))
+                        x = (T(uu * h), T(vv * h), T(h * area[e]), T(-zmid))
+                        if wide:
+                            den = np.maximum(wsum_of(dmin, dmax, a, b),
+                                             T(1e-30))
+                            for s in range(max(a, c0), min(b, c0 + chunk)):
+                                w = T(ov(dmin, dmax, s) / den)
+                                for k in range(4):
+                                    acc[k, s - c0] += T(w * x[k])
+                                acc[4, s - c0] += w
+                        else:
+                            for k in range(4):
+                                acc[k, a - c0] += x[k]
+                            acc[4, a - c0] += T(1)
+                n = min(chunk, S - c0)
+                out[:, c0:c0 + n, e] = acc[:, :n]
+    return out, visits
+
+
+WALKS = {"chunked": lambda *a, **k: chunked_walk(*a, **k)[0],
+         "per_layer": kernel_walk}
+
+
+@pytest.mark.parametrize("design", list(WALKS))
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-def test_dens_moc_bin_walk_matches_plain(run, dtype, tol):
+def test_dens_moc_bin_walk_matches_plain(run, dtype, tol, design):
+    """The kernel's walk (``chunked``) and the first design's (one
+    read-modify-write a layer and class after a zero fill, ``per_layer``)
+    against the plain version, without and with the bolus velocities."""
     r = run
+    walk = WALKS[design]
     args = binning_inputs(r, dtype)
     want = dg.dens_moc_bin_plain(*args)
-    got = kernel_walk(*args)
+    got = walk(*args)
     for k, name in enumerate(dg.DMOC_BINNED):
         assert_close(got[k], to_numpy(want[k]), name, tol=tol)
     fu, fv = r.ts.fer_u.to(dtype), r.ts.fer_v.to(dtype)
     want = dg.dens_moc_bin_plain(*args, fer_u=fu, fer_v=fv)
-    got = kernel_walk(*args, fer_u=fu, fer_v=fv)
+    got = walk(*args, fer_u=fu, fer_v=fv)
     for k, name in enumerate(dg.DMOC_BINNED):
         assert_close(got[k], to_numpy(want[k]), name, tol=tol)
+
+
+def odd_binning_inputs(r, dtype=torch.float64):
+    """binning_inputs with a layer of no spread, a tie between two
+    classes, a NaN interval, and element 9's densities reset to rise from
+    31.2 to 33.5, a span across the edge between the chunks of classes 0-7
+    and 8-15."""
+    dens, *rest = binning_inputs(r, dtype)
+    dens = dens.clone()
+    dens[2] = dens[1]                          # layer 1: degenerate
+    mid = 0.5 * (dg.STD_DENS[40] + dg.STD_DENS[41])
+    dens[3:5, :4] = mid                        # a tie between two classes
+    dens[6, 7] = float("nan")
+    dens[:, 9] = torch.linspace(31.2, 33.5, dens.shape[0]).to(dtype)
+    # spreads about the thresholds of the weight sum (1e-10) and of the
+    # sure run (1e-9): elements 10-14, layers 2 and 3
+    for e, gap in zip(range(10, 15), (5e-11, 1e-10, 2e-10, 9e-10, 2e-9)):
+        dens[3, e] = dens[2, e] + gap
+        dens[4, e] = dens[3, e] - gap / 2
+    return (dens, *rest)
+
+
+@pytest.mark.parametrize("chunk", [3, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dens_moc_bin_chunked_walk_equals_the_first_design(run, dtype,
+                                                           chunk):
+    """The kernel's walk equals the first design's bit for bit at any chunk
+    width, on the state's layers and on layers of no spread, a tie, a NaN
+    interval and an element whose span crosses chunk edges (the first 256
+    elements); a layer meets at least one chunk and at most one a class of
+    its run."""
+    r = run
+    cut = lambda x: x[..., :256].contiguous()   # the first 256 elements
+    for args in (binning_inputs(r, dtype), odd_binning_inputs(r, dtype)):
+        args = (*(cut(a) for a in args[:7]), args[7])
+        for fer in ((None, None), (cut(r.ts.fer_u.to(dtype)),
+                                   cut(r.ts.fer_v.to(dtype)))):
+            got, visits = chunked_walk(*args, *fer, chunk=chunk)
+            want = kernel_walk(*args, *fer)
+            assert np.array_equal(np.isnan(got), np.isnan(want))
+            assert np.array_equal(np.nan_to_num(got), np.nan_to_num(want))
+    active, runs, _, _, _ = dg.dens_moc_bin_counts(*args[:1], *args[5:])
+    assert active <= visits <= active + runs
+    # element 9's span crosses chunk edges (classes 7|8 among them)
+    e9 = got[4, :, 9]
+    assert e9[:8].sum() > 0 and e9[8:16].sum() > 0
+
+
+def test_dens_moc_bin_chunked_walk_matches_jax(run):
+    """The kernel's walk against the JAX package's diag_dens_moc
+    (``fesom2_tpu/core/diagnostics.py:159``) run eagerly on the same
+    state, without and with the bolus velocities: each of the five fields
+    within 1e-12 of its largest magnitude."""
+    r = run
+    args = binning_inputs(r)
+    for fer, jfer in (((None, None), (None, None)),
+                      ((r.ts.fer_u, r.ts.fer_v), (r.js.fer_u, r.js.fer_v))):
+        got, _ = chunked_walk(*args, *fer)
+        want = jdg.diag_dens_moc(r.js, r.jmesh, r.cfg, fer_u=jfer[0],
+                                 fer_v=jfer[1])
+        for k, name in enumerate(dg.DMOC_BINNED):
+            assert_close(got[k], np.asarray(want[name]), name, tol=TOL)
 
 
 def test_dens_moc_bin_degenerate_and_nan_layers(run):
@@ -362,8 +543,10 @@ def test_dens_moc_bin_degenerate_and_nan_layers(run):
 def test_dens_moc_bin_counts_and_work(run):
     r = run
     dens, _, _, _, _, ule, nle, bins = binning_inputs(r)
-    active, runs, nearest, columns = dg.dens_moc_bin_counts(dens, ule, nle,
-                                                            bins)
+    active, runs, nearest, columns, widths = dg.dens_moc_bin_counts(
+        dens, ule, nle, bins)
+    assert len(widths) == bins.shape[0] + 1
+    assert sum(widths) == r.mesh.n_elems
     assert active == int(r.mesh.elem_layer_mask.sum())
     assert columns == int(r.mesh.elem_layer_mask.any(0).sum())
     assert runs >= active - nearest > 0
@@ -376,6 +559,40 @@ def test_dens_moc_bin_counts_and_work(run):
     assert flops == 6 * active + 13 * runs + (S + 7) * nearest
     assert dg.dens_moc_bin_work(E, S, 8, active, runs, nearest, columns,
                                 True)[0] == nbytes + 2 * active * 8
+
+
+@pytest.mark.parametrize("odd", [False, True])
+def test_dens_moc_bin_span_widths_against_numpy(run, odd):
+    """The span widths of dens_moc_bin_counts against a direct count, an
+    element and a layer at a time: a layer of spread above 1e-10 sends
+    weight to the classes whose lower edge lies below dmax and upper edge
+    above dmin, another to the class nearest its mid point (class 0 for a
+    NaN interval); an element's span runs from its first such class to its
+    last."""
+    r = run
+    args = odd_binning_inputs(r) if odd else binning_inputs(r)
+    dens, _, _, _, _, ule, nle, bins = (to_numpy(a) for a in args)
+    S = bins.shape[0]
+    lo = np.r_[-1e30, 0.5 * (bins[:-1] + bins[1:])]
+    hi = np.r_[0.5 * (bins[:-1] + bins[1:]), 1e30]
+    want = np.zeros(S + 1, int)
+    for e in range(dens.shape[1]):
+        classes = []
+        for lay in range(int(ule[e]) - 1, int(nle[e]) - 1):
+            d0, d1 = dens[lay, e], dens[lay + 1, e]
+            dmin, dmax = min(d0, d1), max(d0, d1)
+            if np.isnan(d0) or np.isnan(d1):
+                classes.append(0)
+            elif dmax - dmin > 1e-10:
+                classes += [s for s in range(S)
+                            if lo[s] < dmax and hi[s] > dmin]
+            else:
+                classes.append(int(np.argmin(np.abs(bins - 0.5 * (dmin
+                                                                  + dmax)))))
+        want[max(classes) + 1 - min(classes) if classes else 0] += 1
+    got = dg.dens_moc_bin_counts(args[0], *args[5:])[4]
+    assert got == want.tolist()
+    assert sum(w * n for w, n in enumerate(got)) > 0
 
 
 def test_dens_moc_bin_wrapper_passes_what_the_kernel_takes(run, monkeypatch):

@@ -1055,37 +1055,231 @@ def walk_bl99(cfg, x, dt_s, sal, Tmlt, dtype, xp="torch", shcoef=None,
     return out, it, slots
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("case,niter_therm", [
-    ("stops at niter_therm", 30), ("stops at the tolerance", 1),
-    ("runs into the cap", 150), ("MU71 with coefficients", 4)])
-def test_bl99_kernel_data_flow_equals_the_plain_version(dtype, case,
-                                                        niter_therm):
-    """The walk with torch's exp and pow bit for bit against the plain
-    version; with numpy's within 1e-14 per sweep and the same sweep
-    count; the slots hold each sweep's maximum, zero past the last."""
+def walk_bl99_chunked(cfg, x, dt_s, sal, Tmlt, dtype, xp="torch",
+                      shcoef=None, lhcoef=None, block=256, grid=3, chunk=4):
+    """bl99_temperature_solve's per-thread code as it stands (numpy, a lane
+    per column, columns walked by ``grid`` blocks of ``block`` threads as
+    the kernel's grid-stride loop assigns them): the sweeps in chunks,
+    each chunk loading the inputs once and computing what no sweep changes
+    (dzi, dzs, the snow capacity and couplings, cs, ce, fswsfc + emiss
+    flw, the balance at Tsf = 0), then its sweeps with each row eliminated
+    as it is built (only cp and dp kept); each sweep's block maxima folded
+    into its slot, the stop found from the slots after the chunk, the
+    iterate in two buffers, the final pass rerunning from the chunk's
+    start up to the stop; the chunks' lengths as ``tv.bl99_next_chunk``
+    sets them, ``chunk`` where the error's decay does not.  Returns
+    (outputs, sweeps, slots, sweeps run, the chunks' lengths)."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    Tc = npdt
+    exp, pw = _ulp_pow_exp(xp)
+    ncat, n = x["hi"].shape
+    ni, ns = cfg.nilyr, cfg.nslyr
+    m = 1 + ns + ni
+    g = lambda k: np.asarray(x[k], npdt)
+    node = lambda k: np.broadcast_to(g(k)[None], (ncat, n))
+    cmax = lambda v, lo: np.where(v < lo, lo, v)
+    cmin = lambda v, hi_: np.where(v > hi_, hi_, v)
+    emiss, ks, c = cfg.emissivity, cfg.ksno, tc
+    t_floor = Tc(-1e-3 if dtype == torch.float64 else -0.05)
+    dtT = Tc(dt_s)
+    # the per-layer constants (shared memory)
+    beta = Tc(c.beta_mu71) if cfg.conduct == "MU71" else Tc(0.09)
+    kS = [beta * Tc(v) for v in np.asarray(sal)]
+    LTm = [Tc(c.Lfresh) * Tc(v) for v in np.asarray(Tmlt)]
+    Tmax = [Tc(v) - Tc(1e-6) for v in np.asarray(Tmlt)]
+
+    def surface(Tsf, q):
+        TK = Tsf + Tc(c.Tffresh)
+        flwout = Tc(-emiss * c.stefan_boltzmann) * pw(TK, 4)
+        dflw = Tc(-4.0 * emiss * c.stefan_boltzmann) * ((TK * TK) * TK)
+        fsens = q["cs"] * (q["Tair"] - Tsf)
+        qs = Tc(c.qqqice / c.rhoair) * exp(
+            (Tc(1) / (Tsf + Tc(c.Tffresh))) * Tc(-c.TTTice))
+        flat = q["ce"] * (q["shum"] - qs)
+        dflat = (((-q["ce"]) * qs) * Tc(c.TTTice)) / (TK * TK)
+        fsurf = ((q["A"] + flwout) + fsens) + flat
+        return fsurf, (dflw + (-q["cs"])) + dflat, fsens, flat, flwout
+
+    def cond(Tk, k):
+        Ts = cmin(Tk, Tc(-0.01))
+        if cfg.conduct == "MU71":
+            kk = Tc(c.kice0) + kS[k] / Ts
+        else:
+            kk = (Tc(2.11) - Tc(0.011) * Ts) + kS[k] / Ts
+        return cmax(kk, Tc(0.1 * c.kice0))
+
+    def load_column():
+        hi, hs = g("hi"), g("hs")
+        q = dict(dzi=cmax(hi, Tc(0.01)) / Tc(ni), snow_on=hs >= Tc(c.hs_min),
+                 dzs=cmax(hs, Tc(c.hs_min)) / Tc(ns), Tair=node("Tair"),
+                 shum=node("shum"), Tbot=node("Tbot"))
+        q["cap_snow"] = np.where(q["snow_on"],
+                                 (Tc(c.rhos * c.cp_ice) * q["dzs"]) / dtT,
+                                 Tc(1e-6))
+        q["c_sfc_snow"] = (Tc(1) / q["dzs"]) * Tc(2.0 * ks)
+        q["c_snow_snow"] = (Tc(1) / q["dzs"]) * Tc(ks)
+        q["ks_dzi"] = Tc(ks) * q["dzi"]
+        wind = node("wind")
+        q["cs"] = np.asarray(shcoef, npdt) if shcoef is not None \
+            else Tc(c.rhoair * c.cp_air * tv.Ch_ice) * wind
+        q["ce"] = np.asarray(lhcoef, npdt) if lhcoef is not None \
+            else Tc(c.rhoair * c.Lsub * tv.Ce_ice) * wind
+        q["A"] = g("fswsfc") + Tc(emiss) * node("flw")
+        q["fs0"] = surface(np.zeros_like(hi), q)[0]
+        q["Tin_init"], q["iabs"] = g("Tin0"), g("iabs")
+        return q
+
+    def sweep(q, Tsf, Tin, melting):
+        ki = [cond(Tin[:, k], k) for k in range(ni)]
+        series = Tc(ns + 1) * ((Tc(2) * ki[0]) / q["dzi"])
+        Cs0 = np.where(q["snow_on"], q["c_sfc_snow"], series)
+        fsurf, dfsurf = surface(Tsf, q)[:2]
+        diag = Cs0 - dfsurf
+        cp = [np.where(melting, Tc(0), (-Cs0) / diag)]
+        dp = [np.where(melting, Tc(0), (fsurf - dfsurf * Tsf) / diag)]
+        cl = Cs0
+        for j in range(ns):
+            if j + 1 < ns:
+                cr = np.where(q["snow_on"], q["c_snow_snow"], series)
+            else:
+                cr = np.where(q["snow_on"], (Tc(2.0 * ks) * ki[0])
+                              / (ki[0] * q["dzs"] + q["ks_dzi"]), series)
+            sub = -cl
+            den = ((q["cap_snow"] + cl) + cr) - sub * cp[-1]
+            cp.append((-cr) / den)
+            dp.append((q["cap_snow"] * g("Tsn0")[:, j] - sub * dp[-1])
+                      / den)
+            cl = cr
+        for k in range(ni):
+            last = k == ni - 1
+            cr = (Tc(2) * ki[k]) / q["dzi"] if last else \
+                ((Tc(2) * ki[k]) * ki[k + 1]) / (q["dzi"] * (ki[k]
+                                                           + ki[k + 1]))
+            Tprod = cmin(Tin[:, k], t_floor) * cmin(q["Tin_init"][:, k],
+                                                   t_floor)
+            a = ((Tc(c.rhoi) * (Tc(c.cp_ice) - LTm[k] / Tprod)) * q["dzi"]) \
+                / dtT
+            sub = -cl
+            rhs = a * q["Tin_init"][:, k] + q["iabs"][:, k]
+            if last:
+                rhs = rhs + cr * q["Tbot"]
+            den = ((a + cl) + cr) - sub * cp[-1]
+            if not last:
+                cp.append((-cr) / den)
+            dp.append((rhs - sub * dp[-1]) / den)
+            cl = cr
+        for j in range(m - 2, -1, -1):
+            dp[j] = dp[j] - cp[j] * dp[j + 1]
+        Tsn = np.stack([cmin(cmax(dp[1 + j], Tc(-100)), Tc(0))
+                        for j in range(ns)], 1)
+        Tin = np.stack([cmin(cmax(dp[1 + ns + k], Tc(-100)), Tmax[k])
+                        for k in range(ni)], 1)
+        fct0 = Cs0 * (Tc(0) - dp[1])
+        melt_next = np.where(melting, q["fs0"] > fct0, dp[0] > Tc(0))
+        Tsf_new = np.where(melt_next, Tc(0),
+                           cmin(cmax(dp[0], Tc(-100)), Tc(0)))
+        return Tsf_new, Tin, melt_next, Tsn, np.abs(Tsf_new - Tsf)
+
+    cols = np.arange(ncat * n)
+    blk = (cols % (grid * block)) // block
+    slots = np.zeros(100, np.uint64)
+    uint = np.uint64 if npdt is np.float64 else np.uint32
+    bufs = {0: (g("Tsf0"), g("Tin0"), np.zeros((ncat, n), bool))}
+    k0, frm, to, stop, run, lens = 0, 0, 1, -1, 0, []
+    e0 = e1 = 0.0
+    with np.errstate(all="ignore"):
+        while True:
+            ln = tv.bl99_next_chunk(k0, cfg.niter_therm, chunk, e0, e1)
+            lens.append(ln)
+            q = load_column()
+            Tsf, Tin, melting = bufs[frm]
+            for j in range(ln):
+                Tsf, Tin, melting, Tsn, dT = sweep(q, Tsf, Tin, melting)
+                dT = np.where(np.isfinite(dT), dT, Tc(0)).reshape(-1)
+                bits = dT.view(uint).astype(np.uint64)
+                for b in range(grid):
+                    slots[k0 + j] = max(slots[k0 + j],
+                                        bits[blk == b].max(initial=0))
+            run += ln
+            bufs[to], Tsn_out = (Tsf, Tin, melting), Tsn
+            for j in range(ln):
+                it = k0 + j + 1
+                err = float(np.asarray([slots[k0 + j]]).astype(uint).view(
+                    npdt)[0])
+                if not (it < 100 and (err > 5e-4 or it < cfg.niter_therm)):
+                    stop = k0 + j
+                    break
+                e0, e1 = e1, err
+            if stop >= 0:
+                break
+            k0, frm, to = k0 + ln, to, 3 - to
+        rerun = 0 if stop - k0 + 1 == ln else stop - k0 + 1
+        q = load_column()
+        Tsf, Tin, melting = bufs[frm if rerun else to]
+        for _ in range(rerun):
+            Tsf, Tin, melting, Tsn_out, _ = sweep(q, Tsf, Tin, melting)
+        run += rerun
+        ki0, kib = cond(Tin[:, 0], 0), cond(Tin[:, ni - 1], ni - 1)
+        Cs0 = np.where(q["snow_on"], q["c_sfc_snow"],
+                       Tc(ns + 1) * ((Tc(2) * ki0) / q["dzi"]))
+        fsurf, _, fsens, flat, flwout = surface(Tsf, q)
+        out = dict(Tsf=Tsf, Tsn=Tsn_out, Tin=Tin, melting=melting,
+                   fsurf=fsurf, fcondtop=Cs0 * (Tsf - Tsn_out[:, 0]),
+                   fcondbot=((Tc(2) * kib) / q["dzi"]) * (q["Tbot"]
+                                                         - Tin[:, ni - 1]),
+                   fsens=fsens, flat=flat, flwout=flwout)
+    return out, stop + 1, slots, run, lens
+
+
+BL99_CASES = [("stops at niter_therm", 30), ("stops at the tolerance", 1),
+              ("runs into the cap", 150), ("MU71 with coefficients", 4)]
+
+
+def _bl99_case(case, niter_therm, dtype):
+    """(config, inputs, salinity, melting temperatures, coefficients as
+    tensors) of a case of the walks' tests."""
     opts = dict(niter_therm=niter_therm)
     if case.startswith("MU71"):
         opts["conduct"] = "MU71"
     t = tstate.IcepackConfig(**opts)
     x = column_inputs(seed=32)
-    sal, Tm = tstate.salinity_profile(4), tstate.melt_temps(4)
     co = (None, None)
     if case.startswith("MU71"):
         co = tv.atmo_boundary_coeffs(T(x["Tsf0"], dtype),
                                      T(x["Tair"], dtype),
                                      T(x["shum"], dtype),
                                      T(x["wind"], dtype))
+    return (t, x, tstate.salinity_profile(4), tstate.melt_temps(4), co)
+
+
+@pytest.mark.parametrize("design", ["chunked", "per_sweep"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case,niter_therm", BL99_CASES)
+def test_bl99_kernel_data_flow_equals_the_plain_version(dtype, case,
+                                                        niter_therm, design):
+    """The walk with torch's exp and pow bit for bit against the plain
+    version; with numpy's within 1e-14 per sweep and the same sweep
+    count.  The kernel's design (``chunked``): the slots hold each sweep's
+    maximum up to the end of the last chunk, zero past it.  The first
+    design (``per_sweep``, one grid barrier a sweep): each sweep's maximum,
+    zero past the last."""
+    t, x, sal, Tm, co = _bl99_case(case, niter_therm, dtype)
     want = tv.temperature_solve_plain(t, *(T(x[k], dtype) for k in COLS),
                                       900.0, sal, Tm, *co)
     cn = [None if v is None else v.numpy() for v in co]
-    got, it, slots = walk_bl99(t, x, 900.0, sal, Tm, dtype, "torch",
-                               *cn)
+    if design == "chunked":
+        walk = lambda xp: walk_bl99_chunked(t, x, 900.0, sal, Tm, dtype, xp,
+                                            *cn)
+    else:
+        walk = lambda xp: walk_bl99(t, x, 900.0, sal, Tm, dtype, xp,
+                                    *cn) + (None, None)
+    got, it, slots, _, lens = walk("torch")
     assert it == int(want["niter"])
-    assert (slots[:it] > 0).all() and (slots[it:] == 0).all()
+    end = sum(lens) if design == "chunked" else it
+    assert (slots[:it] > 0).all() and (slots[end:] == 0).all()
     for k in SOL:
         assert np.array_equal(got[k], want[k].numpy()), k
-    got2, it2, _ = walk_bl99(t, x, 900.0, sal, Tm, dtype, "numpy", *cn)
+    got2, it2 = walk("numpy")[:2]
     assert it2 == it
     tol = 1e-14 * it if dtype == torch.float64 else 1e-5
     for k in SOL:
@@ -1093,6 +1287,102 @@ def test_bl99_kernel_data_flow_equals_the_plain_version(dtype, case,
             assert np.array_equal(got2[k], want[k].numpy())
         else:
             assert_close(got2[k], want[k].numpy(), k, tol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("chunk", [1, 2, 3, 5, 8])
+def test_bl99_chunk_length_changes_nothing(dtype, chunk):
+    """Any length of the chunks the error's decay does not set gives the
+    plain version's outputs bit for bit and its sweep count: the sweeps
+    past the stop are dropped, a stop inside a chunk reruns from the
+    chunk's start (never more than a chunk again)."""
+    t, x, sal, Tm, co = _bl99_case("stops at the tolerance", 1, dtype)
+    want = tv.temperature_solve_plain(t, *(T(x[k], dtype) for k in COLS),
+                                      900.0, sal, Tm)
+    got, it, slots, ran, lens = walk_bl99_chunked(t, x, 900.0, sal, Tm,
+                                                  dtype, chunk=chunk)
+    assert it == int(want["niter"]) > 2
+    assert lens[0] == chunk and max(lens) <= 16
+    assert sum(lens[:-1]) < it <= sum(lens)
+    errs = slots[:sum(lens)].astype(np.uint64 if dtype == torch.float64
+                                    else np.uint32).view(
+        np.float64 if dtype == torch.float64 else np.float32)
+    assert tv.bl99_chunks(errs, 1, chunk) == lens
+    assert ran == sum(lens) + (0 if it == sum(lens) else it - sum(lens[:-1]))
+    for k in SOL:
+        assert np.array_equal(got[k], want[k].numpy()), k
+
+
+@pytest.mark.parametrize("case,niter_therm", BL99_CASES)
+def test_bl99_chunked_walk_matches_jax(monkeypatch, case, niter_therm):
+    """The kernel's data flow against the JAX package's temperature_solve
+    (``fesom2_tpu/ice/icepack/thermo_vertical.py:142``) run eagerly: its
+    sweep count and melting flags, each output within 1e-12 of its
+    largest magnitude."""
+    t, x, sal, Tm, co = _bl99_case(case, niter_therm, torch.float64)
+    j = jstate.IcepackConfig(**{k: getattr(t, k) for k in ("niter_therm",
+                                                           "conduct")})
+    jco = None if co[0] is None else tuple(J(to_numpy(v)) for v in co)
+    want, n_jax = jax_solve_counted(monkeypatch, j, x, jco)
+    cn = [None if v is None else v.numpy() for v in co]
+    got, it = walk_bl99_chunked(t, x, 900.0, sal, Tm, torch.float64,
+                                "numpy", *cn)[:2]
+    assert it == n_jax
+    assert np.array_equal(got["melting"], np.asarray(want["melting"]))
+    close_all([got[k] for k in SOL if k != "melting"],
+              [want[k] for k in SOL if k != "melting"],
+              [k for k in SOL if k != "melting"])
+
+
+@pytest.mark.parametrize("layers,coeffs", [((4, 4), False), ((4, 4), True),
+                                           ((7, 1), False)])
+def test_bl99_wrapper_passes_what_the_kernel_takes(monkeypatch, layers,
+                                                   coeffs):
+    """The launch path, recorded on tensors of the meta device: the C
+    signature's arguments in order, null pointers for absent coefficients,
+    100 error slots, the two iterate buffers (2 (2 + nilyr) ncat N
+    values), the chunk length ``BL99_CHUNK``."""
+    import ctypes
+    ni, ns = layers
+    t = tstate.IcepackConfig(nilyr=ni, nslyr=ns)
+    ncat, n = 5, 37
+    dev = torch.device("meta")
+    shapes = dict(hi=(ncat, n), hs=(ncat, n), Tsf0=(ncat, n),
+                  Tsn0=(ncat, ns, n), Tin0=(ncat, ni, n), fswsfc=(ncat, n),
+                  iabs=(ncat, ni, n), flw=(n,), Tair=(n,), shum=(n,),
+                  wind=(n,), Tbot=(n,))
+    x = {k: torch.empty(v, dtype=torch.float32, device=dev)
+         for k, v in shapes.items()}
+    co = (x["hi"], x["hs"]) if coeffs else (None, None)
+    calls = []
+
+    def record(kernel, device, *a, entry=""):
+        sig = kernels._ARGTYPES[kernel + entry]
+        assert len(a) + 1 == len(sig)
+        for v, typ in zip(a, sig):
+            if typ is ctypes.c_void_p:
+                assert v is None or isinstance(v, torch.Tensor)
+            else:
+                assert type(v) is (int if typ is ctypes.c_int else float)
+        calls.append(a)
+
+    monkeypatch.setattr(kernels, "launch", record)
+    monkeypatch.setattr(kernels, "cuda_only", lambda v, what: None)
+    out = tv.temperature_solve(t, *(x[k] for k in COLS), 900.0,
+                               tstate.salinity_profile(ni),
+                               tstate.melt_temps(ni), *co)
+    (a,) = calls
+    assert (a[12] is None) == (not coeffs) and (a[13] is None) == (not coeffs)
+    assert a[14].shape == (2, ni) and a[14].dtype == torch.float64
+    assert [a[15 + i] is out[k] for i, k in enumerate(tv.BL99_OUTPUTS)] \
+        == [True] * 11
+    slots, state = a[26:28]
+    assert slots.shape == (100,) and slots.dtype == torch.int64
+    assert state.shape == (2 * (2 + ni) * ncat * n,)
+    assert state.dtype == torch.float32
+    assert a[28:35] == (ncat, n, ni, ns, t.niter_therm,
+                        tv.CONDUCT[t.conduct], tv.BL99_CHUNK)
+    assert 1 <= tv.BL99_CHUNK <= 16 and a[-1] == 0
 
 
 def test_work_counters():

@@ -10,9 +10,10 @@ variants of the subcycle kernel on all three; ring_spmv at every ring width
 with a kernel of its own and at two the generic kernel takes; Icepack's
 bl99_temperature_solve and itd_remap on the inputs of the first Icepack
 coupled step on the level-3 and level-7 globes, and on the level-3 globe
-under MU71, the similarity coefficients and 7 ice / 1 snow layers, and
-mevp_subcycles with its strength field on the whole level-7 globe;
-dens_moc_bin on the level-3 globe's state after two coupled steps).
+under MU71, the similarity coefficients, 7 ice / 1 snow layers, no column
+and a chunk schedule whose stop falls inside a chunk, and mevp_subcycles with its strength field on the whole level-7 globe;
+dens_moc_bin on the level-3 globe's state after two coupled steps, with
+odd layers; both kernels raise without nvcc).
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run on a machine that has only torch:
@@ -28,6 +29,7 @@ comparison at full size.
 """
 import contextlib
 import dataclasses
+import inspect
 import types
 
 import numpy as np
@@ -834,6 +836,11 @@ ICEPACK_VARIANTS = {
     "similarity": dict(atmbndy="similarity"),
     # the generic-layer instance (nilyr, nslyr other than 4, 4)
     "layers_7_1": dict(nilyr=7, nslyr=1),
+    # no column: the sweep count alone
+    "empty": {},
+    # no minimum of sweeps, and a fallback chunk length under which the
+    # stop falls inside a chunk: the final pass's rerun
+    "rerun": dict(niter_therm=1),
 }
 
 
@@ -841,17 +848,54 @@ ICEPACK_VARIANTS = {
 @pytest.mark.parametrize("case", list(ICEPACK_VARIANTS))
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-def test_icepack_kernel_variants_match_plain_on_card(tmp_path, case, dtype,
-                                                     tol):
+def test_icepack_kernel_variants_match_plain_on_card(tmp_path, monkeypatch,
+                                                     case, dtype, tol):
     """The instances and branches of bl99_temperature_solve (and the
     itd_remap rows) that the default IcepackConfig does not reach, on the
     inputs of the first Icepack coupled step on the level-3 globe, held as
-    the default case is."""
+    the default case is; with no column, the plain version's sweep count
+    and empty outputs; under a fallback chunk length (found from the
+    sweeps' maxima the default launch leaves in its slots) whose schedule
+    puts the stop inside a chunk, the default's outputs bit for bit."""
     _need_card()
+    from fesom2_tpu_torch.ice.icepack import thermo_vertical as tv
     opts = ICEPACK_VARIANTS[case]
     _, rec = _icepack_step_inputs(globe.write_globe(str(tmp_path), level=3),
                                   dtype, opts)
+    if case == "empty":
+        args, kw = rec["temperature_solve"][0]
+        cut = lambda t: t[..., :0].contiguous() \
+            if isinstance(t, torch.Tensor) else t
+        args = [cut(a) for a in args]
+        kw = {k: cut(v) for k, v in kw.items()}
+        got = tv.temperature_solve(*args, **kw)
+        want = tv.temperature_solve_plain(*args, **kw)
+        assert int(got["niter"]) == int(want["niter"]) == args[0].niter_therm
+        for k in tv.BL99_OUTPUTS[:-1]:
+            assert got[k].shape == want[k].shape and got[k].numel() == 0, k
+        return
+    if case == "rerun":
+        from fesom2_tpu_torch.scripts.bl99_dmoc_kernel_times import \
+            bl99_entry
+        args, kw = rec["temperature_solve"][0]
+        bound = inspect.signature(tv.temperature_solve).bind(*args, **kw)
+        bound.apply_defaults()
+        call, _, slots = bl99_entry(kernels.library(), dict(bound.arguments))
+        default = call()
+        bits = slots.cpu().numpy()
+        errs = bits.view(np.float64) if dtype == torch.float64 \
+            else bits.astype(np.uint32).view(np.float32)
+        n = int(default["niter"])
+        inside = [c for c in range(1, 17)
+                  if sum(tv.bl99_chunks(errs, 1, c)) != n]
+        assert inside, "every fallback length ends a chunk at the stop"
+        monkeypatch.setattr(tv, "BL99_CHUNK", inside[0])
     args, kw = _check_icepack_kernels(rec, tol)
+    if case == "rerun":
+        got = tv.temperature_solve(*args, **kw)
+        for k in tv.BL99_OUTPUTS:
+            assert torch.equal(got[k], default[k]), k
+        return
     assert (kw.get("shcoef") is not None) == (case == "similarity")
     assert (args[0].conduct, args[0].nilyr, args[0].nslyr) == (
         opts.get("conduct", "bubbly"), opts.get("nilyr", 4),
@@ -908,9 +952,10 @@ def test_mevp_subcycles_with_strength_whole_globe_on_card(tmp_path, rng,
 def test_dens_moc_bin_matches_plain_on_card(tmp_path, dtype, tol):
     """dens_moc_bin on the level-3 globe's state after two coupled CI
     steps on the card (8 subcycles), without and with the bolus
-    velocities, and with a layer of no density spread and a NaN interval:
-    each of the five outputs within the tolerance of its max|plain|, one
-    launch a call."""
+    velocities, and with a layer of no density spread, a NaN interval, an
+    element whose span crosses the edge between two chunks of classes and
+    spreads about the kernel's thresholds (1e-10, 1e-9): each of the five
+    outputs within the tolerance of its max|plain|, one launch a call."""
     _need_card()
     from fesom2_tpu_torch.core import diagnostics as dg
     from fesom2_tpu_torch.model import (pi_coupled_step_fn, pi_initial_state,
@@ -929,10 +974,18 @@ def test_dens_moc_bin_matches_plain_on_card(tmp_path, dtype, tol):
     odd = dens.clone()
     odd[2] = odd[1]
     odd[6, 7] = float("nan")
+    # element 9's span across the edge between the chunks of classes 0-7
+    # and 8-15
+    odd[:, 9] = torch.linspace(31.2, 33.5, odd.shape[0]).to(dtype)
+    # spreads about the thresholds of the weight sum (1e-10) and of the
+    # sure run (1e-9): elements 10-14, layers 2 and 3
+    for e, gap in zip(range(10, 15), (5e-11, 1e-10, 2e-10, 9e-10, 2e-9)):
+        odd[3, e] = odd[2, e] + gap
+        odd[4, e] = odd[3, e] - gap / 2
     rest = (s.helem, s.u, s.v, m.mesh.elem_area, m.mesh.ulevels_elem,
             m.mesh.nlevels_elem, bins)
     for d, fer in ((dens, (None, None)), (dens, (s.fer_u, s.fer_v)),
-                   (odd, (None, None))):
+                   (odd, (None, None)), (odd, (s.fer_u, s.fer_v))):
         n0 = kernels.LAUNCHES["dens_moc_bin"]
         got = dg.dens_moc_bin(d, *rest, *fer)
         want = dg.dens_moc_bin_plain(d, *rest, *fer)
@@ -944,3 +997,24 @@ def test_dens_moc_bin_matches_plain_on_card(tmp_path, dtype, tol):
             g, w = got[k][:, ok], want[k][:, ok]
             assert float((g - w).abs().max()) <= tol * float(
                 w.abs().max()), name
+    assert float(got[4, :8, 9].sum()) > 0 and float(got[4, 8:16, 9].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_dens_moc_bin_raises_when_the_build_fails_on_card(monkeypatch):
+    """No nvcc: a CUDA tensor does not fall back to the plain version."""
+    _need_card()
+    from fesom2_tpu_torch.core import diagnostics as dg
+    from fesom2_tpu_torch.kernels import build
+    monkeypatch.setattr(kernels, "_LIB", None)
+    monkeypatch.setattr(build, "library_path",
+                        lambda: build.BUILD_DIR / "absent" / "none.so")
+    monkeypatch.setattr(build, "find_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    E, nl = 10, 5
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float64, device="cuda")
+    lev = lambda v: torch.full((E,), v, dtype=torch.int32, device="cuda")
+    bins = torch.as_tensor(dg.STD_DENS, device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        dg.dens_moc_bin(z(nl, E), z(nl - 1, E), z(nl - 1, E), z(nl - 1, E),
+                        z(E), lev(1), lev(nl), bins)
