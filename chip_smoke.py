@@ -78,8 +78,10 @@ Run from the root of a checkout.  Phases, each reported on its own line:
    solve`` on the [5, 114033] columns (1e-12 / 1e-5, the same sweep count
    in float64; a float32 sweep count or melting flag that differs is
    reported), ``itd_remap``'s two calls (the remap with the rebin, the
-   rebin alone; bitwise) and ``mevp_subcycles`` on the whole mesh with
-   the strength field (bitwise), each with its bound and no library call;
+   rebin alone; bitwise, with their launch plans) and ``mevp_subcycles``
+   on the whole mesh with the strength field (bitwise, its plan and the
+   latency floor of its grid barriers there), each with its bound and no
+   library call;
    ``dens_moc_bin`` (the density-space MOC binning) on the interface
    densities and layers of the level-7 globe after one coupled step,
    [5, 89, 225854], each of its five outputs within 1e-12 / 1e-5 of
@@ -259,17 +261,20 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     sum at most 1 + 1e-12 in float64, 1 + 2^-22 in float32 (its rounding);
     vicen, vsnon >= 0; some a_ice > 0.5; every kernel of the path
     launched, ``bl99_temperature_solve`` once a step, ``itd_remap`` twice,
+    each call bit-equal to ``itd_remap_plain`` on the step's own inputs,
     ``mevp_subcycles`` once), the BL99 sweeps a step, the peak memory,
     Icepack coupled steps/s beside phase 12's and a 3-step profile with
     the device and host ms a step of ``step.icepack.thermo1``,
     ``.thermo2``, ``.dynamics``, ``.advection``, ``.ridging`` and
-    ``.aggregate``;
+    ``.aggregate``, with the kernels a step under each and how many of
+    them are torch.cat / torch.stack copies;
 25. card against CPU on the level-3 globe, 3 float64 Icepack coupled
     steps each (4 with ``ice_ave_steps = 2``), every field of the ocean,
     the ice and the IcepackState within 1e-8 of max|CPU|, no kernel on the
-    CPU path: the default IcepackConfig, ponds + age + first-year +
-    level ice, dEdd, the floe-size distribution, the biogeochemistry and
-    ``ice_ave_steps = 2``.
+    CPU path, each ``itd_remap`` call on the card bit-equal to its plain
+    version on the same inputs: the default IcepackConfig, ponds + age +
+    first-year + level ice, dEdd, the floe-size distribution, the
+    biogeochemistry and ``ice_ave_steps = 2``.
 
 26. the run's output path at full width (phase 12's tables and
     atmosphere with ``ldiag_DVD``, ``ldiag_dMOC``, ``ldiag_energy``,
@@ -434,12 +439,14 @@ def csr(rows, cols, vals, shape):
                                    shape).coalesce().to_sparse_csr()
 
 
-def span_device_ms(prof, n: int, counts=None) -> dict:
+def span_device_ms(prof, n: int, counts=None, named=None) -> dict:
     """Device ms a step of the CUDA kernels under each ``step.*`` span: a
     kernel belongs to the span whose device-side range (the profiler's
     copy of the ``record_function`` span on the card's timeline) holds its
     start; kernels outside every span count as "outside spans".  With a
-    dict ``counts``, also fills it with the kernels a step under each."""
+    dict ``counts``, also fills it with the kernels a step under each; with
+    a dict ``named`` of {name fragment: {}}, fills each inner dict with the
+    kernels a step under each span whose name holds the fragment."""
     from torch.autograd import DeviceType
     spans, kern = [], []
     for e in prof.events():
@@ -462,12 +469,16 @@ def span_device_ms(prof, n: int, counts=None) -> dict:
         out[name] = out.get(name, 0.0) + k.time_range.elapsed_us()
         if counts is not None:
             counts[name] = counts.get(name, 0) + 1 / n
+        for frag, per_span in (named or {}).items():
+            if frag in k.name:
+                per_span[name] = per_span.get(name, 0) + 1 / n
     return {k: v / 1e3 / n for k, v in sorted(out.items(),
                                               key=lambda kv: -kv[1])}
 
 
 def profile_steps(phase: str, model, state, n: int, card: str, run=None,
-                  also=(), spans=None, host_spans=None, span_counts=None):
+                  also=(), spans=None, host_spans=None, span_counts=None,
+                  span_named=None):
     """Profile n steps (``run(model, state, n)``, by default
     ``run_soufflet``): wall and device kernel time, the busy share, the
     kernels per step, the 12 costliest kernels, every kernel whose name
@@ -476,7 +487,9 @@ def profile_steps(phase: str, model, state, n: int, card: str, run=None,
     CUDA kernel by name; with a dict ``spans``, also fills it with the
     device ms a step under each span (``span_device_ms``); with dicts
     ``host_spans`` and ``span_counts``, with the host ms a step of each
-    span and the kernels a step under it."""
+    span and the kernels a step under it; with ``span_named``, the
+    kernels a step under each span by name fragment (``span_device_ms``'s
+    ``named``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
@@ -510,7 +523,7 @@ def profile_steps(phase: str, model, state, n: int, card: str, run=None,
         if host_spans is not None:
             host_spans[e.key] = e.cpu_time_total / 1e3 / n
     if spans is not None:
-        spans.update(span_device_ms(prof, n, span_counts))
+        spans.update(span_device_ms(prof, n, span_counts, span_named))
         total = sum(spans.values())
         say(f"{phase} device ms a step per span "
             f"{str(model.dtype).replace('torch.', '')} (kernels {total:.3f} "
@@ -1606,19 +1619,21 @@ def main():
                     kw.get("shcoef") is not None, args[0].conduct),
                 None)]
         # the rebin after ridging, then the remap after thermo2 (the larger
-        # call: a kernel's last float64 case stands for it in the summary)
-        for (pack, *rest), _ in reversed(rec["itd_remap"]):
-            nc, rows, nn = pack.shape
-            buf = pack.clone()
-            what = "remap + rebin" if rest[-1] else "rebin"
+        # call: a kernel's last float64 case stands for it in the summary);
+        # the kernel reads the category tensors and writes a new pack
+        for a, _ in reversed(rec["itd_remap"]):
+            nc, nn = a[0].shape
+            rows = 4 + sum(x.shape[1] for x in a[4:8])
+            what = "remap + rebin" if a[-1] else "rebin"
+            plan = icepack_itd.itd_remap_plan(dev, dtype, nc, nn, a[-1])
+            summary["itd_remap"].setdefault("plan", {})[
+                f"{tag} {what}"] = plan
+            say(f"phase 3 itd_remap {tag} {what}: launch {plan}")
             out.append(("itd_remap", f"{what} pack {[nc, rows, nn]}",
-                        lambda p=pack, r=rest: icepack_itd.itd_remap(
-                            p.clone(), *r),
-                        lambda p=pack, r=rest: icepack_itd.itd_remap_plain(
-                            p, *r), True,
+                        lambda a=a: icepack_itd.itd_remap(*a),
+                        lambda a=a: icepack_itd.itd_remap_plain(*a), True,
                         icepack_itd.itd_remap_work(nc, rows, nn, size,
-                                                   rest[-1]), None,
-                        lambda b=buf, r=rest: icepack_itd.itd_remap(b, *r)))
+                                                   a[-1]), None))
         (ice_d, mesh_d, forc_d, surf_d, cfg_d), kw_d = \
             rec["ice_dynamics"][0]
         tab = evp.mevp_setup(ice_d, mesh_d, forc_d, surf_d, cfg_d,
@@ -1628,6 +1643,20 @@ def main():
         Nw, Ew = mesh_d.n_nodes, mesh_d.n_elems
         Kw = mesh_d.cluster.elem_slot.shape[0]
         n_sub = cfg_d.ice.evp_rheol_steps
+        # the latency floor of the whole-mesh grid's barriers (an empty
+        # kernel on the same grid), beside the subdomain's
+        nb_w = evp.mevp_subcycles_barriers(n_sub)
+        plan_w = evp.mevp_subcycles_plan(dev, dtype, Nw, Ew, Kw, "mevp")
+        floor_w = device_us(lambda: evp.mevp_barrier_floor(
+            dev, dtype, Nw, Ew, Kw, nb_w, "mevp"), calls=5)
+        say(f"phase 3 mevp_subcycles {tag} whole mesh uv {[2, Nw]} sig "
+            f"{[3, Ew]} {n_sub} subcycles: plan {plan_w}, latency floor "
+            f"({nb_w} grid barriers, an empty kernel on the same grid) "
+            f"device_us={us_text(floor_w)} ({card})")
+        summary["mevp_subcycles"].setdefault("whole_mesh_plan", {})[tag] = \
+            plan_w
+        summary["mevp_subcycles"].setdefault(
+            "whole_mesh_barrier_floor_ms", {})[tag] = floor_w and floor_w / 1e3
         uv_t, sig_t = uv0.clone(), sig0.clone()
         out.append(("mevp_subcycles", f"whole mesh with the Icepack strength "
                     f"uv {[2, Nw]} sig {[3, Ew]} x{n_sub}",
@@ -3524,6 +3553,22 @@ def main():
         sweeps.append(out["niter"])
         return out
     icepack_driver._KERNELS["temperature_solve"] = counted_solve
+    remap = icepack_driver._KERNELS["itd_remap"]
+
+    def held_remap(checks):
+        """The step's itd_remap stage with each CUDA call held bit for bit
+        (NaN where NaN) against itd_remap_plain on the same inputs (the
+        plain version launches no kernel); counts into ``checks``."""
+        def call(*a, **k):
+            out = remap(*a, **k)
+            if out.is_cuda:
+                want = icepack_itd.itd_remap_plain(*a, **k)
+                checks["calls"] += 1
+                checks["differ"] += not (
+                    torch.equal(out.isnan(), want.isnan())
+                    and torch.equal(out.nan_to_num(), want.nan_to_num()))
+            return out
+        return call
     icepack_report = {}
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).replace("torch.", "")
@@ -3537,6 +3582,9 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         hbar_expected = 0.0
+        # both itd_remap calls of every gated step held against plain
+        remap_checks = {"calls": 0, "differ": 0}
+        icepack_driver._KERNELS["itd_remap"] = held_remap(remap_checks)
         t0 = time.perf_counter()
         for k in range(10):
             st, ice, ipk, oforc = step24(st, ice, k, ipk)
@@ -3544,6 +3592,15 @@ def main():
                 oforc.water_flux * area).sum() / area.sum()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        icepack_driver._KERNELS["itd_remap"] = remap
+        n_same = remap_checks["calls"] - remap_checks["differ"]
+        say(f"{label} itd_remap bit-equal to its plain version on the "
+            f"step's own inputs: {n_same} of {remap_checks['calls']} calls "
+            f"(the wall time and peak memory below include the plain "
+            f"calls)")
+        if remap_checks["differ"] or remap_checks["calls"] != 20:
+            fail(f"{label}: itd_remap against its plain version in the "
+                 f"steps: {remap_checks}")
         launch = {k: kernels.LAUNCHES[k] for k in path24}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         n_sweeps = [int(x) for x in sweeps]
@@ -3594,23 +3651,31 @@ def main():
             f"(phase 12's CI step: {ci_rates.get(tag, 0.0):.3f}; {card})")
         # a 3-step profile: device and host ms a step per span
         dev_sp, host_sp, cnt_sp = {}, {}, {}
+        # the copies torch.cat and torch.stack launch, by span: itd_remap
+        # reads the category tensors where they lie, so its two calls add
+        # none (the first design's packed state cost a stack and a cat a
+        # call, under thermo2 and under ridging)
+        cat_sp = {"CatArrayBatchedCopy": {}}
         kernels.reset_launches()
         profile_steps(label, m, st, 3, card,
                       run=lambda m_, st_, k, a=gatm[dtype], i=ice, p=ipk:
                       run_pi(m_, a, st_, i, k, first_step=20, ipk=p),
                       also=("bl99", "itd_remap", "mevp"), spans=dev_sp,
-                      host_spans=host_sp, span_counts=cnt_sp)
+                      host_spans=host_sp, span_counts=cnt_sp,
+                      span_named=cat_sp)
         prof_launch = {k: kernels.LAUNCHES[k] / 3 for k in path24}
         if prof_launch["bl99_temperature_solve"] != 1 \
                 or prof_launch["itd_remap"] != 2:
             fail(f"{label}: in the profiled steps {prof_launch}")
         spans = {k: {"device_ms": dev_sp.get(k), "host_ms": host_sp.get(k),
-                     "kernels": cnt_sp.get(k)}
+                     "kernels": cnt_sp.get(k),
+                     "cat_kernels": cat_sp["CatArrayBatchedCopy"].get(k, 0)}
                  for k in sorted(set(dev_sp) | set(host_sp))
                  if k.startswith("step.icepack")}
         for k, v in spans.items():
             say(f"{label} {k}: device {us_text(v['device_ms'])} ms, host "
-                f"{us_text(v['host_ms'])} ms, {v['kernels']} kernels a step")
+                f"{us_text(v['host_ms'])} ms, {v['kernels']} kernels a step, "
+                f"{v['cat_kernels']} of them torch.cat/stack copies")
         span_ms.setdefault("icepack", {})[tag] = dev_sp
         icepack_report[tag] = dict(
             coupled_steps_per_s=rate, ci_coupled_steps_per_s=ci_rates.get(tag),
@@ -3644,10 +3709,14 @@ def main():
         n = 4 if ice_knobs else 3
         kernels.reset_launches()
         outs = []
+        # the card's itd_remap calls held bit for bit against plain
+        remap_checks = {"calls": 0, "differ": 0}
         for i, d in enumerate((dev, "cpu")):
             m, a = setup_pi_model(small, device=d, cfg=copy.deepcopy(cfg))
             s_, i_, p_ = icepack_start(m)
+            icepack_driver._KERNELS["itd_remap"] = held_remap(remap_checks)
             outs.append(run_pi(m, a, s_, i_, n, ipk=p_))
+            icepack_driver._KERNELS["itd_remap"] = remap
             if i == 0:
                 n_card = sum(kernels.LAUNCHES.values())
                 n24 = {k: kernels.LAUNCHES[k] for k in icepack_kernels}
@@ -3655,6 +3724,10 @@ def main():
                 or min(n24.values()) <= 0:
             fail(f"phase 25: {label}: the card's path launched no Icepack "
                  f"kernel, or the CPU path launched one")
+        if remap_checks["differ"] \
+                or remap_checks["calls"] != n24["itd_remap"]:
+            fail(f"phase 25: {label}: itd_remap against its plain version "
+                 f"{remap_checks}, {n24['itd_remap']} launches")
         (s_gpu, i_gpu, p_gpu), (s_cpu, i_cpu, p_cpu) = outs
         pairs = [(s_gpu, s_cpu, ("u", "v", "eta", "hbar", "tr", "w",
                                  "hnode", "Kv", "Av")),
@@ -3674,7 +3747,8 @@ def main():
                 worst = max(worst, rel)
         icepack_cpu[label] = worst
         say(f"phase 25 {label}: worst field card vs cpu {worst:.3e} of "
-            f"max|cpu|; {n_card} kernel launches on the card ({n24})")
+            f"max|cpu|; {n_card} kernel launches on the card ({n24}); "
+            f"itd_remap bit-equal to plain in {remap_checks['calls']} calls")
     say(f"phase 25 {len(cases25)} cases in {time.perf_counter() - t25:.1f} s")
 
     # phase 26 -----------------------------------------------------------
@@ -4096,6 +4170,8 @@ def main():
          **({"shapes": summary[k]["shapes"]} if "shapes" in summary[k]
             else {}),
          **{key: summary[k][key] for key in ("barrier_floor_ms", "plan",
+                                             "whole_mesh_barrier_floor_ms",
+                                             "whole_mesh_plan",
                                              "loop_ms_a_step",
                                              "output_step_device_ms")
             if key in summary[k]},

@@ -38,7 +38,7 @@ from .thermo_vertical import (temperature_solve, thickness_changes,
                               atmo_boundary_coeffs)
 from .thermo_itd import add_new_ice, lateral_melt
 from .itd import (aggregate, aggregate_tsfc, cleanup_itd, itd_remap,
-                  pack_itd, unpack_itd)
+                  unpack_itd)
 from .ridge import ice_strength, ridge_ice
 
 h_ml = 2.5          # mixed-layer depth for the freezing/melting potential
@@ -118,11 +118,9 @@ _RECORD = None
 def _call(name, *args, **kw):
     """The stage ``name`` (a key of ``_KERNELS``: the calls that launch a
     hand-written kernel); under ``recording_kernel_inputs`` its arguments
-    are kept first (a copy of the pack that ``itd_remap`` updates in
-    place)."""
+    are kept first."""
     if _RECORD is not None:
-        _RECORD[name].append(((args[0].clone(),) + args[1:], kw)
-                             if name == "itd_remap" else (args, kw))
+        _RECORD[name].append((args, kw))
     return _KERNELS[name](*args, **kw)
 
 
@@ -142,10 +140,9 @@ def recording_kernel_inputs():
 
 def _remap(cats, ipc, a_init, v_init, linear):
     """``itd_remap`` on the category tuple (aicen, vicen, vsnon, Tsfcn,
-    qin, qsn, ta, tv): the packed state in, the tuple (views of the pack)
-    out."""
-    pack = _call("itd_remap", pack_itd(*cats), a_init, v_init, ipc.hin_max,
-                 ipc.nilyr, ipc.nslyr, cats[6].shape[1], linear)
+    qin, qsn, ta, tv): the tensors in as they are, the tuple (views of the
+    new pack) out."""
+    pack = _call("itd_remap", *cats, a_init, v_init, ipc.hin_max, linear)
     return unpack_itd(pack, ipc.nilyr, ipc.nslyr, cats[6].shape[1])
 
 

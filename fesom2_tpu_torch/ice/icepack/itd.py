@@ -7,9 +7,11 @@ icepack_itd module of the Icepack library, driven from
 :391-477) with kitd=1, kcatbound=1 (``config/namelist.icepack:27,42``).
 
 ``linear_itd`` and ``rebin`` are the plain versions of the hand-written
-kernel ``itd_remap`` (``csrc/itd_remap.cu``): one thread a node walks the
-categories of a packed state [ncat, rows, N] (``pack_itd`` /
-``unpack_itd``); ``itd_remap`` runs the remap and the rebin after the
+kernel ``itd_remap`` (``csrc/itd_remap.cu``): it reads the eight category
+tensors where they lie and writes a fresh packed state [ncat, rows, N]
+(``pack_itd``'s layout; ``unpack_itd`` hands back its views), one warp a
+block walking each node's chain of transfers and the others mixing the
+rest of the rows; ``itd_remap`` runs the remap and the rebin after the
 thermodynamics (``linear=True``) or the rebin alone after ridging.
 """
 from __future__ import annotations
@@ -299,11 +301,11 @@ def unpack_itd(pack, nilyr: int, nslyr: int, ka: int):
             pack[:, r + ka:])
 
 
-def itd_remap_plain(pack, aicen_init, vicen_init, hin_max, nilyr: int,
-                    nslyr: int, ka: int, linear: bool):
-    """``linear_itd`` (when ``linear``) then ``rebin`` on the packed state:
-    a new pack."""
-    st = unpack_itd(pack, nilyr, nslyr, ka)
+def itd_remap_plain(aicen, vicen, vsnon, Tsfcn, qin, qsn, ta, tv,
+                    aicen_init, vicen_init, hin_max, linear: bool):
+    """``linear_itd`` (when ``linear``) then ``rebin`` on the category
+    state (``ta``, ``tv`` [ncat, K, N], K may be 0): a new pack."""
+    st = (aicen, vicen, vsnon, Tsfcn, qin, qsn, ta, tv)
     if linear:
         st = linear_itd(aicen_init, vicen_init, *st[:6], hin_max, ta=st[6],
                         tv=st[7])
@@ -340,35 +342,60 @@ def _bounds_on(hin_max, device) -> torch.Tensor:
     return _BOUNDS[key]
 
 
-def itd_remap(pack, aicen_init, vicen_init, hin_max, nilyr: int, nslyr: int,
-              ka: int, linear: bool):
-    """The remap (``linear``) and the rebin of the packed category state
-    [ncat, rows, N].  On CUDA tensors one launch of ``itd_remap`` updates
-    ``pack`` IN PLACE and returns it (``aicen_init``, ``vicen_init``
-    [ncat, N] are read only with ``linear``); on CPU tensors
-    ``itd_remap_plain`` returns a new pack."""
-    if pack.device.type == "cpu":
-        return itd_remap_plain(pack, aicen_init, vicen_init, hin_max, nilyr,
-                               nslyr, ka, linear)
-    kernels.cuda_only(pack, "itd_remap")
-    dev, dt = pack.device, pack.dtype
-    ncat, rows, N = pack.shape
+def itd_remap(aicen, vicen, vsnon, Tsfcn, qin, qsn, ta, tv, aicen_init,
+              vicen_init, hin_max, linear: bool):
+    """The remap (``linear``) and the rebin of the category state aicen,
+    vicen, vsnon, Tsfcn [ncat, N], qin [ncat, nilyr, N], qsn [ncat, nslyr,
+    N], ta [ncat, ka, N], tv [ncat, kv, N] (any of the last four may have 0
+    rows): a new pack [ncat, 4 + nilyr + nslyr + ka + kv, N], the inputs
+    untouched (``aicen_init``, ``vicen_init`` [ncat, N] are read only with
+    ``linear``).  On CUDA tensors one launch of ``itd_remap`` reads the
+    tensors where they lie (a tensor that is not contiguous is copied
+    first); on CPU tensors ``itd_remap_plain`` computes it."""
+    cats = (aicen, vicen, vsnon, Tsfcn, qin, qsn, ta, tv)
+    if aicen.device.type == "cpu":
+        return itd_remap_plain(*cats, aicen_init, vicen_init, hin_max,
+                               linear)
+    kernels.cuda_only(aicen, "itd_remap")
+    dev, dt = aicen.device, aicen.dtype
+    ncat, N = aicen.shape
     if ncat > 8 or len(hin_max) != ncat + 1:
         raise ValueError(f"itd_remap: {ncat} categories (at most 8) and "
                          f"{len(hin_max)} bounds")
-    if rows - 4 - nilyr - nslyr - ka < 0:
-        raise ValueError(f"itd_remap: {rows} rows for nilyr {nilyr}, "
-                         f"nslyr {nslyr} and {ka} area tracers")
-    kernels.require(pack, "pack", (ncat, rows, N), dt, dev)
+    cats = [t.contiguous() for t in cats]
+    counts = [t.shape[1] for t in cats[4:]]
+    for name, t in zip(("aicen", "vicen", "vsnon", "Tsfcn"), cats[:4]):
+        kernels.require(t, name, (ncat, N), dt, dev)
+    for name, t, k in zip(("qin", "qsn", "ta", "tv"), cats[4:], counts):
+        kernels.require(t, name, (ncat, k, N), dt, dev)
     if linear:
         kernels.require(aicen_init, "aicen_init", (ncat, N), dt, dev)
         kernels.require(vicen_init, "vicen_init", (ncat, N), dt, dev)
-    kernels.launch("itd_remap", dev, pack,
+    out = torch.empty((ncat, 4 + sum(counts), N), dtype=dt, device=dev)
+    if N == 0:
+        return out
+    kernels.launch("itd_remap", dev, *cats, out,
                    aicen_init if linear else None,
                    vicen_init if linear else None, _bounds_on(hin_max, dev),
-                   ncat, rows, N, nilyr,
-                   nslyr, ka, int(linear), kernels.float_code(dt))
-    return pack
+                   ncat, N, *counts, int(linear), kernels.float_code(dt))
+    return out
+
+
+def itd_remap_plan(device, dtype, ncat: int, n_nodes: int,
+                   linear: bool) -> dict:
+    """The launch ``itd_remap`` makes for ``ncat`` categories on
+    ``n_nodes`` nodes: grid, block, shared bytes a block, resident blocks
+    an SM, registers and local (stack) bytes a thread."""
+    import ctypes
+    res = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        err = kernels.library().fesom_itd_remap_plan(
+            ncat, int(linear), n_nodes, kernels.float_code(dtype),
+            ctypes.addressof(res))
+    if err:
+        raise RuntimeError(f"itd_remap_plan: CUDA error {err}")
+    return dict(zip(("grid", "block", "shared_bytes", "blocks_per_sm",
+                     "registers", "stack_bytes"), res))
 
 
 # --------------------------------------------------------------------------

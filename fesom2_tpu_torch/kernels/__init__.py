@@ -56,12 +56,13 @@ _ARGTYPES = {
     "evp_subcycles": [_P] * 7 + [_I] * 4 + [_D] * 9 + [_I, _P],
     "aevp_subcycles": [_P] * 7 + [_I] * 4 + [_D] * 5 + [_I, _P],
     "bl99_temperature_solve": [_P] * 28 + [_I] * 7 + [_D] * 3 + [_I, _P],
-    "itd_remap": [_P] * 4 + [_I] * 8 + [_P],
+    "itd_remap": [_P] * 12 + [_I] * 8 + [_P],
     "dens_moc_bin": [_P] * 11 + [_I] * 4 + [_P],
-    # no stream: the launch bl99_temperature_solve makes, and
-    # dens_moc_bin's, each into a host int32 [4]
+    # no stream: the launch bl99_temperature_solve makes and
+    # dens_moc_bin's, each into a host int32 [4], itd_remap's into [6]
     "bl99_plan": [_I, _I, _P],
     "dens_moc_bin_plan": [_I, _I, _P],
+    "itd_remap_plan": [_I] * 4 + [_P],
     # no stream: the launch the subcycle kernel of a rheology (ice/evp.py:
     # RHEOLOGY) would make, into a host int32 [4]
     "subcycles_plan": [_I] * 5 + [_P],

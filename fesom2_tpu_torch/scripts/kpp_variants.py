@@ -27,7 +27,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -57,21 +56,8 @@ VARIANTS = {
 def build_variant(name: str, out_dir: Path) -> tuple:
     """(library path, ptxas lines) of one variant, built with the
     package's nvcc flags; raises with the compiler's output on failure."""
-    from fesom2_tpu_torch.kernels import build
-    src = (build.SRC_DIR / "kpp_column.cu").read_text()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise RuntimeError(f"variant {name}: {old!r} not in the source")
-        src = src.replace(old, new)
-    cu, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
-    cu.write_text(src)
-    res = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS,
-                          f"-I{build.SRC_DIR}", "-shared", "-o", str(lib),
-                          str(cu)], capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"variant {name}: nvcc failed\n{res.stderr}")
-    return lib, [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
-                 if "registers" in ln or "spill" in ln]
+    return timing.build_source_variant("kpp_column.cu", name, VARIANTS[name],
+                                       out_dir)
 
 
 def as_library(path: Path):

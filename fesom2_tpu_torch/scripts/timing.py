@@ -101,6 +101,32 @@ def load_checkout_library(root: str):
     return ctypes.CDLL(str(mod.build()))
 
 
+def build_source_variant(source: str, name: str, replacements,
+                         out_dir) -> tuple:
+    """(library path, ptxas lines) of the package's ``csrc/<source>`` with
+    each (old, new) of ``replacements`` replaced (one that no longer
+    matches the source raises), built alone with the package's nvcc flags
+    into ``out_dir/lib<name>.so``; raises with the compiler's output on
+    failure."""
+    from pathlib import Path
+    from fesom2_tpu_torch.kernels import build
+    src = (build.SRC_DIR / source).read_text()
+    for old, new in replacements:
+        if old not in src:
+            raise RuntimeError(f"variant {name}: {old!r} not in {source}")
+        src = src.replace(old, new)
+    out_dir = Path(out_dir)
+    cu, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
+    cu.write_text(src)
+    res = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS,
+                          f"-I{build.SRC_DIR}", "-shared", "-o", str(lib),
+                          str(cu)], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"variant {name}: nvcc failed\n{res.stderr}")
+    return lib, [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+                 if "registers" in ln or "spill" in ln or "stack" in ln]
+
+
 def device_kernels_us(fn, calls: int = 10) -> dict:
     """Device microseconds per call of each CUDA kernel fn() launches."""
     from torch.autograd import DeviceType

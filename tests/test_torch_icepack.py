@@ -554,6 +554,9 @@ def test_pack_and_unpack_tracers(opts):
 
 @pytest.mark.parametrize("linear", [True, False])
 def test_itd_remap_on_the_cpu_is_the_plain_remap_and_rebin(linear):
+    """The eight category tensors in, a fresh pack out (``pack_itd``'s
+    layout, whose views ``unpack_itd`` hands back), the inputs untouched,
+    no launch."""
     j, t = cfgs(ALL)
     s = rand_state(j, seed=15)
     r = rand_state(j, seed=16, spill=False)
@@ -563,10 +566,15 @@ def test_itd_remap_on_the_cpu_is_the_plain_remap_and_rebin(linear):
                           + len(j.vol_tracers), N)
     back = itd.unpack_itd(pack, 4, 4, len(j.area_tracers))
     assert all(torch.equal(a, b) for a, b in zip(back, st))
+    kept = [x.clone() for x in st]
     kernels.reset_launches()
-    got = itd.itd_remap(pack, T(r["aicen"]), T(r["vicen"]), j.hin_max, 4, 4,
-                        len(j.area_tracers), linear)
+    got = itd.itd_remap(*st, T(r["aicen"]), T(r["vicen"]), j.hin_max,
+                        linear)
     assert kernels.LAUNCHES["itd_remap"] == 0
+    assert got.shape == pack.shape
+    assert all(torch.equal(a, b) for a, b in zip(st, kept))
+    assert all(got.untyped_storage().data_ptr()
+               != x.untyped_storage().data_ptr() for x in st)
     ka = len(j.area_tracers)
     want = st
     if linear:
@@ -890,13 +898,243 @@ def test_itd_remap_kernel_data_flow_equals_the_plain_version(dtype, opts,
     s = rand_state(j, seed=30)
     r = rand_state(j, seed=31, spill=False)
     ka = len(t.area_tracers)
-    pack = itd.pack_itd(*(T(s[k], dtype) for k in STATE8))
+    cats = [T(s[k], dtype) for k in STATE8]
+    pack = itd.pack_itd(*cats)
     a0, v0 = T(r["aicen"], dtype), T(r["vicen"], dtype)
-    want = itd.itd_remap_plain(pack, a0, v0, t.hin_max, 4, 4, ka, linear)
+    want = itd.itd_remap_plain(*cats, a0, v0, t.hin_max, linear)
     got = walk_itd_remap(pack.numpy(), a0.numpy(), v0.numpy(), t.hin_max, 4,
                          4, ka, linear)
     assert np.array_equal(got, want.numpy())
     assert float((want - pack).abs().max()) > 1e-3
+
+
+def _itd_constants(dtype):
+    """kWarps and the rows held at once (kHeld64 or kHeld32) of
+    csrc/itd_remap.cu for ``dtype``."""
+    import re
+    from fesom2_tpu_torch.kernels import build
+    src = (build.SRC_DIR / "itd_remap.cu").read_text()
+    held = "kHeld64" if dtype == torch.float64 else "kHeld32"
+    return tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                 for k in ("kWarps", held))
+
+
+def walk_itd_remap_lanes(cats, a_init, v_init, hin_max, linear, warps,
+                         held):
+    """itd_remap's data flow (csrc/itd_remap.cu) in numpy, vectorised over
+    the nodes: warp 0's chain of each node (a lane) writes rows a, v, vs
+    and leaves each transfer's six numbers (the receiver's old a, v, vs and
+    the moved da, dv, dvs); the row warps 1 .. warps - 1 (warp 0 alone when
+    warps is 1) then take rows 3 and up in the kernel's order, ``held`` at
+    a time with their ncat values, and apply each transfer's mix in the
+    chain's order.  Every value of the pack is written once.  A warp of 32
+    nodes whose categories all hold at most puny of area walks its
+    transfers with amounts of 0, no division and no init arrays (here NaN
+    in their place); a warp where no mix can change a value copies its
+    rows.  Returns the pack and the nodes of both kinds of warp."""
+    aicen, vicen, vsnon, Tsfcn, qin, qsn, ta, tv = cats
+    dt = aicen.dtype.type
+    ncat, n = aicen.shape
+    puny = dt(1e-11)
+    hb = [dt(h) for h in hin_max]
+    cmax = lambda x, lo: np.where(x < lo, lo, x)
+    thick = lambda a_, v_: np.where(a_ > puny, v_ / cmax(a_, puny), dt(0))
+    warp_all = lambda x: np.repeat(np.pad(x, (0, -n % 32), constant_values=True)
+                                   .reshape(-1, 32).all(1), 32)[:n]
+    idle = warp_all((aicen <= puny).all(0))
+    a_init = np.where(idle, dt(np.nan), a_init)
+    v_init = np.where(idle, dt(np.nan), v_init)
+    a, v, vs = aicen.copy(), vicen.copy(), vsnon.copy()
+    prm, pairs = [], []
+    still = np.ones(n, bool)
+
+    def transfer(cn, cm, da, dv):
+        nonlocal still
+        a_n, v_n, vs_n = a[cn].copy(), v[cn].copy(), vs[cn].copy()
+        a_m, v_m, vs_m = a[cm].copy(), v[cm].copy(), vs[cm].copy()
+        da = np.where(idle, dt(0), da)
+        dv = np.where(idle, dt(0), dv)
+        da = np.minimum(cmax(da, dt(0)), a_n * dt(1.0 - 1e-11))
+        dv = np.minimum(cmax(dv, dt(0)), v_n * dt(1.0 - 1e-11))
+        ok = (a_n > puny) & (v_n > puny)
+        da = np.where(ok, da, dt(0))
+        dv = np.where(ok, dv, dt(0))
+        dvs = vs_n * np.where(idle, da, da / cmax(a_n, puny))
+        prm.append((a_m, v_m, vs_m, da, dv, dvs))
+        pairs.append((cn, cm))
+        still = still & ~(a_m + da > puny) & ~(v_m + dv > puny) \
+            & ~(vs_m + dvs > puny)
+        a[cn], v[cn], vs[cn] = a_n - da, v_n - dv, vs_n - dvs
+        a[cm], v[cm], vs[cm] = a_m + da, v_m + dv, vs_m + dvs
+
+    if linear:
+        h_init = [thick(a_init[c], v_init[c]) for c in range(ncat)]
+        h_now = [thick(a[c], v[c]) for c in range(ncat)]
+        has = [a_init[c] > puny for c in range(ncat)]
+        dh = [np.where(has[c] & (a[c] > puny), h_now[c] - h_init[c], dt(0))
+              for c in range(ncat)]
+        hbnew = [np.zeros(n, aicen.dtype)] + [None] * (ncat - 1) \
+            + [np.full(n, hb[ncat])]
+        for c in range(1, ncat):
+            lo, hi = c - 1, c
+            dspan = h_init[hi] - h_init[lo]
+            big = np.abs(dspan) > puny
+            slope = np.where(big, (dh[hi] - dh[lo])
+                             / np.where(big, dspan, dt(1)), dt(0))
+            disp = np.where(has[lo] & has[hi],
+                            dh[lo] + slope * (hb[c] - h_init[lo]),
+                            np.where(has[lo], dh[lo],
+                                     np.where(has[hi], dh[hi], dt(0))))
+            hbnew[c] = np.minimum(np.maximum(
+                hb[c] + disp, hb[c - 1] * dt(1.0 + 1e-11) + puny),
+                hb[c + 1] * dt(1.0 - 1e-11))
+        fits = []
+        for c in range(ncat):
+            hice, hL, hR = h_now[c], hbnew[c], hbnew[c + 1]
+            eta, w = hice - hL, hR - hL
+            hR = np.where(eta < w * dt(1.0 / 3.0), hL + dt(3) * eta, hR)
+            hL = np.where(eta > (dt(2) * w) * dt(1.0 / 3.0),
+                          hR - dt(3) * (hR - hice), hL)
+            w, eta = hR - hL, hice - hL
+            ok = (a[c] > puny) & (w > puny)
+            ws = cmax(w, puny)
+            fits.append((
+                np.where(ok, (a[c] / ws) * (dt(4) - (dt(6) * eta) / ws),
+                         dt(0)),
+                np.where(ok, ((dt(6) * a[c]) / (ws * ws))
+                         * ((dt(2) * eta) / ws - dt(1)), dt(0)), hL, hR))
+
+        def integrate(f, x0, x1):
+            g0, g1, hL, hR = f
+            e0 = np.minimum(np.maximum(x0, hL), hR) - hL
+            e1 = np.maximum(np.minimum(np.maximum(x1, hL), hR) - hL, e0)
+            d2 = e1 * e1 - e0 * e0
+            da = g0 * (e1 - e0) + (dt(0.5) * g1) * d2
+            dv = (hL * da + (dt(0.5) * g0) * d2) \
+                + (g1 * ((e1 * e1) * e1 - (e0 * e0) * e0)) * dt(1.0 / 3.0)
+            return cmax(da, dt(0)), cmax(dv, dt(0))
+
+        for c in range(1, ncat):
+            up = hbnew[c] > hb[c]
+            da_up, dv_up = integrate(fits[c - 1], hb[c], hbnew[c])
+            da_dn, dv_dn = integrate(fits[c], hbnew[c], hb[c])
+            transfer(c - 1, c, np.where(up, da_up, dt(0)),
+                     np.where(up, dv_up, dt(0)))
+            transfer(c, c - 1, np.where(up, dt(0), da_dn),
+                     np.where(up, dt(0), dv_dn))
+    for c in range(ncat - 1):
+        move = thick(a[c], v[c]) > hb[c + 1]
+        transfer(c, c + 1, np.where(move, a[c], dt(0)),
+                 np.where(move, v[c], dt(0)))
+    for c in range(ncat - 1, 0, -1):
+        move = thick(a[c], v[c]) < hb[c]
+        transfer(c, c - 1, np.where(move, a[c], dt(0)),
+                 np.where(move, v[c], dt(0)))
+
+    # rows 3 and up: (source [ncat, N], weight 0 area, 1 volume, 2 snow)
+    src = [(Tsfcn, 0)] + [(x[:, j], kind) for x, kind in
+                          ((qin, 1), (qsn, 2), (ta, 0), (tv, 1))
+                          for j in range(x.shape[1])]
+    out = np.full((ncat, 3 + len(src), n), np.nan, aicen.dtype)
+    written = np.zeros(out.shape[:2], int)
+    out[:, 0], out[:, 1], out[:, 2] = a, v, vs
+    written[:, :3] += 1
+    copy = warp_all(still)
+    row_warps = warps - 1 if warps > 1 else 1
+    for rw in range(row_warps):
+        for first in range(rw, len(src), row_warps * held):
+            mine = [r for r in range(first, first + held * row_warps,
+                                     row_warps) if r < len(src)]
+            val = {r: [src[r][0][c].copy() for c in range(ncat)]
+                   for r in mine}
+            for (cn, cm), p in zip(pairs, prm):
+                for r in mine:
+                    k = src[r][1]
+                    w, dw = p[k], p[3 + k]
+                    wt = w + dw
+                    val[r][cm] = np.where(
+                        wt > puny, (val[r][cm] * w + val[r][cn] * dw)
+                        / cmax(wt, puny), val[r][cm])
+            for r in mine:
+                out[:, 3 + r] = np.where(copy, src[r][0], np.stack(val[r]))
+                written[:, 3 + r] += 1
+    assert (written == 1).all()
+    return out, idle, copy
+
+
+ITD_LAYOUTS = ["kernel", "warps 1", "warps 2, held 1", "warps 8, held 4"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("opts", [{}, ALL])
+@pytest.mark.parametrize("linear", [True, False])
+@pytest.mark.parametrize("layout", ITD_LAYOUTS)
+def test_itd_remap_chain_and_rows_walk_equals_the_plain_version(
+        dtype, opts, linear, layout):
+    """The kernel's chain-and-rows data flow bitwise against
+    ``itd_remap_plain`` (NaN where it has NaN), on seeded columns with a
+    NaN in one row of a few nodes and nodes where every transfer moves 0,
+    at the kernel's layout (kWarps, and kHeld64 or kHeld32) and at others
+    (the layout moves no bit); the walk within 1e-12 (float64) and 1e-5 (float32) of
+    max|JAX| of JAX's ``linear_itd`` and ``rebin`` in the same dtype
+    (measured: 2e-7 in float32)."""
+    warps, held = {"kernel": _itd_constants(dtype), "warps 1": (1, 3),
+                   "warps 2, held 1": (2, 1),
+                   "warps 8, held 4": (8, 4)}[layout]
+    j, t = cfgs(opts)
+    s = rand_state(j, seed=32)
+    r = rand_state(j, seed=33, spill=False)
+    # nodes 0-9: the state before the thermodynamics is the state, so no
+    # boundary moves; nodes 10-14 hold no ice at all: transfers of 0
+    for k in STATE8:
+        s[k][..., 10:15] = 0.0
+    r["aicen"][:, :10], r["vicen"][:, :10] = s["aicen"][:, :10], \
+        s["vicen"][:, :10]
+    s["qin"][2, 1, 20:23] = np.nan              # a NaN in one row
+    # whole warps (32 nodes) without ice: 32-63 empty; 64-95 with area of
+    # 0, -0 or under puny beside volumes, snow and tracers (the idle chain,
+    # but mixes that change values); 96-127 with -0 areas, surface
+    # temperatures and growth since the init arrays (idle, rows copied);
+    # 128-159 empty but for a NaN area (the full chain); a warp with ice
+    # anywhere walks the full chain
+    for k in STATE8:
+        s[k][..., 32:64] = 0.0
+        s[k][..., 96:160] = 0.0
+    s["aicen"][:, 64:96] = np.array([0.0, -0.0, 1e-12, 5e-12])[
+        np.arange(32) % 4]
+    s["aicen"][:, 96:128] = -0.0
+    s["Tsfcn"][:, 96:128] = -5.0
+    s["aicen"][3, 140] = np.nan
+    # 160-191: thin ice, every area under 0.04 (the full chain)
+    for k in ("aicen", "vicen", "vsnon"):
+        s[k][:, 160:192] *= 0.04
+    cats = [T(s[k], dtype) for k in STATE8]
+    a0, v0 = T(r["aicen"], dtype), T(r["vicen"], dtype)
+    want = itd.itd_remap_plain(*cats, a0, v0, t.hin_max, linear).numpy()
+    got, idle, copy = walk_itd_remap_lanes(
+        [x.numpy() for x in cats], a0.numpy(), v0.numpy(), t.hin_max, linear,
+        warps, held)
+    assert np.array_equal(got, want, equal_nan=True)
+    assert idle[32:128].all() and not idle[:32].any() \
+        and not idle[128:192].any()
+    assert copy[32:64].all() and copy[96:128].all() and not copy[64:96].any()
+    assert np.isnan(want[:, 3:]).any() and np.isnan(want[:, :3]).any()
+    assert np.nanmax(np.abs(want[:, 0] - s["aicen"])) > 1e-3
+    # JAX in the same dtype
+    Jd = lambda x: jnp.asarray(np.asarray(x, want.dtype))
+    kw = dict(ta=Jd(s["ta"]), tv=Jd(s["tv"]))
+    jst = (*(Jd(s[k]) for k in STATE),)
+    if linear:
+        jst = jitd.linear_itd(Jd(r["aicen"]), Jd(r["vicen"]), *jst,
+                              j.hin_max, **kw)
+        kw = dict(ta=jst[6], tv=jst[7])
+    ref = itd.pack_itd(*(torch.as_tensor(np.array(x)) for x in jitd.rebin(
+        *jst[:6], j.hin_max, **kw))).numpy()
+    assert ref.dtype == want.dtype
+    ok = np.isfinite(ref).all(axis=(0, 1)) & np.isfinite(want).all(axis=(0, 1))
+    assert np.array_equal(np.isnan(ref), np.isnan(want))
+    assert_close(got[..., ok], ref[..., ok], "pack",
+                 tol=TOL if dtype == torch.float64 else 1e-5)
 
 
 def _ulp_pow_exp(xp):

@@ -799,11 +799,30 @@ def _check_icepack_kernels(rec, tol):
         w = want[k]
         assert float((got[k] - w).abs().max()) <= tol * float(
             w.abs().max()), k
-    for (pack, *rest), _ in rec["itd_remap"]:
-        w = itd.itd_remap_plain(pack, *rest)
-        g = itd.itd_remap(pack.clone(), *rest)
-        assert torch.equal(g, w)
+    for rargs, _ in rec["itd_remap"]:
+        _check_itd_remap(rargs)
     return args, kw
+
+
+def _check_itd_remap(args):
+    """itd_remap on ``args`` (the eight category tensors, aicen_init,
+    vicen_init, hin_max, linear): one launch, bitwise the plain version
+    (NaN where it has NaN) and the plain version run on the first design's
+    packed layout, the inputs untouched; returns the kernel's pack."""
+    from fesom2_tpu_torch.ice.icepack import itd
+    from fesom2_tpu_torch.scripts.timing import same_bits as _same_bits
+    cats, rest = args[:8], args[8:]
+    kept = [x.clone() for x in cats]
+    kernels.reset_launches()
+    got = itd.itd_remap(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["itd_remap"] == (1 if cats[0].shape[1] else 0)
+    assert _same_bits(got, itd.itd_remap_plain(*args))
+    old = itd.unpack_itd(itd.pack_itd(*cats), cats[4].shape[1],
+                         cats[5].shape[1], cats[6].shape[1])
+    assert _same_bits(got, itd.itd_remap_plain(*old, *rest))
+    assert all(_same_bits(x, k) for x, k in zip(cats, kept))
+    return got
 
 
 @pytest.mark.cuda
@@ -821,10 +840,11 @@ def test_icepack_kernels_match_plain_on_card(tmp_path, level, dtype, tol):
     _, rec = _icepack_step_inputs(globe.write_globe(str(tmp_path),
                                                     level=level), dtype)
     args, kw = _check_icepack_kernels(rec, tol)
-    pack, *rest = rec["itd_remap"][0][0]
+    rargs = rec["itd_remap"][0][0]
     with pytest.raises(ValueError):
-        itd.itd_remap(pack[:, :-1].contiguous(), *rest[:5], rest[5] + 9,
-                      rest[6])
+        itd.itd_remap(rargs[0], rargs[1][:, :-1], *rargs[2:])
+    with pytest.raises(ValueError):
+        itd.itd_remap(*rargs[:10], list(rargs[10]) + [1e3], rargs[11])
     with pytest.raises(ValueError):
         tv.temperature_solve(*args[:2], args[2][:, :-1], *args[3:], **kw)
 
@@ -913,10 +933,113 @@ def test_icepack_kernels_raise_when_the_build_fails_on_card(monkeypatch):
                         lambda: build.BUILD_DIR / "absent" / "none.so")
     monkeypatch.setattr(build, "find_nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
-    pack = torch.zeros((5, 12, 10), dtype=torch.float64, device="cuda")
+    z = lambda *k: torch.zeros((5, *k, 10), dtype=torch.float64,
+                               device="cuda")
     with pytest.raises(RuntimeError, match="nvcc"):
-        itd.itd_remap(pack, None, None, itd.category_bounds(5), 4, 4, 0,
-                      False)
+        itd.itd_remap(z(), z(), z(), z(), z(4), z(4), z(0), z(0), None, None,
+                      itd.category_bounds(5), False)
+
+
+def _itd_inputs(rng, dtype, ncat=5, n=1000, ka=0, kv=0, nilyr=4, nslyr=4):
+    """Seeded category state on the card for itd_remap: about a quarter of
+    the categories empty, 15 % of the thicknesses pushed out of their
+    bounds, growth since the init arrays; (the eight tensors, aicen_init,
+    vicen_init, hin_max)."""
+    from fesom2_tpu_torch.ice.icepack import itd
+    hb = itd.category_bounds(ncat)
+    a = rng.uniform(0.0, 1.0, (ncat, n)) * (rng.random((ncat, n)) > 0.25)
+    a *= rng.uniform(0.2, 1.0, n) / np.maximum(a.sum(0), 1e-3)
+    h = np.stack([rng.uniform(hb[k] + 0.01, min(hb[k + 1], hb[k] + 2.0), n)
+                  for k in range(ncat)])
+    grown = h * np.where(rng.random((ncat, n)) < 0.15,
+                         rng.uniform(0.4, 1.6, (ncat, n)), 1.0)
+    has = a > 0
+    rows = lambda k, lo, hi: np.where(
+        has[:, None], rng.uniform(lo, hi, (ncat, k, n)), 0.0)
+    a_init = a * rng.uniform(0.8, 1.0, (ncat, n))
+    cats = (a, a * grown, a * rng.uniform(0.0, 0.4, (ncat, n)),
+            np.where(has, rng.uniform(-30.0, 0.0, (ncat, n)), 0.0),
+            rows(nilyr, -3.3e8, -1e8), rows(nslyr, -1.5e8, -1e8),
+            rows(ka, 0.0, 1.0), rows(kv, 0.0, 2.0), a_init, a_init * h)
+    card = lambda x: torch.as_tensor(x, device="cuda").to(dtype)
+    return tuple(card(x) for x in cats) + (hb,)
+
+
+ITD_CASES = {
+    "ncat 1": dict(ncat=1),
+    "ncat 8": dict(ncat=8),
+    # the tracers of every option (ponds, age, FY, lvl, fsd, bgc)
+    "ALL tracers": dict(ka=19, kv=2),
+    "ragged N": dict(n=32 * 37 + 13),
+    "N = 0": dict(n=0),
+    "NaN in a row": {},
+    "transfers of 0": {},
+    "7 ice, 1 snow layer": dict(nilyr=7, nslyr=1),
+    # whole warps (32 nodes) without ice, as most of the globe's
+    "warps without ice": {},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ITD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_itd_remap_edge_cases_on_card(rng, case, dtype):
+    """itd_remap at the shapes and states the Icepack step does not give
+    it, both calls (the remap with the rebin, the rebin alone), bitwise the
+    plain version as ``_check_itd_remap`` holds it."""
+    _need_card()
+    x = list(_itd_inputs(rng, dtype, **ITD_CASES[case]))
+    if case == "NaN in a row":
+        x[4][2, 1, 100:103] = float("nan")
+    if case == "transfers of 0":
+        # no growth and every thickness inside its bounds: every transfer
+        # moves 0, and each mix is still made
+        hb = torch.as_tensor(x[10], device="cuda").to(dtype)
+        mid = (hb[:-1] + torch.clamp_max(hb[1:], hb[:-1] + 2.0)) / 2
+        x[1] = x[0] * mid[:, None]
+        x[8], x[9] = x[0].clone(), x[1].clone()
+    if case == "warps without ice":
+        # 32-63 empty; 64-95 areas of 0, -0 or under puny beside volumes,
+        # snow and tracers; 96-127 -0 areas with surface temperatures;
+        # 128-159 empty but a NaN area; 160-191 thin ice (areas < 0.04)
+        for t in x[:8]:
+            t[..., 32:64] = 0.0
+            t[..., 96:160] = 0.0
+        x[0][:, 64:96] = torch.tensor([0.0, -0.0, 1e-12, 5e-12],
+                                      dtype=dtype)[torch.arange(32) % 4].to(
+                                          x[0].device)
+        x[0][:, 96:128] = -0.0
+        x[3][:, 96:128] = -5.0
+        x[0][3, 140] = float("nan")
+        for t in x[:3]:
+            t[:, 160:192] *= 0.04
+    for linear in (True, False):
+        got = _check_itd_remap((*x, linear))
+        if case == "NaN in a row":
+            assert bool(got.isnan().any())
+        if case == "transfers of 0":
+            assert torch.equal(got[:, 0], x[0])
+
+
+@pytest.mark.cuda
+def test_itd_remap_refuses_without_the_plain_version_on_card(rng):
+    """A shape or dtype the kernel does not take raises on a CUDA tensor:
+    the plain version, which would take it, is never run."""
+    _need_card()
+    from fesom2_tpu_torch.ice.icepack import itd
+    called = []
+    plain = itd.itd_remap_plain
+    try:
+        itd.itd_remap_plain = lambda *a: called.append(a) or plain(*a)
+        x = _itd_inputs(rng, torch.float64, ncat=9)
+        with pytest.raises(ValueError, match="at most 8"):
+            itd.itd_remap(*x, True)
+        x = _itd_inputs(rng, torch.float64)
+        with pytest.raises(ValueError, match="float32 or float64"):
+            itd.itd_remap(*(t.half() for t in x[:10]), x[10], True)
+    finally:
+        itd.itd_remap_plain = plain
+    assert not called
 
 
 @pytest.mark.cuda
