@@ -322,20 +322,52 @@ Run from the root of a checkout.  Phases, each reported on its own line:
     device's, the exchanges' calls, bytes and host ms a step by kind, a
     profiled step's device ms and those under the ``dist.*`` spans, the
     launches a step, the ranks' start-up; nccl with a card a rank where
-    there are two cards;
+    there are two cards; the default partition's (bisection with
+    Kernighan-Lin sweeps) edge cut and forward-exchange slots beside the
+    plain bisection's; the contiguous-block placement of
+    ``parallel/sharding.py`` (node i on rank i // (N/2)) over 2 gloo ranks:
+    2 CI coupled steps on the level-3 globe padded to 2 against one device
+    on the real entities (the same tolerances), the halo consistent;
 29. ``mkrun`` on the card: the base namelists of the CI configuration and
     a ``setup.yml`` with six streams written under ``build/chip_smoke/
     mkrun`` (the paths file maps the mesh id to the level-7 globe; the
     forcing is built in code), ``run_setup`` 2 steps, its field means
     equal to those of ``run_pi`` on the same configuration (1e-12), and
     the golden verdicts (within 5 % passes, 20 % off fails).
+30. post-processing on phase 26's level-7 output directory (run before
+    phase 28, as are 31 and 32): ``post.load_mesh`` equal to the model's
+    mesh tables; ``fpost.run_fpost`` on a 2-degree grid, grid info, TS3,
+    UVnorm and the MOC from w, one product a call, each product finite
+    where the grid's wet mask is set; ``moc_dens`` from the
+    ``std_dens_VDZ`` stream; both streamfunctions finite and within 1e-10
+    of the same latitude sums taken on the card (``index_add_``), their
+    max|psi| reported (10 steps from rest: an adjustment, not a spun-up
+    circulation, so no bound in Sv holds); ``write_goldens`` then
+    ``fcheck`` on the same run passes and the goldens 1 % off fail; the
+    host seconds of each product; ``utils.support``'s ``smooth_nod`` (3
+    passes of sst) and ``smooth_elem`` (2 of u) on the card, 5 launches of
+    ``elem_to_node_mean``, within 1e-12 of the same passes through its
+    plain version;
+31. the coupler at full width: 4 coupled-mode ice steps
+    (``ice_timestep_cpl``, the ocean held) on the level-7 globe, ``collect``
+    every step, ``send`` / ``recv`` before the first step and every 2
+    steps over ``SocketTransport`` to an ``OasisEndpoint`` whose
+    atmosphere thread posts seeded ECHAM fields, ``force_flux_consv`` on
+    heat_oce (its area integral equal to the atmosphere's net to 1e-12),
+    finite ice, ``mevp_subcycles`` once a step; the host ms of each
+    coupling event; the same 4 steps on the level-3 globe card against
+    CPU (1e-8);
+32. ``utils.profiling.profile_pi_phases`` on the level-7 CI step in
+    float64 and float32 (n=5): the JAX package's keys, finite values >= 0,
+    every kernel of the coupled step launched; printed beside phase 12's
+    device ms a step per span.
 
 Any failure exits non-zero before the last line.  Before it come one
 JSON line with the gather kernels' device times on both numberings, one
 with the device ms a step per span of the coupled steps, each menu
 case's worst field and phase 19's rates, memory, mixing spans and
 passive-tracer bounds, phase 26's rates and output costs, phase 27's
-worst fields and phases 28's and 29's reports, one
+worst fields and phases 28's to 32's reports, one
 with every kernel's launches, error, times, bound and library time (with
 the device ms a coupled step spends in it, from phase 12's, 14's and
 16's and 19's profiles, its launches a float64 and a float32 coupled
@@ -347,6 +379,7 @@ seconds the run took and the card; the last line is
 where CUDA is not available.
 """
 import bisect
+import dataclasses
 import json
 import os
 import subprocess
@@ -662,14 +695,93 @@ DIST_PATH_KERNELS = ("node_edge_reduce", "elem_to_node_mean", "tridiag_solve",
                      "mevp_subcycles")
 
 
-def phase28(gm, gatm, card: str, t_start: float) -> dict:
+def _pad_zeros(sizes):
+    """Pad every tensor leaf whose last axis is a mesh size (a key of
+    ``sizes``) with zeros to the padded size."""
+    import torch
+
+    def pad(x):
+        if isinstance(x, torch.Tensor) and x.ndim and x.shape[-1] in sizes:
+            n = sizes[x.shape[-1]] - x.shape[-1]
+            return torch.cat([x, x.new_zeros(x.shape[:-1] + (n,))], -1)
+        return x
+    return lambda o: dataclasses.replace(o, **{
+        f.name: pad(getattr(o, f.name)) for f in dataclasses.fields(o)}) \
+        if dataclasses.is_dataclass(o) else pad(o)
+
+
+def phase28_block(small: str, card: str) -> dict:
+    """The contiguous-block placement of ``parallel/sharding.py`` over 2
+    gloo ranks on the card: 2 float64 CI coupled steps on the level-3
+    globe padded to 2 (the unpadded model's initial state, atmosphere and
+    relaxation fields padded with zeros), against the one-device step of
+    ``prepare_dist_model`` on the real entities."""
+    import numpy as np
+    from fesom2_tpu_torch.model import (pi_coupled_step_fn,
+                                        pi_initial_state, setup_pi_model)
+    from fesom2_tpu_torch.parallel import dist, sharding
+    S = 2
+    m1, atm1 = setup_pi_model(small, device="cuda")
+    s1, i1 = pi_initial_state(m1)
+    m2, _ = setup_pi_model(small, device="cuda", pad_to=S)
+    a, b = m1.mesh, m2.mesh
+    real = {b.n_nodes: a.n_nodes, b.n_elems: a.n_elems}
+    pad = _pad_zeros({a.n_nodes: b.n_nodes, a.n_elems: b.n_elems,
+                      a.n_edges: b.n_edges})
+    s0, i0, atm = pad(s1), pad(i1), pad(atm1)
+    for k in ("Ssurf", "Tclim", "Sclim", "relax2clim"):
+        setattr(m2, k, pad(getattr(m1, k)))
+    dist.prepare_dist_model(m2)
+    step = pi_coupled_step_fn(m2, atm)
+    s, i = s0, i0
+    for k in range(2):
+        s, i, _ = step(s, i, k)
+    layout = sharding.block_layout(m2, S)
+    t0 = time.perf_counter()
+    res = dist.run_coupled_steps([dict(model=m2, atm=atm, state=s0, ice=i0,
+                                       n_steps=2)], layout, backend="gloo",
+                                 device="cuda")[0]
+    wall = time.perf_counter() - t0
+    errs = {}
+    for obj_r, obj, names in ((s, res["state"], dist.OCEAN_TOL),
+                              (i, res["ice"], dist.ICE_TOL)):
+        for name, tol in names:
+            x = getattr(obj_r, name).cpu().numpy()
+            y = getattr(obj, name).cpu().numpy()
+            n = real[x.shape[-1]]
+            x, y = x[..., :n], y[..., :n]
+            errs[name] = float(np.abs(x - y).max()
+                               / max(np.abs(x).max(), 1e-12))
+            if not errs[name] <= tol:
+                fail(f"phase 28 block placement: {name} ranks vs one device "
+                     f"{errs[name]:.3e} > {tol:.0e}")
+    bad = dist.check_halo_consistency(
+        dict(state=res["state_d"], ice=res["ice_d"]), layout)
+    iters = [r["iters"] for r in res["ranks"]]
+    if bad or any(it != iters[0] for it in iters):
+        fail(f"phase 28 block placement: halo {bad[:4]}, CG iterations "
+             f"{iters}")
+    say(f"phase 28 block placement (node i on rank i // {b.n_nodes // S}) "
+        f"over {S} gloo ranks on the card: 2 CI coupled steps on the level-3 "
+        f"globe padded to {b.n_nodes} nodes against one device: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; halo consistent, CG iterations {iters[0]}; forward exchange "
+        f"{layout.halo_slots} slots; {wall:.1f} s with the ranks' start "
+        f"({card})")
+    return dict(errors=errs, halo_slots=layout.halo_slots, wall_s=wall,
+                cg_iterations=iters[0])
+
+
+def phase28(gm, gatm, small: str, card: str, t_start: float) -> dict:
     """The CI coupled step over 2 ranks of a gloo group on the one card
     (``parallel/dist.py``), in float64 and float32, held against the
-    one-device step of ``prepare_dist_model`` on the card; returns the
-    report (its launches a step per rank among it)."""
+    one-device step of ``prepare_dist_model`` on the card, the default
+    partition's edge cut and halo beside the plain bisection's, and the
+    block placement of ``parallel/sharding.py`` (``phase28_block``);
+    returns the report (its launches a step per rank among it)."""
     import torch
     from fesom2_tpu_torch.model import pi_coupled_step_fn, pi_initial_state
-    from fesom2_tpu_torch.parallel import dist
+    from fesom2_tpu_torch.parallel import dist, partition
     say(f"phase 28 starts at {time.perf_counter() - t_start:.1f} s")
     S, n_steps = 2, 3
     sync = torch.cuda.synchronize
@@ -703,6 +815,21 @@ def phase28(gm, gatm, card: str, t_start: float) -> dict:
         f"{layout.ice_sub_local['n_nodes']} nodes a rank ({card})")
     report = dict(S=S, layout_s=t_layout, n_own=layout.n_own,
                   n_loc=layout.n_loc, halo_slots=layout.halo_slots)
+    # the default partition (bisection with Kernighan-Lin sweeps) against
+    # the plain bisection: edge cut and the halo of layouts of the mesh
+    # and tracer statics alone
+    mesh7, tst7 = gm[torch.float64].mesh, gm[torch.float64].tracer_statics
+    bis = partition._partition_numpy(partition._sphere_xyz(mesh7),
+                                     partition.node_weights(mesh7), S)
+    parts = {"default": layout.part, "bisection": bis}
+    report["partitions"] = {
+        k: dict(edge_cut=partition.edge_cut(mesh7, p),
+                halo_slots=dist.build_layout(mesh7, S, st=tst7,
+                                             part=p).halo_slots)
+        for k, p in parts.items()}
+    say(f"phase 28 partition of the level-7 globe over {S} ranks: edge cut "
+        f"and forward-exchange slots " + json.dumps(report["partitions"]))
+    report["block_placement"] = phase28_block(small, card)
     backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= S
                            else [])
     if "nccl" not in backends:
@@ -938,6 +1065,358 @@ def phase29(globe_path: str, card: str, t_start: float) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     return dict(seconds=t_mkrun, means=means, worst_vs_run_pi=worst,
                 yaml_goldens_pass=ok, launches=n_launch)
+
+
+# the keys of the JAX package's profile_pi_phases table
+# (fesom2_tpu/utils/profiling.py:87-194), which the port's must return
+PROFILE_KEYS = ("coupled_total", "ocean_total", "ice_plus_forcing",
+                "eos_pressure", "mixing", "momentum", "ssh_solve",
+                "vert_vel", "tracers", "ice_total", "ice_evp",
+                "sum_of_phases")
+
+
+def phase30(post_dir: str, mesh, card: str, t_start: float) -> dict:
+    """Post-processing on phase 26's level-7 output directory: the mesh
+    loader against the model's tables, the FPost products on a 2-degree
+    grid, the density-space MOC, the golden means; then the smoothing and
+    integrals of ``utils/support.py`` on the card against their plain
+    versions.  Returns the report (host seconds of each product)."""
+    import numpy as np
+    import torch
+    from fesom2_tpu_torch import kernels
+    from fesom2_tpu_torch.core import ops
+    from fesom2_tpu_torch.core.diagnostics import STD_DENS
+    from fesom2_tpu_torch.io.netcdf import read_vars
+    from fesom2_tpu_torch.post import fcheck, fpost, mesh_loader, moc
+    from fesom2_tpu_torch.utils import support
+    say(f"phase 30 starts at {time.perf_counter() - t_start:.1f} s")
+    h = lambda x: x.detach().cpu().numpy()
+    t0 = time.perf_counter()
+    pm = mesh_loader.load_mesh(post_dir)
+    seconds = {"load_mesh": time.perf_counter() - t0}
+    geo = np.degrees(h(mesh.geo_coords))
+    for name, got, want in (
+            ("x2", pm.x2, geo[:, 0]), ("y2", pm.y2, geo[:, 1]),
+            ("elem", pm.elem, h(mesh.elem_nodes)),
+            ("zlev", pm.zlev, h(mesh.zbar)), ("zmid", pm.zmid, h(mesh.Z)),
+            ("nlevels_nod2D", pm.nlevels_nod2D, h(mesh.nlevels_node)),
+            ("nlevels_elem", pm.nlevels_elem, h(mesh.nlevels_elem)),
+            ("area", pm.area, h(mesh.area)),
+            ("elem_area", pm.elem_area, h(mesh.elem_area))):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"phase 30: load_mesh's {name} is not the model's")
+    out = os.path.join(post_dir, "fpost")
+    written = []
+    for flag in ("do_grid_info", "do_TS3", "do_UVnorm", "do_MOC"):
+        cfg = fpost.FpostConfig(datapath=post_dir, outpath=out, RegDx=2.0,
+                                RegDy=2.0, **{flag: True})
+        t0 = time.perf_counter()
+        written += fpost.run_fpost(cfg, mesh=pm)
+        seconds[flag[3:]] = time.perf_counter() - t0
+    if written != ["grid_info.nc", "TS3.nc", "uv_norm.nc", "moc.nc"]:
+        fail(f"phase 30: run_fpost wrote {written}")
+    rd = lambda f, names: read_vars(os.path.join(out, f), names)
+    gi = rd("grid_info.nc", ["mask2", "mask3"])
+    wet = gi["mask3"].astype(bool)                       # [47, ny, nx]
+    ts3 = rd("TS3.nc", ["temp", "salt", "time"])
+    uvn = rd("uv_norm.nc", ["uv_norm"])["uv_norm"]
+    mocf = rd("moc.nc", ["moc", "lat_moc"])
+    n_rec = ts3["time"].shape[0]
+    for name, arr in (("temp", ts3["temp"]), ("salt", ts3["salt"]),
+                      ("uv_norm", uvn)):
+        if arr.shape != (n_rec,) + wet.shape \
+                or not np.isfinite(arr[:, wet]).all():
+            fail(f"phase 30: {name} {arr.shape} not finite where the grid "
+                 f"mask is wet")
+    psi = mocf["moc"]
+    t0 = time.perf_counter()
+    vdz = mesh_loader.read_stream(post_dir, "std_dens_VDZ", 1948)
+    lat_b, _, psi_d = moc.moc_dens(vdz, pm.elem_area,
+                                   pm.y2[pm.elem].mean(-1), STD_DENS)
+    seconds["moc_dens"] = time.perf_counter() - t0
+    # both streamfunctions against the same sums taken on the card by
+    # index_add_ over the latitude bins (the post tools bin with np.add.at)
+    dev = mesh.zbar.device
+
+    def binned(vals, lat, bins):
+        edges = np.concatenate([[-90.0], 0.5 * (bins[1:] + bins[:-1]),
+                                [90.0]])
+        ib = np.clip(np.digitize(lat, edges) - 1, 0, bins.size - 1)
+        out = torch.zeros(bins.size, vals.shape[0], dtype=torch.float64,
+                          device=dev)
+        return out.index_add_(0, torch.as_tensor(ib, device=dev),
+                              torch.as_tensor(np.asarray(vals, np.float64),
+                                              device=dev).T)
+
+    w_mean = fpost.read_records(post_dir, "w", 1948)[0].mean(0)
+    bins_w = np.arange(-81.0, 90.0 + 1e-9, 2.0)        # do_moc's, 2 deg
+    ref_w = torch.cumsum(binned(w_mean * pm.area[0], pm.y2, bins_w), 0) \
+        / 1e6
+    edges_d = np.concatenate([[-90.0], 0.5 * (lat_b[1:] + lat_b[:-1]),
+                              [90.0]])
+    vint = binned(vdz * pm.elem_area[None], pm.y2[pm.elem].mean(-1), lat_b) \
+        / torch.as_tensor(np.diff(edges_d) * 111194.93, device=dev)[:, None]
+    ref_d = -torch.flip(torch.cumsum(torch.flip(vint, [1]), 1), [1]) / 1e6
+    moc_err = [max_abs(torch.as_tensor(np.asarray(p_, np.float64)),
+                       r.cpu()) / max(float(r.abs().max()), 1e-300)
+               for p_, r in ((psi, ref_w), (psi_d, ref_d))]
+    if not np.isfinite(psi).all() or not np.isfinite(psi_d).all() \
+            or psi.shape != tuple(ref_w.shape) or not max(moc_err) <= 1e-10:
+        fail(f"phase 30: the MOC from w {psi.shape} or in density classes "
+             f"not finite, or off the card's sums: {moc_err}")
+    gold = os.path.join(post_dir, "goldens.yml")
+    t0 = time.perf_counter()
+    fcheck.write_goldens(post_dir, gold)
+    passes = fcheck.fcheck(post_dir, gold, verbose=False)
+    seconds["goldens"] = time.perf_counter() - t0
+    means = fcheck.load_goldens(gold)
+    off = os.path.join(post_dir, "goldens_off.yml")
+    with open(off, "w") as f:
+        f.write("fcheck:\n" + "".join(f"  {k}: {v * 1.01!r}\n"
+                                      for k, v in means.items()))
+    if not passes or fcheck.fcheck(post_dir, off, verbose=False) \
+            or len(means) < 10:
+        fail(f"phase 30: the golden check on the run's own means "
+             f"{passes}, on the same 1 % off not failing, or {len(means)} "
+             f"means")
+    say(f"phase 30 post on phase 26's run ({n_rec} records of "
+        f"{pm.n2d} nodes, {len(pm.zmid)} layers): load_mesh equal to the "
+        f"model's tables; fpost on the 2-degree grid "
+        f"{list(wet.shape[1:])} ({int(gi['mask2'].sum())} wet columns): "
+        f"every product finite where the mask is wet, max|psi| "
+        f"{np.abs(psi).max():.3f} Sv from w, {np.abs(psi_d).max():.3f} Sv "
+        f"in density classes (both {max(moc_err):.1e} from the card's "
+        f"sums); {len(means)} golden means pass, 1 % off "
+        f"fails; host s " + json.dumps(
+            {k: round(v, 3) for k, v in seconds.items()}) + f" ({card})")
+    # the smoothing and the integrals on the card: smooth_nod and
+    # smooth_elem launch elem_to_node_mean's one-thread-per-output form;
+    # against the same passes with its plain version on the card
+    sst = torch.as_tensor(mesh_loader.read_stream(post_dir, "sst", 1948),
+                          device=mesh.zbar.device)
+    u = torch.as_tensor(mesh_loader.read_stream(post_dir, "u", 1948),
+                        device=mesh.zbar.device)
+    em = lambda x: ops.elem_mean_node(x, mesh)
+    plain = lambda x: ops.elem_to_node_mean_flat_plain(x, mesh)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sn = support.smooth_nod(sst, 3, mesh)
+    se = support.smooth_elem(u, 2, mesh)
+    torch.cuda.synchronize()
+    t_smooth = time.perf_counter() - t0
+    n_launch = kernels.LAUNCHES["elem_to_node_mean"]
+    want_n, want_e = sst, u
+    for _ in range(3):
+        want_n = plain(em(want_n))
+    for _ in range(2):
+        want_e = em(plain(want_e))
+    err = max(max_abs(sn, want_n) / float(want_n.abs().max()),
+              max_abs(se, want_e) / float(want_e.abs().max()))
+    area_int = float(support.integrate_nod_2d(torch.ones_like(sst), mesh))
+    if n_launch != 5 or not err <= 1e-12 \
+            or not abs(area_int - float(mesh.area[0].sum())) <= 1e-12 \
+            * area_int:
+        fail(f"phase 30: smoothing on the card: {n_launch} launches of "
+             f"elem_to_node_mean (5 expected), {err:.3e} from the plain "
+             f"passes")
+    say(f"phase 30 smooth_nod (3 passes of sst) and smooth_elem (2 passes "
+        f"of u {list(u.shape)}) on the card: {n_launch} "
+        f"launches of elem_to_node_mean, {err:.3e} of max from the plain "
+        f"passes, {t_smooth * 1e3:.2f} ms ({card})")
+    return dict(host_seconds=seconds, max_psi_w_sv=float(np.abs(psi).max()),
+                max_psi_dens_sv=float(np.abs(psi_d).max()), moc_err=moc_err,
+                golden_means=len(means), smoothing_err=err,
+                smoothing_ms=t_smooth * 1e3, smoothing_launches=n_launch)
+
+
+def _atmosphere(address, n_events: int, errors: list):
+    """The atmosphere of phase 31: for each coupling event, wait for the
+    ocean's send fields, then post seeded ECHAM fields and the net heat
+    flux the correction conserves."""
+    import numpy as np
+    from fesom2_tpu_torch.coupler import RECV_FIELDS_ECHAM, SocketTransport
+    try:
+        cl = SocketTransport(address)
+        for e in range(n_events):
+            if cl.get(f"o2a_event_{e}", timeout=60.0) is None:
+                raise TimeoutError(f"no send for event {e}")
+            sst = cl.get("sst_feom", timeout=60.0)
+            n = sst.shape[0]
+            rng = np.random.default_rng(100 + e)
+            u = lambda lo, hi: rng.uniform(lo, hi, n)
+            ranges = dict(heat_oce=(-300.0, 100.0), heat_ico=(-150.0, 80.0),
+                          heat_swo=(0.0, 250.0), evap_oce=(-5e-8, 0.0),
+                          subl_oce=(-1e-8, 0.0), prec_oce=(0.0, 3e-8),
+                          snow_oce=(0.0, 2e-8), hydr_oce=(0.0, 1e-9),
+                          taux_oce=(-0.2, 0.2), tauy_oce=(-0.2, 0.2),
+                          taux_ico=(-0.2, 0.2), tauy_ico=(-0.2, 0.2))
+            for name in RECV_FIELDS_ECHAM:
+                cl.put(name, u(*ranges[name]))
+            cl.put("heat_net", np.array([-2.0e14 - 1.0e13 * e]))
+            cl.put(f"a2o_event_{e}", np.ones(1))
+        cl.close()
+    except Exception as err:                     # reported by the ocean
+        errors.append(repr(err))
+
+
+def coupler_run(m, atm, n_steps: int, every: int) -> dict:
+    """``n_steps`` coupled-mode ice steps of model ``m`` (the ocean held at
+    its initial state) against the seeded atmosphere thread over a local
+    socket: ``collect`` every step, ``send``/``recv`` every ``every``
+    steps (and once before the first), ``force_flux_consv`` on heat_oce.
+    Returns the final ice, the corrected fields' integrals against the
+    atmosphere's, the kernel launches per step and the host ms a coupling
+    event."""
+    import threading
+    import numpy as np
+    import torch
+    from fesom2_tpu_torch import kernels
+    from fesom2_tpu_torch.coupler import (CplDriver, OasisEndpoint,
+                                          force_flux_consv)
+    from fesom2_tpu_torch.forcing.atmos import update_atm_forcing
+    from fesom2_tpu_torch.ice.coupling import ocean2ice
+    from fesom2_tpu_torch.ice.state import zero_ice_forcing
+    from fesom2_tpu_torch.ice.step import ice_timestep_cpl
+    from fesom2_tpu_torch.model import pi_initial_state
+    mesh, dev = m.mesh, m.mesh.zbar.device
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" \
+        else (lambda: None)
+    cfg = m.cfg
+    state, ice = pi_initial_state(m)
+    surf = ocean2ice(state, mesh)
+    n_events = 1 + n_steps // every
+    ep = OasisEndpoint(("127.0.0.1", 0))
+    errors = []
+    th = threading.Thread(target=_atmosphere, args=(ep.address, n_events,
+                                                    errors), daemon=True)
+    th.start()
+    drv = CplDriver(mesh, ep)
+    ones = torch.ones_like(mesh.area[0])
+    integrals, event_ms, launches = [], [], []
+
+    def exchange(e):
+        sync()
+        t0 = time.perf_counter()
+        drv.send()
+        ep.put(f"o2a_event_{e}", np.ones(1))
+        if ep.get(f"a2o_event_{e}", timeout=60.0) is None:
+            fail(f"coupler: no answer to event {e}: {errors}")
+        fluxes, stresses = drv.recv()
+        net = float(ep.get("heat_net").reshape(-1)[0])
+        heat = force_flux_consv(fluxes.oce_heat_flux, ones, net, mesh)
+        fluxes = dataclasses.replace(fluxes, oce_heat_flux=heat)
+        sync()
+        event_ms.append((time.perf_counter() - t0) * 1e3)
+        got = float((heat * mesh.area[0]).sum())
+        integrals.append(abs(got - net) / abs(net))
+        return fluxes, stresses
+
+    try:
+        drv.collect(state, ice)
+        fluxes, stresses = exchange(0)
+        for k in range(n_steps):
+            kernels.reset_launches()
+            ifc = update_atm_forcing(atm, k * cfg.dt, ice.u_ice, ice.v_ice,
+                                     surf.u_w, surf.v_w, surf.T_oc,
+                                     zero_ice_forcing(mesh))
+            ifc = dataclasses.replace(ifc, **stresses)
+            ice = ice_timestep_cpl(ice, mesh, ifc, fluxes, surf, cfg, False,
+                                   ref_sss=cfg.tra.ref_sss,
+                                   ref_sss_local=cfg.tra.ref_sss_local)
+            sync()
+            launches.append(dict(kernels.LAUNCHES))
+            drv.collect(state, ice)
+            if (k + 1) % every == 0:
+                fluxes, stresses = exchange((k + 1) // every)
+    finally:
+        th.join(timeout=60.0)
+        ep.close()
+    if errors:
+        fail(f"coupler: the atmosphere thread failed: {errors}")
+    return dict(ice=ice, integrals=integrals, event_ms=event_ms,
+                launches=launches, events=len(event_ms))
+
+
+def phase31(gm, gatm, small: str, card: str, t_start: float) -> dict:
+    """The coupler at full width: 4 coupled-mode ice steps on the level-7
+    globe over a local socket to an atmosphere thread, and the same on the
+    level-3 globe card against CPU."""
+    import torch
+    from fesom2_tpu_torch.model import setup_pi_model
+    say(f"phase 31 starts at {time.perf_counter() - t_start:.1f} s")
+    m = gm[torch.float64]
+    t0 = time.perf_counter()
+    r = coupler_run(m, gatm[torch.float64], 4, 2)
+    wall = time.perf_counter() - t0
+    ice = r["ice"]
+    bad = [f.name for f in dataclasses.fields(ice)
+           if not bool(torch.isfinite(getattr(ice, f.name)).all())]
+    per_step = [(ln["mevp_subcycles"], ln["elem_contrib_to_nodes"])
+                for ln in r["launches"]]
+    if bad or r["events"] != 3 or max(r["integrals"]) > 1e-12 \
+            or any(mv != 1 or ecn <= 0 for mv, ecn in per_step):
+        fail(f"phase 31: fields not finite {bad}, {r['events']} events, "
+             f"integrals {r['integrals']}, launches (mevp_subcycles, "
+             f"elem_contrib_to_nodes) a step {per_step}")
+    say(f"phase 31 coupler on the level-7 globe: 4 coupled-mode ice steps "
+        f"in {wall:.2f} s, {r['events']} coupling events over a local "
+        f"socket (host ms an event, send + atmosphere + recv + correction: "
+        f"{[round(v, 2) for v in r['event_ms']]}), heat_oce's integral "
+        f"against the atmosphere's net {max(r['integrals']):.2e}, "
+        f"mevp_subcycles once a step, elem_contrib_to_nodes "
+        f"{per_step[0][1]} a step; a_ice max {float(ice.a_ice.max()):.3f}, "
+        f"max|u_ice| {float(ice.u_ice.abs().max()):.3f} m/s ({card})")
+    sides = []
+    for d in ("cuda", "cpu"):
+        ms, atm_s = setup_pi_model(small, device=d)
+        sides.append(coupler_run(ms, atm_s, 4, 2)["ice"])
+    worst = 0.0
+    for f in dataclasses.fields(sides[1]):
+        g, c = getattr(sides[0], f.name), getattr(sides[1], f.name)
+        rel = max_abs(g.cpu(), c) / max(float(c.abs().max()), 1e-300)
+        worst = max(worst, rel)
+        if not rel <= 1e-8:
+            fail(f"phase 31: level-3 coupler run card vs CPU {f.name} "
+                 f"{rel:.3e} > 1e-8")
+    say(f"phase 31 level-3 coupler run card vs CPU: worst ice field "
+        f"{worst:.3e} of max|cpu|")
+    return dict(wall_s=wall, event_ms=r["event_ms"],
+                integral_err=max(r["integrals"]),
+                launches_a_step=r["launches"][-1], card_vs_cpu=worst)
+
+
+def phase32(globe_path: str, span_ms: dict, coupled_kernels, card: str,
+            t_start: float) -> dict:
+    """``profile_pi_phases`` on the level-7 CI step in float64 and
+    float32, n=5, beside phase 12's device ms a step per span."""
+    import math
+    import torch
+    from fesom2_tpu_torch import kernels
+    from fesom2_tpu_torch.utils.profiling import profile_pi_phases
+    say(f"phase 32 starts at {time.perf_counter() - t_start:.1f} s")
+    report = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        table = profile_pi_phases(globe_path, device="cuda", dtype=dtype,
+                                  n=5, verbose=False)
+        wall = time.perf_counter() - t0
+        missing = [k for k in coupled_kernels if kernels.LAUNCHES[k] <= 0]
+        if set(table) != set(PROFILE_KEYS) or missing or not all(
+                math.isfinite(v) and v >= 0.0 for v in table.values()):
+            fail(f"phase 32 {tag}: keys {sorted(table)}, kernels not "
+                 f"launched {missing}, values {table}")
+        ms = {k: table[k] * 1e3 for k in PROFILE_KEYS}
+        report[tag] = dict(ms=ms, wall_s=wall)
+        say(f"phase 32 {tag} profile_pi_phases (ms a call, n=5; "
+            f"{wall:.1f} s with the setup): " + json.dumps(
+                {k: round(v, 3) for k, v in ms.items()}) + f" ({card})")
+        say(f"phase 32 {tag} beside phase 12's device ms a step per span: "
+            + json.dumps({k: round(v, 3) for k, v in
+                          span_ms.get("ci", {}).get(tag, {}).items()}))
+    return report
 
 
 def main():
@@ -3988,6 +4467,10 @@ def main():
         std_dens_W_err=w_err)
     summary["dens_moc_bin"]["output_step_device_ms"] = {
         tag: v["dens_moc_bin_device_ms"] for tag, v in out26.items()}
+    # the 10-step run's directory stays for phase 30's post-processing
+    post_dir = str(out_root.parent / "post_run")
+    shutil.rmtree(post_dir, ignore_errors=True)
+    shutil.move(run_dir, post_dir)
     shutil.rmtree(out_root, ignore_errors=True)
 
     # phase 27 -----------------------------------------------------------
@@ -4047,6 +4530,14 @@ def main():
         f"card, none on the CPU")
     shutil.rmtree(out_root, ignore_errors=True)
 
+    # phases 30-32 (before phase 28, which turns phase 12's models to the
+    # distributed formulation) ----------------------------------------------
+    post_report = phase30(post_dir, gm[torch.float64].mesh, card, t_start)
+    shutil.rmtree(post_dir, ignore_errors=True)
+    coupler_report = phase31(gm, gatm, small, card, t_start)
+    profile_report = phase32(globe_path, span_ms, coupled_kernels, card,
+                             t_start)
+
     # phase 28 -----------------------------------------------------------
     # two more processes share the card: the earlier phases' models,
     # phase 12's (gm) apart, are let go first
@@ -4057,7 +4548,7 @@ def main():
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-    dist_report = phase28(gm, gatm, card, t_start)
+    dist_report = phase28(gm, gatm, small, card, t_start)
     # phase 29 -----------------------------------------------------------
     mkrun_report = phase29(globe_path, card, t_start)
 
@@ -4128,7 +4619,9 @@ def main():
                     "output_path": {"steps": out26,
                                     "card_vs_cpu": worst27,
                                     "dens_moc_bin_counts": dmoc_counts},
-                    "dist": dist_report, "mkrun": mkrun_report}))
+                    "dist": dist_report, "mkrun": mkrun_report,
+                    "post": post_report, "coupler": coupler_report,
+                    "profile_pi_phases": profile_report}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "fesom2_tpu_torch/csrc/"

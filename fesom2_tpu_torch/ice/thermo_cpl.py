@@ -5,9 +5,8 @@ The port of ``fesom2_tpu/ice/thermo_cpl.py``.  Reference:
 the contained ``ice_growth`` :182-448.  It replaces the bulk-formula
 0-layer scheme where an atmosphere model provides the heat and freshwater
 fluxes over ice and open water separately, through a coupler.  Column
-local: plain torch, vectorised over nodes.  The coupler itself is
-host-only and not ported, so only ``ice.step.ice_timestep_cpl`` and the
-tests call this module.
+local: plain torch, vectorised over nodes.  ``ice.step.ice_timestep_cpl``
+calls it on the fluxes ``coupler.CplDriver.recv`` builds.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ post-processing tools read it unchanged).
 The port's own copy of ``fesom2_tpu/io/mesh_info.py``, reading the port's
 MeshTables; ``tests/test_torch_restart.py`` holds its file equal to the
 JAX package's.  A partition of the nodes for ``nod_part`` comes from
-``parallel/partition.py`` (``_partition_numpy`` of ``_sphere_xyz``).
+``parallel/partition.py`` (``partition_nodes``).
 """
 from __future__ import annotations
 

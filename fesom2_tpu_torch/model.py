@@ -295,7 +295,7 @@ class Model(nn.Module):
         sst = self.soufflet_statics if self.is_soufflet else None
         mesh = self.mesh
         if sst is not None:
-            mesh = replace(mesh, coriolis=sst.coriolis)
+            mesh = replace_coriolis(mesh, sst.coriolis)
         st = self.tracer_statics
 
         with record_function("step.prephase"):
@@ -356,6 +356,12 @@ class Model(nn.Module):
         """The step with the public signature
         step(state, forcing, sw_3d=None) -> state."""
         return self.forward
+
+
+def replace_coriolis(mesh: MeshTables, coriolis_elem) -> MeshTables:
+    """``mesh`` with the element Coriolis parameter ``coriolis_elem`` [E]
+    (the channel's beta plane; ``fesom2_tpu/model.py:313-315``)."""
+    return replace(mesh, coriolis=coriolis_elem)
 
 
 def vertical_mixing(state: OceanState, mesh: MeshTables, cfg,

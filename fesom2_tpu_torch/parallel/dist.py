@@ -351,9 +351,11 @@ def build_layout(mesh: MeshTables, S: int, st=None, part=None, cfg=None,
     schedules, the local tracer statics, SSH preconditioners (with
     ``cfg``) and ice subdomains (where ``cfg.ice.evp_subdomain_lat`` is
     set): ``fesom2_tpu/parallel/dist.py:397-795``, table for table.
-    ``part`` [N] gives the partition, else ``partition_nodes``;
-    ``n_part=(hosts, cards)`` asks for the two-level partition
-    (``partition_nodes_hierarchical``), hosts * cards == S."""
+    ``part`` [N] gives the partition (``parallel/sharding.py``'s
+    ``block_partition`` is the contiguous-block placement), else
+    ``partition_nodes`` (bisection with Kernighan-Lin sweeps, the JAX
+    package's default); ``n_part=(hosts, cards)`` asks for the two-level
+    partition (``partition_nodes_hierarchical``), hosts * cards == S."""
     en = _np(mesh.elem_nodes).astype(np.int64)
     edges = _np(mesh.edges).astype(np.int64)
     etri = _np(mesh.edge_tri).astype(np.int64)

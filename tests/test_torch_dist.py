@@ -5,17 +5,17 @@ one-device step, on the level-3 globe with 12 layers (CPU, float64).
 S = 4 ranks of a gloo group, started with spawn: a rank imports neither
 jax nor this module (``dist._rank_entry`` asserts it).  The layout is held
 table for table and exactly against JAX's ``build_layout`` on the same
-mesh and partition, also with the two-level partition (``n_part``; the
-JAX package's native partitioner is switched off for it, so both cut the
-node graph by the same bisection).  One run of the ranks then checks the
-runtime's pieces (the halo exchange of an owner-consistent field is the
-identity, the reverse accumulation sums each node's local copies, two
-assemblies and an ocean step equal the global ones) and takes 2 coupled
-steps (8 mEVP
-subcycles) from the same initial state: gathered, they hold against the
-port's one-device step under ``prepare_dist_model`` and against JAX's
-``dist_pi_coupled_step_fn`` on the same layout under ``shard_map`` over
-the conftest's virtual CPU devices, within the tolerances of
+mesh, each package cutting the node graph by its own default partition
+(the bisection with Kernighan-Lin sweeps: JAX's native library, the
+port's copy of it), also with the two-level partition (``n_part``).  One
+run of the ranks then checks the runtime's pieces (the halo exchange of an
+owner-consistent field is the identity, the reverse accumulation sums
+each node's local copies, two assemblies and an ocean step equal the
+global ones) and takes 2 coupled steps (8 mEVP subcycles) from the same
+initial state: gathered, they hold against the port's one-device step
+under ``prepare_dist_model`` and against JAX's ``dist_pi_coupled_step_fn``
+on the same layout under ``shard_map`` over the conftest's virtual CPU
+devices, within the tolerances of
 ``tests/test_dist.py:152-186`` (eta, tr, w 1e-7, u 1e-6, hnode 1e-9; the
 ice 1e-7 of max|ref|); every rank takes the same CG iterations, and every
 halo slot of the final state holds its owner's value exactly.
@@ -58,8 +58,9 @@ def path(tmp_path_factory):
 @pytest.fixture(scope="module")
 def layouts(pair):
     lay = dist.dist_layout_for_model(pair.tm, S)
+    assert jpart._load_native() is not None
     jlay = jdist.build_layout(pair.jm.mesh, S, st=pair.jm.tracer_statics,
-                              part=lay.part, cfg=pair.jm.cfg)
+                              cfg=pair.jm.cfg)
     return lay, jlay
 
 
@@ -116,8 +117,8 @@ def test_layout_equals_jax(layouts):
                                                 lay.ed_loc)
 
 
-def test_hierarchical_layout_equals_jax(pair, monkeypatch):
-    monkeypatch.setattr(jpart, "_load_native", lambda: None)
+def test_hierarchical_layout_equals_jax(pair):
+    assert jpart._load_native() is not None
     lay = dist.dist_layout_for_model(pair.tm, S, n_part=(2, 2))
     jlay = jdist.build_layout(pair.jm.mesh, S, st=pair.jm.tracer_statics,
                               cfg=pair.jm.cfg, n_part=(2, 2))

@@ -41,6 +41,7 @@ from fesom2_tpu_torch.core.state import zero_forcing
 from fesom2_tpu_torch.mesh import globe
 from fesom2_tpu_torch.mesh.channel import channel_raw_mesh, write_mesh
 from fesom2_tpu_torch.model import (pi_config, setup_pi_model,
+                                    replace_coriolis as port_replace_coriolis,
                                     setup_soufflet_model, soufflet_config)
 from fesom2_tpu_torch.run import globe_ocean_inputs
 
@@ -75,8 +76,8 @@ def channel_pair(path, tcfg):
     p.tm = setup_soufflet_model(path, device="cpu", cfg=tcfg)
     p.jmesh = jmodel.replace_coriolis(p.jm.mesh,
                                       p.jm.soufflet_statics.coriolis)
-    p.tmesh = dataclasses.replace(p.tm.mesh,
-                                  coriolis=p.tm.soufflet_statics.coriolis)
+    p.tmesh = port_replace_coriolis(p.tm.mesh,
+                                    p.tm.soufflet_statics.coriolis)
     return p
 
 

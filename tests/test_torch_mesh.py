@@ -178,7 +178,16 @@ def test_port_imports_no_jax():
             "fesom2_tpu_torch.io.streams, "
             "fesom2_tpu_torch.parallel.dist, "
             "fesom2_tpu_torch.parallel.padding, fesom2_tpu_torch.mkrun, "
-            "fesom2_tpu_torch.post.fcheck; "
+            "fesom2_tpu_torch.post.fcheck, fesom2_tpu_torch.post, "
+            "fesom2_tpu_torch.post.mesh_loader, "
+            "fesom2_tpu_torch.post.regrid, fesom2_tpu_torch.post.moc, "
+            "fesom2_tpu_torch.post.climatology, "
+            "fesom2_tpu_torch.post.fpost, fesom2_tpu_torch.post.plot, "
+            "fesom2_tpu_torch.coupler, fesom2_tpu_torch.coupler.transport, "
+            "fesom2_tpu_torch.coupler.oasis, "
+            "fesom2_tpu_torch.utils.profiling, "
+            "fesom2_tpu_torch.parallel.sharding; "
+            "fesom2_tpu_torch.parallel.partition.build(); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fesom2_tpu' "
             "or m.startswith('fesom2_tpu.')]; "

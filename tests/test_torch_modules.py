@@ -25,7 +25,8 @@ from fesom2_tpu_torch.core import dynamics, eos, ssh, ale
 from fesom2_tpu_torch.core.mixing import pp
 from fesom2_tpu_torch.core.state import zero_forcing
 from fesom2_tpu_torch.mesh.channel import channel_raw_mesh, write_mesh
-from fesom2_tpu_torch.model import setup_soufflet_model, solve_tracers
+from fesom2_tpu_torch.model import (replace_coriolis as port_replace_coriolis,
+                                    setup_soufflet_model, solve_tracers)
 
 TOL = 1e-10
 
@@ -49,8 +50,8 @@ def pair(tmp_path_factory):
     p.ts = state_from_numpy({f.name: np.asarray(getattr(js, f.name))
                              for f in dataclasses.fields(js)}, "cpu")
     p.jmesh = replace_coriolis(p.jm.mesh, p.jm.soufflet_statics.coriolis)
-    p.tmesh = dataclasses.replace(p.tm.mesh,
-                                  coriolis=p.tm.soufflet_statics.coriolis)
+    p.tmesh = port_replace_coriolis(p.tm.mesh,
+                                    p.tm.soufflet_statics.coriolis)
     p.cfg = p.jm.cfg
     p.tcfg = p.tm.cfg
     # the momentum rhs both packages feed to the later modules

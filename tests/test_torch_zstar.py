@@ -23,7 +23,8 @@ from fesom2_tpu_torch.convert import state_from_numpy, to_numpy
 from fesom2_tpu_torch.core import ale, dynamics, ssh
 from fesom2_tpu_torch.core.state import zero_forcing
 from fesom2_tpu_torch.mesh.channel import channel_raw_mesh, write_mesh
-from fesom2_tpu_torch.model import setup_soufflet_model
+from fesom2_tpu_torch.model import (replace_coriolis as port_replace_coriolis,
+                                    setup_soufflet_model)
 from fesom2_tpu_torch.run import run_soufflet
 
 TOL = 1e-10
@@ -54,8 +55,8 @@ def pair(tmp_path_factory):
     p.js = p.jm.step_fn()(p.jm.initial_state(), p.jf)
     p.ts = _to_port(p.js)
     p.jmesh = replace_coriolis(p.jm.mesh, p.jm.soufflet_statics.coriolis)
-    p.tmesh = dataclasses.replace(p.tm.mesh,
-                                  coriolis=p.tm.soufflet_statics.coriolis)
+    p.tmesh = port_replace_coriolis(p.tm.mesh,
+                                    p.tm.soufflet_statics.coriolis)
     p.cfg, p.tcfg = p.jm.cfg, p.tm.cfg
     assert float(np.abs(np.asarray(p.js.hbar)).max()) > 1e-6
     return p
