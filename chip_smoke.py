@@ -388,6 +388,23 @@ import time
 from pathlib import Path
 
 
+PHASES = []     # (phase, seconds from the start of main) as each begins
+
+
+def phase_start(phase: int, t_start: float):
+    """Say when a phase begins, and keep it for the phases' wall seconds."""
+    t = time.perf_counter() - t_start
+    PHASES.append((phase, t))
+    say(f"phase {phase} starts at {t:.1f} s")
+
+
+def phase_walls(total: float) -> dict:
+    """{phase: wall seconds} from when each began to when the next did (in
+    the order they ran), the last to ``total``."""
+    ends = [t for _, t in PHASES[1:]] + [total]
+    return {str(p): round(e - t, 1) for (p, t), e in zip(PHASES, ends)}
+
+
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -779,10 +796,11 @@ def phase28(gm, gatm, small: str, card: str, t_start: float) -> dict:
     partition's edge cut and halo beside the plain bisection's, and the
     block placement of ``parallel/sharding.py`` (``phase28_block``);
     returns the report (its launches a step per rank among it)."""
+    import numpy as np
     import torch
     from fesom2_tpu_torch.model import pi_coupled_step_fn, pi_initial_state
     from fesom2_tpu_torch.parallel import dist, partition
-    say(f"phase 28 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(28, t_start)
     S, n_steps = 2, 3
     sync = torch.cuda.synchronize
     ref, inputs = {}, {}
@@ -815,18 +833,50 @@ def phase28(gm, gatm, small: str, card: str, t_start: float) -> dict:
         f"{layout.ice_sub_local['n_nodes']} nodes a rank ({card})")
     report = dict(S=S, layout_s=t_layout, n_own=layout.n_own,
                   n_loc=layout.n_loc, halo_slots=layout.halo_slots)
+    # each rank's block-Schwarz tables (build_block_schwarz_local, packed
+    # as rank_model packs them) through the kernel against the plain
+    # version on the padded tables, here in one process
+    from fesom2_tpu_torch import kernels
+    from fesom2_tpu_torch.core import ssh
+    rng = np.random.default_rng(28)
+    local_pc = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        tag = str(dtype).replace("torch.", "")
+        for r in range(S):
+            pc = dist.rank_block_pc(dist.rank_bundle(layout, r)["block_pc"],
+                                    "cuda", dtype)
+            x = torch.as_tensor(rng.uniform(-1, 1, pc.node_slots.shape[0]),
+                                device="cuda").to(dtype)
+            kernels.reset_launches()
+            got = ssh.block_schwarz(pc, x)
+            want = ssh.block_schwarz_plain(pc, x)
+            sync()
+            rel = max_abs(got, want) / float(want.abs().max())
+            sizes = np.diff(pc.packed.row_off.cpu().numpy())
+            local_pc[f"{tag} rank {r}"] = dict(
+                rel=rel, blocks=len(sizes), empty=int((sizes == 0).sum()),
+                launches=kernels.LAUNCHES["block_schwarz"])
+            if not rel <= tol or kernels.LAUNCHES["block_schwarz"] != 1:
+                fail(f"phase 28: block_schwarz on rank {r}'s tables {tag}: "
+                     f"{local_pc[f'{tag} rank {r}']}")
+    say(f"phase 28 block_schwarz on the rank-local tables (packed), kernel "
+        f"against plain: " + json.dumps(local_pc))
+    report["block_schwarz_rank_local"] = local_pc
     # the default partition (bisection with Kernighan-Lin sweeps) against
     # the plain bisection: edge cut and the halo of layouts of the mesh
     # and tracer statics alone
     mesh7, tst7 = gm[torch.float64].mesh, gm[torch.float64].tracer_statics
     bis = partition._partition_numpy(partition._sphere_xyz(mesh7),
                                      partition.node_weights(mesh7), S)
-    parts = {"default": layout.part, "bisection": bis}
+    # the default partition's node and element slots are the layout's
+    # above; the bisection's from a layout of the mesh and tracer statics
+    slots = lambda h: {k: h[k] for k in ("node", "elem")}
     report["partitions"] = {
-        k: dict(edge_cut=partition.edge_cut(mesh7, p),
-                halo_slots=dist.build_layout(mesh7, S, st=tst7,
-                                             part=p).halo_slots)
-        for k, p in parts.items()}
+        "default": dict(edge_cut=partition.edge_cut(mesh7, layout.part),
+                        halo_slots=slots(layout.halo_slots)),
+        "bisection": dict(edge_cut=partition.edge_cut(mesh7, bis),
+                          halo_slots=slots(dist.build_layout(
+                              mesh7, S, st=tst7, part=bis).halo_slots))}
     say(f"phase 28 partition of the level-7 globe over {S} ranks: edge cut "
         f"and forward-exchange slots " + json.dumps(report["partitions"]))
     report["block_placement"] = phase28_block(small, card)
@@ -1011,7 +1061,7 @@ def phase29(globe_path: str, card: str, t_start: float) -> dict:
     from fesom2_tpu_torch.model import pi_initial_state, setup_pi_model
     from fesom2_tpu_torch.post.fcheck import field_means
     from fesom2_tpu_torch.run import run_pi
-    say(f"phase 29 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(29, t_start)
     root = Path(__file__).resolve().parent / "build" / "chip_smoke" / "mkrun"
     shutil.rmtree(root, ignore_errors=True)
     (root / "ref" / "config").mkdir(parents=True)
@@ -1089,7 +1139,7 @@ def phase30(post_dir: str, mesh, card: str, t_start: float) -> dict:
     from fesom2_tpu_torch.io.netcdf import read_vars
     from fesom2_tpu_torch.post import fcheck, fpost, mesh_loader, moc
     from fesom2_tpu_torch.utils import support
-    say(f"phase 30 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(30, t_start)
     h = lambda x: x.detach().cpu().numpy()
     t0 = time.perf_counter()
     pm = mesh_loader.load_mesh(post_dir)
@@ -1344,7 +1394,7 @@ def phase31(gm, gatm, small: str, card: str, t_start: float) -> dict:
     level-3 globe card against CPU."""
     import torch
     from fesom2_tpu_torch.model import setup_pi_model
-    say(f"phase 31 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(31, t_start)
     m = gm[torch.float64]
     t0 = time.perf_counter()
     r = coupler_run(m, gatm[torch.float64], 4, 2)
@@ -1394,7 +1444,7 @@ def phase32(globe_path: str, span_ms: dict, coupled_kernels, card: str,
     import torch
     from fesom2_tpu_torch import kernels
     from fesom2_tpu_torch.utils.profiling import profile_pi_phases
-    say(f"phase 32 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(32, t_start)
     report = {}
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).replace("torch.", "")
@@ -1470,7 +1520,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    PHASES.append((1, 0.0))
+
     # phase 2 ------------------------------------------------------------
+    phase_start(2, t_start)
     t0 = time.perf_counter()
     path = build.build()
     kernels.library()
@@ -1479,7 +1532,7 @@ def main():
         say(f"  {line.strip()}")
 
     # phase 3 ------------------------------------------------------------
-    say(f"phase 3 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(3, t_start)
     model64 = setup_soufflet_model(device=dev, dtype=torch.float64)
     mesh64 = model64.mesh
     N, E, Ed, L = mesh64.n_nodes, mesh64.n_elems, mesh64.n_edges, mesh64.nl - 1
@@ -1603,20 +1656,36 @@ def main():
                 False, eos.pressure_bv_work(L, N, wet, eos._eos_kind(m.cfg),
                                             st.tr.element_size()), None)
 
+    schwarz_padded = {}     # block_schwarz: the padded tables' bound
+
     def bs_case(label, m, dtype):
-        """block_schwarz with model m's preconditioner on a random
-        residual; library call: one bmm, the blocks' local solves only."""
+        """block_schwarz with model m's preconditioner (the kernel on its
+        packed layout) on a random residual, held against the plain version
+        on the padded tables; bound: the packed layout's bytes (the padded
+        tables' kept beside it); library call: one bmm over the padded
+        inverses, the blocks' local solves only."""
         pc, N = m.ssh_block_pc, m.mesh.n_nodes
         size = torch.empty((), dtype=dtype).element_size()
         x = rand(N, dtype=dtype)
         nb, K = pc.block_ids.shape
+        sizes = np.diff(pc.packed.row_off.cpu().numpy())
         rb = x[pc.block_ids.long().clamp_min(0)][..., None].contiguous()
-        return ("block_schwarz", f"{label} blocks [{nb}, {K}, {K}] (library: "
-                f"local solves only)",
+        case = f"{label} blocks [{nb}, {K}, {K}] (library: local solves only)"
+        schwarz_padded[(dtype, case)] = dict(
+            padded_bound_ms=kernels.bound_ms(ssh.block_schwarz_work(
+                N, nb, K, pc.node_slots.shape[1], pc.coarse_ids.shape[1],
+                size), dtype)[0],
+            block_nodes=[int(sizes.min()), float(np.median(sizes)),
+                         int(sizes.max())],
+            packed_entries=int(pc.packed.inv.numel()),
+            padded_entries=int(pc.inv_blocks.numel()),
+            tiles=int(pc.packed.tiles.shape[0]))
+        return ("block_schwarz", case,
                 lambda: pc(x),
                 lambda: ssh.block_schwarz_plain(pc, x), False,
-                ssh.block_schwarz_work(N, nb, K, pc.node_slots.shape[1],
-                                       pc.coarse_ids.shape[1], size),
+                ssh.block_schwarz_packed_work(
+                    N, sizes, pc.packed.node_slots.shape[1],
+                    pc.coarse_ids.shape[1], size),
                 lambda: torch.bmm(pc.inv_blocks, rb))
 
     def cg_cases(dtype):
@@ -2214,12 +2283,19 @@ def main():
     sub_path = globe.write_globe(str(
         Path(__file__).resolve().parent / "build" / "chip_smoke"
         / "globe_l7_subdivision"), level=7, numbering="subdivision")
-    sub = {dtype: build_mesh(sub_path, force_rotation=True,
-                             cyclic_length_deg=360.0, use_partial_cell=True,
-                             dtype=dtype, device=dev)
-           for dtype in (torch.float64, torch.float32)}
+    sub = {torch.float64: build_mesh(sub_path, force_rotation=True,
+                                     cyclic_length_deg=360.0,
+                                     use_partial_cell=True,
+                                     dtype=torch.float64, device=dev)}
+    # build_mesh computes in float64 and rounds at the end: the float32
+    # tables are these, cast (tests/test_torch_globe.py holds the two
+    # equal), one build fewer
+    from fesom2_tpu_torch.parallel.dist import tree_map
+    sub[torch.float32] = tree_map(
+        lambda t: t.to(torch.float32) if t.is_floating_point() else t,
+        sub[torch.float64])
     say(f"phase 3 level-7 globe in subdivision numbering written and its "
-        f"tables built twice in {time.perf_counter() - t0:.2f} s")
+        f"tables built in {time.perf_counter() - t0:.2f} s")
     for label, mesh in (("channel", mesh64), ("globe along the curve", gmesh),
                         ("globe by subdivision", sub[torch.float64])):
         for what, table in (("edges", mesh.node_edges),
@@ -2318,7 +2394,13 @@ def main():
                     "bitwise": bitwise,
                     "bound_ms": b_ms, "plain_ms": p_ms, "library_ms": l_ms,
                     "library_device_ms": l_dev and l_dev / 1e3,
-                    **ecn_calls.get(label, {})}
+                    **ecn_calls.get(label, {}),
+                    **schwarz_padded.get((dtype, label), {})}
+            if (dtype, label) in schwarz_padded:
+                say(f"phase 3 block_schwarz {tag} {label}: packed bound "
+                    f"{b_ms * 1e3:.1f} us beside the padded tables' "
+                    f"{schwarz_padded[(dtype, label)]['padded_bound_ms'] * 1e3:.1f}"
+                    f" us; " + json.dumps(schwarz_padded[(dtype, label)]))
             if dtype == torch.float64 or name.endswith("_gather"):
                 s = summary[name]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -2473,7 +2555,7 @@ def main():
              "the plain versions do")
 
     # phase 4 ------------------------------------------------------------
-    say(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(4, t_start)
     step_kernels = ("node_edge_reduce", "elem_to_node_mean", "tridiag_solve",
                     "fct_bounds", "pressure_bv")
     kernels.reset_launches()
@@ -2486,7 +2568,7 @@ def main():
     path_launches = dict(launches)
 
     # phase 5 ------------------------------------------------------------
-    say(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(5, t_start)
     model_cpu = setup_soufflet_model(device="cpu", dtype=torch.float64)
     s_gpu = model64.initial_state()
     s_cpu = model_cpu.initial_state()
@@ -2500,7 +2582,7 @@ def main():
             fail(f"phase 5: {name} card vs CPU {rel:.3e} > 1e-9")
 
     # phase 6 ------------------------------------------------------------
-    say(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(6, t_start)
     # the step is host-bound, so its rate drifts with the shared host: the
     # two dtypes are measured one after the other
     runs = {}
@@ -2534,7 +2616,7 @@ def main():
     profile_steps("phase 6", mdl, st, 5, card)
 
     # phase 7 ------------------------------------------------------------
-    say(f"phase 7 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(7, t_start)
     kernels.reset_launches()
     probe_res = probe.gather_probe()
     torch.cuda.synchronize()
@@ -2547,7 +2629,7 @@ def main():
     probe.main()
 
     # phase 8 ------------------------------------------------------------
-    say(f"phase 8 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(8, t_start)
     big_wet = int(bm.mesh.node_layer_mask.sum())
     for dtype, sec in big_setup.items():
         say(f"phase 8 setup {str(dtype).replace('torch.', '')}: {sec:.3f} s "
@@ -2595,7 +2677,7 @@ def main():
         profile_steps("phase 8", run[0], run[1], 3, card)
 
     # phase 9 ------------------------------------------------------------
-    say(f"phase 9 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(9, t_start)
     dense_max = dense_max_saved = port_model.DENSE_SSH_MAX_NODES
     port_model.DENSE_SSH_MAX_NODES = 0
     try:
@@ -2615,7 +2697,7 @@ def main():
             fail(f"phase 9: {name} card vs CPU {rel:.3e} > 1e-8")
 
     # phase 10 -----------------------------------------------------------
-    say(f"phase 10 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(10, t_start)
     ci_kernels = cg_kernels + ("kpp_column",)
     wet = int(gmesh.node_layer_mask.sum())
     for dtype, sec in gm_setup.items():
@@ -2673,7 +2755,7 @@ def main():
                             "node_edge_reduce", "index"))
 
     # phase 11 -----------------------------------------------------------
-    say(f"phase 11 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(11, t_start)
     small = globe.write_globe(str(Path(__file__).resolve().parent / "build"
                                   / "chip_smoke" / "globe_l3"), level=3)
     for label, limit, w_max_cfl, tol in (
@@ -2708,7 +2790,7 @@ def main():
                 fail(f"phase 11: {label} {name} card vs CPU {rel:.3e} > {tol}")
 
     # phase 12 -----------------------------------------------------------
-    say(f"phase 12 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(12, t_start)
     ice_kernels = ("elem_contrib_to_nodes", "mevp_subcycles")
     coupled_kernels = ci_kernels + ice_kernels
     atm64 = gatm[torch.float64]
@@ -2838,8 +2920,8 @@ def main():
     # of its __global__ functions in the 3-step profiles above; None where
     # the profiler kept no event of it
     functions = {k: (f"::{k}_",) for k in coupled_kernels}
-    functions["block_schwarz"] = ("::local_solve_kernel<",
-                                  "::coarse_solve_kernel<", "::combine_kernel<")
+    functions["block_schwarz"] = ("::schwarz_local_kernel<",
+                                  "::schwarz_combine_kernel<")
     step_ms = {tag: {k: sum(v for key, v in us.items()
                             if any(f in key for f in functions[k])) / 1e3
                      or None for k in coupled_kernels}
@@ -2850,6 +2932,44 @@ def main():
                            if step_ms[tag][k] and launches_dtype[tag][k]}
                      for tag in step_ms}
     say(f"phase 12 device us a launch in the profiled steps: {per_launch_us}")
+    # one SSH solve on each dtype's level-7 CI state, preconditioned by the
+    # kernel and by the plain version on the padded tables: the same CG
+    # iterations, d_eta within 1e-9 of max|d_eta| (float32: 1e-3, CG to
+    # 2e-5 under two roundings of the preconditioner)
+    from fesom2_tpu_torch.core import dynamics
+    solve_check = {}
+    for dtype, (mdl, s_, i_, _) in cruns.items():
+        tag = str(dtype).replace("torch.", "")
+        f_ = gin[dtype][1]
+        _, u_rhs, v_rhs = dynamics.compute_vel_rhs(s_, mdl.mesh, f_, mdl.cfg)
+        rhs = ssh.compute_ssh_rhs(s_, mdl.mesh, mdl.cfg, f_, u_rhs, v_rhs)
+        pc = mdl.ssh_block_pc
+        x0 = 2.0 * s_.d_eta - s_.d_eta_prev
+        kernels.reset_launches()
+        d_k, it_k, res_k = ssh.solve_ssh(s_, mdl.mesh, mdl.cfg, pc, rhs,
+                                         mdl.ssh_ring, x0=x0)
+        n_k = kernels.LAUNCHES["block_schwarz"]
+        kernels.reset_launches()
+        d_p, it_p, res_p = ssh.solve_ssh(
+            s_, mdl.mesh, mdl.cfg,
+            lambda r, pc=pc: ops.halo_accumulate_nodes(
+                ssh.block_schwarz_plain(pc, r)), rhs, mdl.ssh_ring, x0=x0)
+        n_p = kernels.LAUNCHES["block_schwarz"]
+        rel = max_abs(d_k, d_p) / max(float(d_p.abs().max()), 1e-300)
+        tol = 1e-9 if dtype == torch.float64 else 1e-3
+        solve_check[tag] = dict(iterations=[int(it_k), int(it_p)],
+                                residual=[float(res_k), float(res_p)],
+                                rel=rel, launches=[n_k, n_p])
+        say(f"phase 12 SSH solve {tag} on the level-7 CI state: kernel "
+            f"{int(it_k)} CG iterations ({n_k} launches, residual "
+            f"{float(res_k):.3e}), plain preconditioner {int(it_p)} "
+            f"({float(res_p):.3e}); d_eta {rel:.3e} of max|d_eta| apart "
+            f"(tol {tol:.0e})")
+        if int(it_k) != int(it_p) or not rel <= tol or n_k < int(it_k) \
+                or n_p != 0 or not torch.isfinite(d_k).all():
+            fail(f"phase 12: the SSH solve with the kernel against the plain "
+                 f"preconditioner {solve_check[tag]}")
+    summary["block_schwarz"]["solve_kernel_vs_plain"] = solve_check
     # the subcycle loop of one step as the step runs it: one launch of
     # mevp_subcycles, wall ms by the host clock (to the synchronise after
     # it), ms between CUDA events around it and device ms by the profiler
@@ -2882,7 +3002,7 @@ def main():
     summary["mevp_subcycles"]["loop_ms_a_step"] = loop_ms
 
     # phase 13 -----------------------------------------------------------
-    say(f"phase 13 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(13, t_start)
     for label, limit in (("dense", dense_max_saved), ("CG forced", 0)):
         port_model.DENSE_SSH_MAX_NODES = limit
         try:
@@ -2924,7 +3044,7 @@ def main():
                          f"> 1e-8")
 
     # phase 14 -----------------------------------------------------------
-    say(f"phase 14 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(14, t_start)
     # the fast configuration's coupled step at full width: linfs + PP, full
     # cells, no GM/Redi, the same ice; no kpp_column, and tridiag_solve
     # without the GM streamfunction's solve
@@ -3019,7 +3139,7 @@ def main():
                 f" ({card}): {json.dumps(spans)}")
 
     # phase 15 -----------------------------------------------------------
-    say(f"phase 15 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(15, t_start)
     # the menus, card against CPU on the level-3 globe (the channel for the
     # forms that need full-cell linfs), 3 float64 steps each
     def menu_cfg(parity, ocean_only, **knobs):
@@ -3113,7 +3233,7 @@ def main():
         f"{time.perf_counter() - t15:.1f} s")
 
     # phase 16 -----------------------------------------------------------
-    say(f"phase 16 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(16, t_start)
     # the CI coupled step under the ice shelf at full width: the models of
     # phase 3 (setup_pi_model(cavity_depth=globe.shelf_draft(...)))
     sm64 = sm[torch.float64]
@@ -3233,7 +3353,7 @@ def main():
     say(f"phase 16 device ms a coupled step per kernel (profile): {shelf_ms}")
 
     # phase 17 -----------------------------------------------------------
-    say(f"phase 17 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(17, t_start)
     # card against CPU, 3 float64 coupled steps each: the shelf on the
     # level-3 globe (CI dense and CG forced; the fast configuration with
     # cavity partial cells under each PGF form it takes), and the CI step
@@ -3310,7 +3430,7 @@ def main():
     say(f"phase 17 {len(cases17)} cases in {time.perf_counter() - t17:.1f} s")
 
     # phase 18 -----------------------------------------------------------
-    say(f"phase 18 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(18, t_start)
     # the level-6 globe refined once (setup_pi_model(n_refine=1)): about
     # the level-7 globe's size, numbered as the subdivision leaves it
     l6 = globe.write_globe(str(Path(__file__).resolve().parent / "build"
@@ -3397,7 +3517,7 @@ def main():
                 f"{level7.get('subdivision', {}).get('batch_us')} ({card})")
 
     # phase 19 -----------------------------------------------------------
-    say(f"phase 19 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(19, t_start)
     # the column-physics menus on the CI coupled step at full width: the
     # TKE closure with IDEMIX, the salt plume and six tracers (T, S, the
     # rain tracer 101, the strait tracers 301-303) on the level-7 globe,
@@ -3590,7 +3710,7 @@ def main():
     say(f"phase 19 device ms a coupled step per kernel (profile): {tke_ms}")
 
     # phase 20 -----------------------------------------------------------
-    say(f"phase 20 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(20, t_start)
     # the menus of this slice, card against CPU on the level-3 globe, 3
     # float64 steps each (the ocean alone unless the case needs the ice),
     # and the toy channel cases on the soufflet channel
@@ -3702,7 +3822,7 @@ def main():
     say(f"phase 20 {len(cases20)} cases in {time.perf_counter() - t20:.1f} s")
 
     # phase 21 -----------------------------------------------------------
-    say(f"phase 21 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(21, t_start)
     # standard (whichEVP=0) and adaptive (2) EVP on the CI coupled step at
     # full width: phase 12's tables (shared buffers) and atmosphere, the
     # subdomain poleward of 40 degrees, the rheology's instantiation of
@@ -3806,7 +3926,7 @@ def main():
         rheo_report[f"whichEVP={which}"] = rep
 
     # phase 22 -----------------------------------------------------------
-    say(f"phase 22 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(22, t_start)
     # forcing and initial state from files at full width: the NCEP
     # test-set layout on the T62 grid's shape (192 x 94, latitudes
     # descending, 8 six-hourly wind records, 2 of radiation and of
@@ -3897,7 +4017,7 @@ def main():
                                      "host_ms": host22.get("step.forcing")}}
 
     # phase 23 -----------------------------------------------------------
-    say(f"phase 23 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(23, t_start)
     # card against CPU on the level-3 globe, 3 float64 coupled steps each:
     # every field within 1e-8 of max|CPU|, no kernel launched on the CPU
     from fesom2_tpu_torch.ice.coupling import ocean2ice as o2i
@@ -4018,7 +4138,7 @@ def main():
         f"{time.perf_counter() - t23:.1f} s")
 
     # phase 24 -----------------------------------------------------------
-    say(f"phase 24 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(24, t_start)
     # the Icepack CI coupled step at full width: phase 12's tables and
     # atmosphere, cfg.run.use_icepack with the default IcepackConfig (5
     # categories, 4 ice and 4 snow layers), its EVP on the whole mesh
@@ -4165,7 +4285,7 @@ def main():
     icepack_driver._KERNELS["temperature_solve"] = solve
 
     # phase 25 -----------------------------------------------------------
-    say(f"phase 25 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(25, t_start)
     # card against CPU on the level-3 globe, 3 float64 Icepack coupled
     # steps each (4 with ice_ave_steps = 2): every field of the ocean, the
     # ice and the IcepackState within 1e-8 of max|CPU|, no kernel on the
@@ -4231,7 +4351,7 @@ def main():
     say(f"phase 25 {len(cases25)} cases in {time.perf_counter() - t25:.1f} s")
 
     # phase 26 -----------------------------------------------------------
-    say(f"phase 26 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(26, t_start)
     # the run's output path at full width: phase 12's tables and
     # atmosphere with the DVD, the density-space MOC, the energy fields,
     # the stress curl, the 3D vorticity and the salt integral on; run_pi
@@ -4474,7 +4594,7 @@ def main():
     shutil.rmtree(out_root, ignore_errors=True)
 
     # phase 27 -----------------------------------------------------------
-    say(f"phase 27 starts at {time.perf_counter() - t_start:.1f} s")
+    phase_start(27, t_start)
     # card against CPU on the level-3 globe: 3 float64 coupled steps with
     # every &diag_list flag on, through run_pi with the streams (flushed
     # at the end) and a restart
@@ -4666,12 +4786,15 @@ def main():
                                              "whole_mesh_barrier_floor_ms",
                                              "whole_mesh_plan",
                                              "loop_ms_a_step",
-                                             "output_step_device_ms")
+                                             "output_step_device_ms",
+                                             "solve_kernel_vs_plain")
             if key in summary[k]},
          **({"shapes_step_device_ms": step_rows[k]} if k in step_rows
             else {})}
         for k in kernels.KERNELS]}))
-    say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
+    total = time.perf_counter() - t_start
+    say(json.dumps({"phase_wall_s": phase_walls(total)}))
+    say(f"chip_smoke took {total:.1f} s")
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -352,7 +352,10 @@ class BlockSchwarz:
     """Two-level additive Schwarz preconditioner: overlapping node blocks
     with dense inverses, plus a coarse solve over the non-overlapping
     partition (the counterpart of the reference's pARMS RAS, psolve.c:
-    77-100; symmetric, so CG stays valid)."""
+    77-100; symmetric, so CG stays valid).  ``packed`` (not a field: the
+    fields are the JAX package's tables) holds the kernel's layout of the
+    same inverses, ``pack_block_schwarz(self)``; the wrapper makes it at
+    the first CUDA apply where no one set it."""
     block_ids: torch.Tensor        # [nb, K] int32 node ids, -1 padding
     inv_blocks: torch.Tensor       # [nb, K, K]
     node_slots: torch.Tensor       # [N, S] int32 flat b*K+p, padding 0
@@ -361,10 +364,162 @@ class BlockSchwarz:
     coarse_inv: torch.Tensor       # [nb, nb] dense A0^-1
     coarse_part: torch.Tensor      # [N] int32 block of each node
 
+    packed = None                  # PackedSchwarz or None
+    checked = None                 # the tables the wrapper last checked
+
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         # a rank's boundary blocks write partial sums at halo slots: they
         # go to their owners (the identity on one device)
         return halo_accumulate_nodes(block_schwarz(self, r))
+
+
+# the packed layout's row stride is n_b rounded up to this many elements
+# (16-byte rows in float32 and float64: csrc/block_schwarz.cu's kAlign); a
+# tile holds at most SCHWARZ_TILE_ROWS rows and SCHWARZ_TILE_BYTES bytes
+# (one bulk copy into shared memory, at least one row), and a CUDA block
+# takes at most SHARED_BYTES of shared memory (H100: 227 KB)
+SCHWARZ_ALIGN = 4
+SCHWARZ_TILE_ROWS = 24
+SCHWARZ_TILE_BYTES = 96 * 1024
+SHARED_BYTES = 232448
+
+
+@dataclass
+class PackedSchwarz:
+    """A BlockSchwarz's block inverses as the ``block_schwarz`` kernel
+    streams them: block b's own n_b x n_b entries, each row padded with
+    zeros to a stride of n_b rounded up to ``SCHWARZ_ALIGN`` elements,
+    block after block from ``inv_off[b]``.  n_b is the block's extent: its
+    last node or node slot, so no padded row or column of ``inv_blocks``
+    is kept.  The rows of all blocks, in order, index the kernel's
+    per-row scratch: block b's rows are ``row_off[b]`` to ``row_off[b +
+    1]``, ``ids`` names each row's node and ``node_slots`` each node's rows.
+    Each block's rows are cut into tiles of at most ``SCHWARZ_TILE_ROWS``,
+    as even as the block allows; an empty block has one tile of no rows
+    (its coarse sum).  Every block's first tile comes before any block's
+    second: the first tiles form the coarse residual, counted on
+    ``counter[0]``, and once all have, the CUDA blocks take the coarse
+    level's rows in chunks, counted on ``counter[1]`` (both 0 between
+    applies)."""
+    inv: torch.Tensor         # [sum n_b * stride_b] the blocks' inverses
+    inv_off: torch.Tensor     # [nb] int64 first entry of block b
+    row_off: torch.Tensor     # [nb + 1] int32 first row of block b
+    ids: torch.Tensor         # [n_rows] int32 node of each row, -1 none
+    node_slots: torch.Tensor  # [N, S] int32 a node's rows, -1 none
+    tiles: torch.Tensor       # [n_tiles, 3] int32 (block, first row, rows)
+    counter: torch.Tensor     # [2] int32 the kernel's two counters
+    width: int                # K of the padded tables
+    max_rows: int             # max n_b
+    max_tile: int             # max rows * stride of a tile (entries)
+
+
+def schwarz_extents(block_ids: np.ndarray, node_slots: np.ndarray,
+                    node_valid: np.ndarray) -> np.ndarray:
+    """n_b [nb] of the padded tables: 1 + the last position of block b
+    that holds a node or that a valid node slot names."""
+    nb, K = block_ids.shape
+    ext = np.where(block_ids >= 0, np.arange(1, K + 1), 0).max(1) \
+        if K else np.zeros(nb, np.int64)
+    sb, pb = np.divmod(node_slots[node_valid].astype(np.int64), K)
+    np.maximum.at(ext, sb, pb + 1)
+    return ext.astype(np.int64)
+
+
+def schwarz_stride(sizes) -> np.ndarray:
+    """The packed row stride of blocks of ``sizes`` n_b."""
+    n = np.asarray(sizes, np.int64)
+    return -(-n // SCHWARZ_ALIGN) * SCHWARZ_ALIGN
+
+
+def schwarz_tiles(sizes, itemsize: int,
+                  tile_rows: int = SCHWARZ_TILE_ROWS) -> np.ndarray:
+    """[n_tiles, 3] (block, first row, rows): block b's rows cut into k =
+    ceil(n_b / m) tiles (at least one), m the rows of at most
+    ``tile_rows`` and SCHWARZ_TILE_BYTES (at least one), the first n_b % k
+    of them one row longer; every block's first tile first, then the
+    others in block order."""
+    out = []
+    for b, (n, st) in enumerate(zip(np.asarray(sizes, np.int64),
+                                    schwarz_stride(sizes))):
+        m = min(tile_rows, max(1, SCHWARZ_TILE_BYTES // max(
+            int(st) * itemsize, 1)))
+        k = max(1, -(-int(n) // m))
+        rows = [n // k + (i < n % k) for i in range(k)]
+        first = np.concatenate([[0], np.cumsum(rows)[:-1]])
+        out += [(b, int(f), int(r)) for f, r in zip(first, rows)]
+    out = np.asarray(out, np.int64).reshape(-1, 3)
+    return out[np.argsort(out[:, 1] > 0, kind="stable")].astype(np.int32)
+
+
+def pack_block_schwarz(pc: BlockSchwarz,
+                       tile_rows: int = SCHWARZ_TILE_ROWS) -> PackedSchwarz:
+    """The kernel's layout of ``pc``'s inverses and tables, on their
+    device (a copy bit for bit: ``unpack_block_schwarz`` gives the padded
+    tables back); tiles of at most ``tile_rows`` rows.  Raises where a
+    block's residual and one row of its inverse exceed a CUDA block's
+    shared memory (n_b above about 14,500 in float64)."""
+    ids = _np(pc.block_ids).astype(np.int64)
+    slots, valid = _np(pc.node_slots).astype(np.int64), _np(pc.node_slot_valid)
+    nb, K = ids.shape
+    if valid.any() and not (0 <= slots[valid].min()
+                            and slots[valid].max() < nb * K):
+        raise ValueError("block_schwarz: a node slot outside the blocks")
+    n = schwarz_extents(ids, slots, valid)
+    stride = schwarz_stride(n)
+    size = n * stride
+    itemsize = pc.inv_blocks.element_size()
+    tiles = schwarz_tiles(n, itemsize, tile_rows)
+    max_tile = int((tiles[:, 2] * stride[tiles[:, 0]]).max()) if nb else 0
+    if 16 + (int(stride.max(initial=0)) + max_tile) * itemsize \
+            > SHARED_BYTES:
+        raise ValueError(f"block_schwarz: blocks of {int(n.max())} nodes "
+                         f"exceed a CUDA block's shared memory")
+    inv_off = np.concatenate([[0], np.cumsum(size)[:-1]]).astype(np.int64)
+    row_off = np.concatenate([[0], np.cumsum(n)]).astype(np.int64)
+    dev = pc.inv_blocks.device
+    inv = torch.zeros(int(size.sum()), dtype=pc.inv_blocks.dtype, device=dev)
+    for b in range(nb):
+        if n[b]:
+            inv[inv_off[b]:inv_off[b] + size[b]].view(
+                int(n[b]), int(stride[b]))[:, :n[b]] = \
+                pc.inv_blocks[b, :n[b], :n[b]]
+    sb, pb = np.divmod(slots, max(K, 1))
+    packed_slots = np.where(valid, row_off[sb] + pb, -1)
+    flat_ids = np.concatenate([ids[b, :n[b]] for b in range(nb)]) \
+        if nb else np.zeros(0, np.int64)
+    i32 = lambda a: torch.as_tensor(np.asarray(a).astype(np.int32),
+                                    device=dev)
+    return PackedSchwarz(
+        inv, torch.as_tensor(inv_off, device=dev), i32(row_off),
+        i32(flat_ids), i32(packed_slots), i32(tiles), i32([0, 0]), K,
+        int(n.max()) if nb else 0, max_tile)
+
+
+def unpack_block_schwarz(pk: PackedSchwarz) -> tuple:
+    """(block_ids, inv_blocks, node_slots, node_slot_valid) in the padded
+    layout from the packed one: an identity on the rows past each block's
+    extent, 0 for the slot of no row."""
+    K = pk.width
+    row_off = _np(pk.row_off).astype(np.int64)
+    inv_off = _np(pk.inv_off)
+    nb = len(row_off) - 1
+    n = np.diff(row_off)
+    stride = schwarz_stride(n)
+    dev = pk.inv.device
+    inv = torch.eye(K, dtype=pk.inv.dtype, device=dev).repeat(nb, 1, 1)
+    ids = np.full((nb, K), -1, np.int64)
+    flat_ids = _np(pk.ids)
+    for b in range(nb):
+        inv[b, :n[b], :n[b]] = pk.inv[inv_off[b]:inv_off[b] + n[b]
+                                      * stride[b]].view(
+            int(n[b]), int(stride[b]))[:, :n[b]]
+        ids[b, :n[b]] = flat_ids[row_off[b]:row_off[b + 1]]
+    rows = _np(pk.node_slots).astype(np.int64)
+    valid = rows >= 0
+    blk = np.searchsorted(row_off, np.where(valid, rows, 0), side="right") - 1
+    slots = np.where(valid, blk * K + rows - row_off[np.maximum(blk, 0)], 0)
+    i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
+    return (i32(ids), inv, i32(slots), torch.as_tensor(valid, device=dev))
 
 
 def _masked_take(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -385,48 +540,85 @@ def block_schwarz_plain(pc: BlockSchwarz, r: torch.Tensor) -> torch.Tensor:
 
 def block_schwarz_work(n_nodes: int, nb: int, k: int, slots: int, kc: int,
                        itemsize: int) -> tuple:
-    """(bytes, flops) of one apply: r and y [N], the [nb, K, K] inverses
-    and [nb, nb] coarse inverse, the index tables (block_ids [nb, K],
-    node_slots [N, S] with its bool mask, coarse_ids [nb, Kc], coarse_part
-    [N]); the dense products and the two gather sums."""
+    """(bytes, flops) of one apply on the padded tables: r and y [N], the
+    [nb, K, K] inverses and [nb, nb] coarse inverse, the index tables
+    (block_ids [nb, K], node_slots [N, S] with its bool mask, coarse_ids
+    [nb, Kc], coarse_part [N]); the dense products and the two gather
+    sums."""
     nbytes = ((2 * n_nodes + nb * k * k + nb * nb) * itemsize
               + 4 * (nb * k + n_nodes * slots + nb * kc + n_nodes)
               + n_nodes * slots)
     return nbytes, 2 * nb * k * k + 2 * nb * nb + n_nodes * slots + nb * kc
 
 
+def block_schwarz_packed_work(n_nodes: int, sizes, slots: int, kc: int,
+                              itemsize: int) -> tuple:
+    """(bytes, flops) of one apply on the packed layout, blocks of
+    ``sizes`` n_b: r and y [N], each block's n_b rows at the aligned
+    stride, the [nb, nb] coarse inverse, the index tables (ids [sum n_b],
+    node_slots [N, S], coarse_ids [nb, Kc], coarse_part [N], row_off [nb +
+    1], inv_off [nb] int64, tiles [n_tiles, 3]); the products over the
+    blocks' own entries and the two gather sums."""
+    n = np.asarray(sizes, np.int64)
+    nb = len(n)
+    stride = schwarz_stride(n)
+    n_tiles = len(schwarz_tiles(n, itemsize))
+    nbytes = ((2 * n_nodes + int((n * stride).sum()) + nb * nb) * itemsize
+              + 4 * (int(n.sum()) + n_nodes * slots + nb * kc + n_nodes
+                     + nb + 1 + 3 * n_tiles) + 8 * nb)
+    return nbytes, (2 * int((n * n).sum()) + 2 * nb * nb + n_nodes * slots
+                    + nb * kc)
+
+
 def block_schwarz(pc: BlockSchwarz, r: torch.Tensor) -> torch.Tensor:
     """Apply the preconditioner to a node field r [N] (ref
-    BlockSchwarz.__call__, ssh.py:429-454)."""
+    BlockSchwarz.__call__, ssh.py:429-454): the plain version on the CPU,
+    the kernel on the packed layout on the card."""
     if r.device.type == "cpu":
         return block_schwarz_plain(pc, r)
     kernels.cuda_only(r, "block_schwarz")
+    if pc.packed is None:
+        pc.packed = pack_block_schwarz(pc)
+    return _block_schwarz_launch(pc, pc.packed, r)
+
+
+def _block_schwarz_launch(pc: BlockSchwarz, pk: PackedSchwarz,
+                          r: torch.Tensor) -> torch.Tensor:
     dev, dt = r.device, r.dtype
     r = r.contiguous()
     N = r.shape[0]
-    nb, K = pc.block_ids.shape
-    S = pc.node_slots.shape[1]
-    Kc = pc.coarse_ids.shape[1]
-    i32 = torch.int32
     kernels.require(r, "r", (N,), dt, dev)
-    kernels.require(pc.block_ids, "block_ids", (nb, K), i32, dev)
-    kernels.require(pc.inv_blocks, "inv_blocks", (nb, K, K), dt, dev)
-    kernels.require(pc.node_slots, "node_slots", (N, S), i32, dev)
-    kernels.require(pc.node_slot_valid, "node_slot_valid", (N, S),
-                    torch.bool, dev)
-    kernels.require(pc.coarse_ids, "coarse_ids", (nb, Kc), i32, dev)
-    kernels.require(pc.coarse_inv, "coarse_inv", (nb, nb), dt, dev)
-    kernels.require(pc.coarse_part, "coarse_part", (N,), i32, dev)
-    if K * r.element_size() > 48 * 1024:
-        raise ValueError(f"block_schwarz: blocks of K={K} nodes exceed 48 KB "
-                         "of shared memory")
-    yb = torch.empty(nb * K, dtype=dt, device=dev)
+    nb, Kc = pc.coarse_ids.shape
+    S = pk.node_slots.shape[1]
+    n_rows, n_tiles = pk.ids.shape[0], pk.tiles.shape[0]
+    # the tables, once for each packed form (held, so not another at the
+    # same address) and each device, dtype and N: a model's step applies
+    # one pair some 27 times
+    if pc.checked is None or pc.checked[0] is not pk \
+            or pc.checked[1:] != (dev, dt, N):
+        i32 = torch.int32
+        kernels.require(pk.tiles, "tiles", (n_tiles, 3), i32, dev)
+        kernels.require(pk.row_off, "row_off", (nb + 1,), i32, dev)
+        kernels.require(pk.inv_off, "inv_off", (nb,), torch.int64, dev)
+        kernels.require(pk.ids, "ids", (n_rows,), i32, dev)
+        kernels.require(pk.inv, "inv", tuple(pk.inv.shape), dt, dev)
+        kernels.require(pk.node_slots, "node_slots", (N, S), i32, dev)
+        kernels.require(pk.counter, "counter", (2,), i32, dev)
+        kernels.require(pc.coarse_ids, "coarse_ids", (nb, Kc), i32, dev)
+        kernels.require(pc.coarse_inv, "coarse_inv", (nb, nb), dt, dev)
+        kernels.require(pc.coarse_part, "coarse_part", (N,), i32, dev)
+        if pk.inv.dim() != 1 or pk.inv.data_ptr() % 16:
+            raise ValueError("block_schwarz: the packed inverses must be "
+                             "one 16-byte aligned row of entries")
+        pc.checked = (pk, dev, dt, N)
+    yb = torch.empty(n_rows, dtype=dt, device=dev)
     r0 = torch.empty(nb, dtype=dt, device=dev)
     y0 = torch.empty(nb, dtype=dt, device=dev)
     y = torch.empty_like(r)
-    kernels.launch("block_schwarz", dev, r, N, pc.block_ids, pc.inv_blocks,
-                   nb, K, pc.node_slots, pc.node_slot_valid, S, pc.coarse_ids,
-                   Kc, pc.coarse_inv, pc.coarse_part, yb, r0, y0, y,
+    kernels.launch("block_schwarz", dev, r, N, pk.tiles, n_tiles, pk.row_off,
+                   pk.inv_off, pk.ids, pk.inv, nb, pk.max_rows, pk.max_tile,
+                   pk.node_slots, S, pc.coarse_ids, Kc, pc.coarse_inv,
+                   pc.coarse_part, pk.counter, yb, n_rows, r0, y0, y,
                    kernels.float_code(dt))
     return y
 

@@ -45,8 +45,8 @@ _ARGTYPES = {
     "fct_bounds": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                    _P, _P, _I, _P],
     "ring_spmv": [_P, _P, _P, _I, _I, _P, _I, _P],
-    "block_schwarz": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _P,
-                      _P, _P, _P, _P, _I, _P],
+    "block_schwarz": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I,
+                      _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
     "window_gather": [_P, _P, _I, _I, _I, _I, _P, _P],
     "onehot_gather": [_P, _P, _I, _I, _I, _I, _P, _P],
     "pressure_bv": [_P] * 8 + [_I, _I, _I, _D, _D] + [_P] * 5 + [_I, _P],

@@ -185,7 +185,13 @@ class Model(nn.Module):
             raise ValueError("give the dense SSH inverse, or a "
                              "preconditioner of the CG solve (the block "
                              "preconditioner or the Jacobi diagonal)")
-        for prefix, obj in (("ring", ring), ("pc", block_pc)):
+        # the block preconditioner with the kernel's packed layout of its
+        # inverses (made here, once, where it lacks one)
+        packed = None if block_pc is None else (
+            block_pc.packed if block_pc.packed is not None
+            else ssh.pack_block_schwarz(block_pc))
+        for prefix, obj in (("ring", ring), ("pc", block_pc),
+                            ("pcp", packed)):
             self._unregister(prefix)
             if obj is not None:
                 self._register(prefix, obj)
@@ -228,7 +234,10 @@ class Model(nn.Module):
 
     @property
     def ssh_block_pc(self) -> Optional[ssh.BlockSchwarz]:
-        return self._group("pc")
+        pc = self._group("pc")
+        if pc is not None:
+            pc.packed = self._group("pcp")
+        return pc
 
     @property
     def ice_sub(self) -> Optional[IceSubdomain]:

@@ -811,12 +811,29 @@ def local_mesh(bundle: dict, device, dtype) -> MeshTables:
     return dataclasses.replace(mesh, cluster=build_cluster_tables(mesh))
 
 
+def rank_block_pc(pc: dict, device, dtype):
+    """A rank's row of ``build_block_schwarz_local``'s tables as a
+    BlockSchwarz whose coarse level adds nothing, with the kernel's packed
+    layout of its inverses."""
+    from ..core.ssh import BlockSchwarz, pack_block_schwarz
+    t = lambda a: torch.as_tensor(a, device=device)
+    nb = pc["block_ids"].shape[0]
+    n_loc = pc["node_slots"].shape[0]
+    out = BlockSchwarz(
+        t(pc["block_ids"].astype(np.int32)), t(pc["inv_blocks"]).to(dtype),
+        t(pc["node_slots"].astype(np.int32)), t(pc["node_slot_valid"]),
+        coarse_ids=t(np.full((nb, 1), -1, np.int32)),
+        coarse_inv=t(np.zeros((nb, nb))).to(dtype),
+        coarse_part=t(np.full(n_loc, -1, np.int32)))
+    out.packed = pack_block_schwarz(out)
+    return out
+
+
 def rank_model(bundle: dict, cfg, density_ref, device, dtype):
     """The rank's Model on its local tables: the local mesh, tracer
     statics, ice subdomain, and the SSH solve of the distributed
     formulation, matrix-free CG with the local block-Schwarz (its coarse
     level off) or, without one, the Jacobi diagonal."""
-    from ..core.ssh import BlockSchwarz
     from ..core.tracer_setup import TracerStatics
     from ..ice.subdomain import IceSubdomain
     from ..model import Model
@@ -830,16 +847,8 @@ def rank_model(bundle: dict, cfg, density_ref, device, dtype):
         nboundary_lay=t(st["nboundary_lay"]), Ki=f(st["Ki"]),
         nln_min=None if st["nln_min"] is None else t(st["nln_min"]))
     kw = {}
-    pc = bundle["block_pc"]
-    if pc is not None:
-        nb = pc["block_ids"].shape[0]
-        n_loc = mesh.n_nodes
-        kw["ssh_block_pc"] = BlockSchwarz(
-            t(pc["block_ids"].astype(np.int32)), f(pc["inv_blocks"]),
-            t(pc["node_slots"].astype(np.int32)), t(pc["node_slot_valid"]),
-            coarse_ids=t(np.full((nb, 1), -1, np.int32)),
-            coarse_inv=f(np.zeros((nb, nb))),
-            coarse_part=t(np.full(n_loc, -1, np.int32)))
+    if bundle["block_pc"] is not None:
+        kw["ssh_block_pc"] = rank_block_pc(bundle["block_pc"], dev, dtype)
     else:
         kw["ssh_diag_inv"] = f(bundle["diag_inv"])
     sub = bundle["ice_sub"]

@@ -64,10 +64,12 @@ def batch_ms(fn, calls: int = 20, batches: int = 1) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def kernel_us(fn, name: str, calls: int = 20, flush=None) -> float:
+def kernel_us(fn, name, calls: int = 20, flush=None) -> float:
     """Device microseconds per call of the CUDA kernels of fn() whose name
-    holds ``name``, from torch.profiler; ``flush`` (a large tensor) is
-    overwritten before every call, so each call finds a cold L2."""
+    holds ``name`` (or any of a tuple of names), from torch.profiler;
+    ``flush`` (a large tensor) is overwritten before every call, so each
+    call finds a cold L2."""
+    names = (name,) if isinstance(name, str) else tuple(name)
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
     fn()
@@ -80,7 +82,8 @@ def kernel_us(fn, name: str, calls: int = 20, flush=None) -> float:
                 fn()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and name in e.key) / calls
+                 if e.device_type == DeviceType.CUDA
+                 and any(n in e.key for n in names)) / calls
         if us > 0:
             return us
     return float("nan")

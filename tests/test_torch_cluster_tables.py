@@ -371,6 +371,10 @@ WORK = [
     (probe.window_gather_work(2, 3, 4, 5), (200, 0)),
     # the one-hot method: three bf16 products of 2*2*3*8*4 = 384 flops
     (probe.onehot_gather_work(2, 8, 3, 4), (376, 1152)),
+    # packed, blocks of 40, 0 and 1 nodes (strides 40, 0, 4; tiles 2, 1,
+    # 1): (200 + 1604 + 9)*8 = 14504, ints 4*(41+200+15+100+4+12) = 1488,
+    # inv_off 24; 2*(1600+1) + 18 + 200 + 15 flops
+    (ssh.block_schwarz_packed_work(100, [40, 0, 1], 2, 5, 8), (16016, 3435)),
 ]
 
 

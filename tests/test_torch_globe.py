@@ -97,6 +97,36 @@ def test_mesh_tables_match_jax(meshes):
             assert float(np.abs(a - b).max()) <= 1e-13 * scale, f.name
 
 
+def test_float32_tables_are_the_float64_tables_rounded(tmp_path):
+    """``build_mesh`` computes in float64 and rounds at the end, so the
+    float32 tables equal the float64 ones cast (``chip_smoke.py`` phase 3
+    casts the subdivision-numbered globe's tables so), here on the level-4
+    globe in subdivision numbering."""
+    from fesom2_tpu_torch.parallel.dist import tree_map
+    path = globe.write_globe(str(tmp_path), level=4, numbering="subdivision")
+    kw = dict(PC, device="cpu")
+    cast = tree_map(lambda t: t.to(torch.float32) if t.is_floating_point()
+                    else t, build_mesh(path, dtype=torch.float64, **kw))
+    want = build_mesh(path, dtype=torch.float32, **kw)
+
+    def fields(x, y, pre=""):
+        for f in dataclasses.fields(x):
+            a, b = getattr(x, f.name), getattr(y, f.name)
+            if dataclasses.is_dataclass(a):
+                yield from fields(a, b, pre + f.name + ".")
+            else:
+                yield pre + f.name, a, b
+
+    n = 0
+    for name, a, b in fields(cast, want):
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+            n += 1
+        else:
+            assert a == b, name
+    assert n > 40
+
+
 def test_depth_varies_with_partial_cells(meshes):
     _, tm = meshes
     nln = tm.nlevels_node.numpy()

@@ -13,7 +13,10 @@ coupled step on the level-3 and level-7 globes, and on the level-3 globe
 under MU71, the similarity coefficients, 7 ice / 1 snow layers, no column
 and a chunk schedule whose stop falls inside a chunk, and mevp_subcycles with its strength field on the whole level-7 globe;
 dens_moc_bin on the level-3 globe's state after two coupled steps, with
-odd layers; both kernels raise without nvcc).
+odd layers; both kernels raise without nvcc; block_schwarz on the
+channel's tables and on crafted blocks of unequal sizes, one node, none,
+n_b off the row stride and a block past 48 KB of shared memory, with no
+fallback to the plain version).
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run on a machine that has only torch:
@@ -204,6 +207,103 @@ def test_ssh_kernels_match_plain_on_card(mesh, rng, dtype, tol):
             <= tol * float(want.abs().max())
     assert kernels.LAUNCHES["ring_spmv"] == 1
     assert kernels.LAUNCHES["block_schwarz"] == 1
+
+
+def _crafted_schwarz(rng, sizes, n_nodes, pad=3):
+    """A BlockSchwarz of blocks of ``sizes`` nodes (drawn with overlap from
+    ``n_nodes``), padded to K = max + ``pad`` as the builder pads (-1 ids,
+    an identity past each block), seeded values for the inverses and the
+    coarse level, every node in some block's coarse part."""
+    nb, K = len(sizes), max(sizes) + pad
+    ids = np.full((nb, K), -1)
+    inv = np.tile(np.eye(K), (nb, 1, 1))
+    memb = [[] for _ in range(n_nodes)]
+    for b, n in enumerate(sizes):
+        ids[b, :n] = rng.choice(n_nodes, n, replace=False)
+        inv[b, :n, :n] = rng.uniform(-1, 1, (n, n))
+        for p_, nid in enumerate(ids[b, :n]):
+            memb[nid].append(b * K + p_)
+    S = max(1, max(len(m) for m in memb))
+    slots = np.zeros((n_nodes, S), np.int64)
+    valid = np.zeros((n_nodes, S), bool)
+    for nid, m in enumerate(memb):
+        slots[nid, :len(m)], valid[nid, :len(m)] = m, True
+    part = rng.integers(0, nb, n_nodes)
+    Kc = max(1, int(np.bincount(part, minlength=nb).max()))
+    cids = np.full((nb, Kc), -1)
+    for b in range(nb):
+        own = np.nonzero(part == b)[0]
+        cids[b, :len(own)] = own
+    i32 = lambda a: torch.as_tensor(np.asarray(a).astype(np.int32))
+    return ssh.BlockSchwarz(i32(ids), torch.as_tensor(inv), i32(slots),
+                            torch.as_tensor(valid), i32(cids),
+                            torch.as_tensor(rng.uniform(-1, 1, (nb, nb))),
+                            i32(part))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("sizes", [
+    [1, 0, 37, 64, 33, 130, 2, 0],     # one node, empty, ragged, 5 tiles
+    [5, 6, 7, 8, 9, 31, 32, 33, 65],   # n_b around the stride and tiles
+    [0]])                              # nothing but an empty block
+def test_block_schwarz_packed_blocks_on_card(rng, dtype, tol, sizes):
+    """The kernel on blocks of unequal sizes, n_b not a multiple of the
+    row stride, a block of one node and empty blocks: within the
+    tolerance of the plain version on the padded tables, the same bits on
+    a second call, one launch a call; the packing made on the card
+    unpacks to the padded tables bit for bit."""
+    _need_card()
+    pc = _on_card(_crafted_schwarz(rng, sizes, 300), dtype)
+    x = torch.as_tensor(rng.uniform(-1, 1, 300), device="cuda").to(dtype)
+    kernels.reset_launches()
+    got = pc(x)
+    again = ssh.block_schwarz(pc, x)
+    want = ssh.block_schwarz_plain(pc, x)
+    assert kernels.LAUNCHES["block_schwarz"] == 2
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) \
+        <= tol * max(float(want.abs().max()), 1e-300)
+    names = ("block_ids", "inv_blocks", "node_slots", "node_slot_valid")
+    for name, t in zip(names, ssh.unpack_block_schwarz(pc.packed)):
+        assert t.device.type == "cuda" and torch.equal(t, getattr(pc, name))
+
+
+@pytest.mark.cuda
+def test_block_schwarz_block_past_48kb_on_card(rng):
+    """A block of 6,200 nodes: its residual takes more than 48 KB of
+    shared memory in float64, which the launch asks for."""
+    _need_card()
+    pc = _on_card(_crafted_schwarz(rng, [6200, 40], 7000), torch.float64)
+    x = torch.as_tensor(rng.uniform(-1, 1, 7000), device="cuda")
+    got, want = pc(x), ssh.block_schwarz_plain(pc, x)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_block_schwarz_does_not_fall_back_on_card(mesh, monkeypatch):
+    """A dtype the packed tables do not hold, and a failed build, raise on
+    a CUDA tensor: the plain version is never run."""
+    _need_card()
+    from fesom2_tpu_torch.kernels import build
+    called = []
+    plain = ssh.block_schwarz_plain
+    monkeypatch.setattr(ssh, "block_schwarz_plain",
+                        lambda *a: called.append(a) or plain(*a))
+    pc = _on_card(ssh.build_block_schwarz(mesh, soufflet_config(),
+                                          block_size=32), torch.float64)
+    x = torch.zeros(mesh.n_nodes, dtype=torch.float64, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        pc(x.float())
+    monkeypatch.setattr(kernels, "_LIB", None)
+    monkeypatch.setattr(build, "library_path",
+                        lambda: build.BUILD_DIR / "absent" / "none.so")
+    monkeypatch.setattr(build, "find_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pc(x)
+    assert not called
 
 
 @pytest.mark.cuda

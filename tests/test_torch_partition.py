@@ -8,7 +8,11 @@ and level-5 globes (501 and 7,332 nodes, CPU): the default partition
 for S = 2, 4, 8, the node graph and the edge cut equal, the two-level
 partition equal, ``build_layout``'s default layout of the mesh equal to
 JAX's, the block-Schwarz blocks still cut by the plain bisection (JAX's
-tables), and a failed build raising with the compiler's output.
+tables), the block_schwarz kernel's packed layout of the globe's and of
+the rank-local preconditioners (level 5 over 4 ranks) round-tripping bit
+for bit with its data flow walked in numpy against the plain version and
+JAX's apply (1e-13), and a failed build raising with the compiler's
+output.
 """
 import numpy as np
 import pytest
@@ -18,12 +22,14 @@ from fesom2_tpu.mesh import build_mesh as jax_build_mesh
 from fesom2_tpu.core import ssh as jssh
 from fesom2_tpu.parallel import dist as jdist, partition as jpart
 
+from fesom2_tpu_torch.convert import to_numpy
 from fesom2_tpu_torch.core import ssh
 from fesom2_tpu_torch.mesh import build_mesh, globe
 from fesom2_tpu_torch.model import pi_config
 from fesom2_tpu_torch.parallel import dist, partition
 
-from test_torch_ssh_cg import assert_tables_equal
+from test_torch_ssh_cg import (assert_packing_round_trips,
+                               assert_tables_equal, kernel_walk)
 
 
 @pytest.fixture(scope="module")
@@ -116,6 +122,48 @@ def test_block_schwarz_blocks_unchanged(meshes):
     assert np.array_equal(partition._partition_numpy(xyz, ones, 8),
                           jpart._partition_numpy(jpart._sphere_xyz(jm),
                                                  ones, 8))
+
+
+@pytest.fixture(scope="module")
+def local_pcs(meshes):
+    """The rank-local preconditioners of ``build_block_schwarz_local`` on
+    the level-5 globe over 4 ranks, as ``dist.rank_model`` makes them."""
+    _, tm = meshes[5]
+    layout = dist.build_layout(tm, 4, cfg=pi_config())
+    return [dist.rank_block_pc(dist.rank_bundle(layout, r)["block_pc"],
+                               "cpu", torch.float64) for r in range(4)]
+
+
+def test_block_schwarz_packing_on_the_globe(meshes):
+    """The kernel's packed layout round-trips bit for bit on the globe's
+    preconditioner, and its data flow, walked in numpy, equals the plain
+    version and JAX's apply within 1e-13 of max|ref|."""
+    jm, tm = meshes[3]
+    cfg = pi_config()
+    pc = ssh.build_block_schwarz(tm, cfg, block_size=64)
+    assert pc.block_ids.shape[0] == 8
+    assert_packing_round_trips(pc)
+    r = np.random.default_rng(9).standard_normal(tm.n_nodes)
+    got = kernel_walk(pc, r)
+    plain = ssh.block_schwarz_plain(pc, torch.as_tensor(r)).numpy()
+    ref = np.asarray(jssh.build_block_schwarz(jm, cfg, block_size=64)(r))
+    for want in (plain, ref):
+        assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
+
+
+def test_block_schwarz_packing_rank_local(local_pcs):
+    """The same on each rank's tables (no coarse level; an empty block
+    where a rank has fewer than the most): rank_block_pc packs them."""
+    rng = np.random.default_rng(10)
+    sizes = [np.diff(to_numpy(pc.packed.row_off)) for pc in local_pcs]
+    assert any((n == 0).any() for n in sizes)
+    for pc in local_pcs:
+        pk = assert_packing_round_trips(pc)
+        assert pc.packed is not None and torch.equal(pc.packed.inv, pk.inv)
+        r = rng.standard_normal(pc.node_slots.shape[0])
+        got = kernel_walk(pc, r)
+        want = ssh.block_schwarz_plain(pc, torch.as_tensor(r)).numpy()
+        assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
